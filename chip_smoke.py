@@ -4,35 +4,50 @@
     python3 chip_smoke.py            # the full check, as the acceptance run
     python3 chip_smoke.py --steps 20 # shorter episode while iterating
 
-Phases (any failure raises and exits non-zero):
+Phases (any failure raises and exits non-zero), each printing its wall time:
   1. device: the card's name and power limit (nvidia-smi); build every
      CUDA kernel of the port from `diffcloth_tpu_torch/csrc/` with nvcc, one
      process per source, all at once.
-  2. kernels: each kernel's wrapper on card tensors at the main path's
+  2. kernels: each kernel's wrapper on card tensors at the main paths'
      shapes (flagship stand-in, n = 1024, B = 32; folded and random states,
-     an overflow row among them) against its plain PyTorch version on the
-     same inputs — detection exactly, the friction sweep within rtol 1e-5 —
+     an overflow row among them, friction at full layer-0 budget) against
+     its plain PyTorch version on the same inputs (detection exactly, the
+     friction sweeps forward and backward within rtol 1e-5 / atol 1e-6),
      timed beside the plain version and the least time the card could
-     take: device time per call from torch.profiler (the JSON line's
-     `ms` and `plain_ms`) and wall time of back-to-back calls from CUDA
-     events.
-  3. main path: `ClothSim(...).rollout` of a batch of 32 perturbed-wind
+     take: device time per call from torch.profiler (the JSON line's `ms`
+     and `plain_ms`) and wall time of back-to-back calls from CUDA events.
+  3. forward path: `ClothSim(...).rollout` of a batch of 32 perturbed-wind
      episodes of the flagship stand-in (half of them starting folded half
      over half) for the full 250 steps on the card.  Launch counters are
      zeroed just before and read just after: detection runs once per step,
-     friction once per PD sweep.  Prints the converged fraction, mean PD
-     iterations, contact pairs per step, the share of steps with contact,
-     overflow steps, active friction slots per launch and PD steps/s.
-  4. profile: the first 10 steps of the same batch under torch.profiler:
-     the device-busy share of the window, the operators with the most
-     device time, and each hand-written kernel's device time per call.
+     friction once per PD sweep.
+  4. profile: the first 10 steps of the same batch under torch.profiler.
   5. reference: a small folded episode on the card against the same
      episode through the plain versions on the CPU.
+  6. gradient path: one batched value-and-grad through
+     `OptimizeHelper.batched_loss_and_grad` (GradMask(f_wind=True)) of the
+     same 32 episodes, 250 steps, MATCH_TRAJECTORY against the base wind's
+     rollout.  Counters zeroed just before and read just after: the
+     backward friction kernel launches once per adjoint trip, GMRES matvec
+     and residual VJP.  Prints episode-gradient steps/s, the forward and
+     backward shares, adjoint trips per step, fallback steps and active
+     slots per backward launch.
+  7. gradient profile: a 10-step value-and-grad of the batch under
+     torch.profiler.
+  8. trainer: `solve_demo("wind", seed=1, population=4, maxiter=1)` on the
+     card, the loss per iteration; the final loss must be below the
+     initial one.
+  9. gradient reference: the f64 value-and-grad of a small folded episode
+     batch on the card against the same call on the CPU.
 
-Prints one JSON line `{"kernels": [...]}`, the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`.  Needs one card; imports nothing of JAX.
+Prints one JSON line `{"kernels": [...]}` (each kernel's launches counted
+on the path that runs it: the forward path for detection and the forward
+sweep, the gradient path for the backward sweep), the nvidia-smi line,
+and last `{"ok": true, "device": {...}}`.  Needs one card; imports nothing
+of JAX.
 """
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -53,8 +68,17 @@ DETECT_OPS_PER_PAIR = 20
 # split (sd 5, fN 3, fT 3, |fT|^2 5, sqrt 1, compares 3, t_hat 3, the
 # slide force 7), k_red scaling 3, the row add 3
 FRICTION_OPS_PER_SLOT = 45
+# f32 operations of the backward sweep per active slot: d (9), the case
+# split (sd 5, fN 3, fT 3, |fT|^2 5, sqrt 1, slide 2, compares 3), t_hat 3,
+# the Jacobian^T product (n.w 5, t.w 5, sign 2, its factor 3, w - (n.w)n -
+# (t.w)t 12, the slide scale 7, selects 6), the friction force for the
+# k_red cotangent (9), u = k_red jt (3), the row and partner adds and their
+# scales (12), the three slot cotangents (16)
+FRICTION_BWD_OPS_PER_SLOT = 114
 # episodes of the main path's batch (perturbed winds, half starting folded)
 BATCH = 32
+# the flagship's base wind; the batch's winds are perturbations of it
+BASE_WIND = [0.04, 0.004, 0.04]
 
 
 def log(msg):
@@ -104,6 +128,21 @@ def device_ms(fn, reps=20, warmup=3):
     if us == 0:
         raise AssertionError("the profiler saw no device time")
     return us / 1e3 / reps
+
+
+class Timer:
+    """`with timer(name):` prints the wall seconds of the phase inside."""
+
+    def __init__(self):
+        self.total = 0.0
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        t0 = time.perf_counter()
+        yield
+        dt = time.perf_counter() - t0
+        self.total += dt
+        log(f"[time] {name}: {dt:.1f} s")
 
 
 def flagship(dtype, device, steps=None):
@@ -222,8 +261,40 @@ def phase_kernels(sim, B, rng):
     fr_bound = max(fr_bytes / HBM_BYTES_PER_S, fr_ops / F32_FLOPS) * 1e3
     fr_by = ("bytes" if fr_bytes / HBM_BYTES_PER_S > fr_ops / F32_FLOPS
              else "operations")
+
+    # the backward sweep at the forward's selects, on a random cotangent
+    g = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
+    bwd_k = fc.friction_sweep_bwd(g, kg, kred, imr, imp, vals_k, cfg.budgets)
+    bwd_p = fc.friction_sweep_bwd_plain(g, kg, kred, imr, imp, vals_k,
+                                        cfg.budgets)
+    torch.cuda.synchronize()
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(bwd_k, bwd_p))
+    if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+               for a, b in zip(bwd_k, bwd_p)):
+        raise AssertionError(f"friction_bwd kernel != plain: max error "
+                             f"{bwd_err}")
+    if float((bwd_p[0] - g).abs().max()) == 0.0:
+        raise AssertionError("friction_bwd inputs have no active contact")
+    log(f"[kernels] friction_bwd: kernel vs plain max error {bwd_err:.3e} "
+        f"over g' and the three slot cotangents (rtol 1e-5, atol 1e-6); "
+        f"{active} active slots")
+    fb = lambda: fc.friction_sweep_bwd(  # noqa: E731
+        g, kg, kred, imr, imp, vals_k, cfg.budgets)
+    fb_plain = lambda: fc.friction_sweep_bwd_plain(  # noqa: E731
+        g, kg, kred, imr, imp, vals_k, cfg.budgets)
+    fb_ev = (time_cuda(fb), time_cuda(fb_plain))
+    fb_ms, fb_plain_ms = device_ms(fb), device_ms(fb_plain)
+    # g in and out, the active slots' data (indices 2, normal 3, masses 3)
+    # and selects (6), the three slot cotangents written for every slot
+    fb_bytes = (2 * g.numel() * 4 + active * 4 * (2 + 3 + 3 + 6)
+                + 3 * B * TC * 4 + kg.counts.numel() * 4)
+    fb_ops = active * FRICTION_BWD_OPS_PER_SLOT
+    fb_bound = max(fb_bytes / HBM_BYTES_PER_S, fb_ops / F32_FLOPS) * 1e3
+    fb_by = ("bytes" if fb_bytes / HBM_BYTES_PER_S > fb_ops / F32_FLOPS
+             else "operations")
     for name, dev_ms, ev in (("detection", (det_ms, det_plain_ms), det_ev),
-                             ("friction", (fr_ms, fr_plain_ms), fr_ev)):
+                             ("friction", (fr_ms, fr_plain_ms), fr_ev),
+                             ("friction_bwd", (fb_ms, fb_plain_ms), fb_ev)):
         log(f"[kernels] {name}: device ms per call kernel {dev_ms[0]:.4f}, "
             f"plain {dev_ms[1]:.4f} (profiler); back-to-back wall ms per "
             f"call kernel {ev[0]:.4f}, plain {ev[1]:.4f} (CUDA events)")
@@ -240,6 +311,12 @@ def phase_kernels(sim, B, rng):
              launches=0, max_abs_err=max(fric_err, vals_err), ms=fr_ms,
              plain_ms=fr_plain_ms, bound_ms=fr_bound, bound_by=fr_by,
              library_ms=None),
+        dict(name="friction_bwd", route="cuda",
+             source="diffcloth_tpu_torch/csrc/friction_bwd.cu",
+             replaces="diffcloth_tpu/core/friction_pallas.py:309",
+             launches=0, max_abs_err=bwd_err, ms=fb_ms,
+             plain_ms=fb_plain_ms, bound_ms=fb_bound, bound_by=fb_by,
+             library_ms=None),
     ]
 
 
@@ -248,11 +325,11 @@ def episode_params(sim, B):
     episodes starting folded."""
     import torch
     base = sim.default_params().replace(
-        wind=torch.tensor([0.04, 0.004, 0.04], device=sim.device),
+        wind=torch.tensor(BASE_WIND, device=sim.device),
         wind_freq=torch.tensor(10.0, device=sim.device),
         wind_phase=torch.tensor(0.5, device=sim.device))
     winds = (np.random.RandomState(0).randn(B, 3) * 0.02
-             + np.array([0.04, 0.004, 0.04]))
+             + np.array(BASE_WIND))
     return base.expand(B).replace(
         wind=torch.as_tensor(winds, dtype=sim.dtype, device=sim.device),
         x0=torch.as_tensor(initial_states(sim, B), dtype=sim.dtype,
@@ -405,6 +482,221 @@ def phase_reference(steps):
         f"CPU max |dx| {err:.3e} (tolerance 1e-6), iters within {d_it}")
 
 
+def base_wind_target(sim, params):
+    """MATCH_TRAJECTORY against the rollout of the same episodes with the
+    base wind (forward only, before the gradient's run)."""
+    import torch
+    from diffcloth_tpu_torch import losses
+    from diffcloth_tpu_torch.config import LossType
+    base = params.replace(wind=torch.tensor(
+        BASE_WIND, dtype=sim.dtype, device=sim.device).expand_as(
+            params.wind).contiguous())
+    target = sim.rollout_chunked(base).full_x()
+    return losses.make_loss_fn(LossType.MATCH_TRAJECTORY,
+                               losses.LossInfo(target_x=target))
+
+
+def phase_gradient(sim, B, card):
+    """The port's training path: one batched episode value-and-grad through
+    the optimizer's objective, on the card."""
+    import torch
+    from diffcloth_tpu_torch.core import friction_cuda as fc
+    from diffcloth_tpu_torch.core import selfcol_cuda as scd
+    from diffcloth_tpu_torch.optim.helper import GradMask, OptimizeHelper
+
+    params = episode_params(sim, B)
+    t0 = time.perf_counter()
+    loss_fn = base_wind_target(sim, params)
+    torch.cuda.synchronize()
+    log(f"[gradient] target: the base wind's {sim.n_steps}-step rollout of "
+        f"the batch, {time.perf_counter() - t0:.2f} s")
+    helper = OptimizeHelper(sim, GradMask(f_wind=True), loss_fn,
+                            param_base=params)
+    X = np.stack([helper.params_to_vec(params.sample(i)) for i in range(B)])
+    torch.cuda.synchronize()
+    scd.detect_partners.launches = 0
+    fc.friction_sweep.launches = 0
+    fc.friction_sweep_bwd.launches = 0
+    sim.bwd_stats.reset()
+    t0 = time.perf_counter()
+    L, G = helper.batched_loss_and_grad(X)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"selfcol_detect": scd.detect_partners.launches,
+                "friction_fwd": fc.friction_sweep.launches,
+                "friction_bwd": fc.friction_sweep_bwd.launches}
+    st = sim.bwd_stats.summary()
+    N = sim.n_steps
+    if L.shape != (B,) or G.shape != (B, X.shape[1]):
+        raise AssertionError(f"loss {L.shape}, gradient {G.shape}")
+    if not (np.isfinite(L).all() and np.isfinite(G).all()):
+        raise AssertionError("non-finite loss or gradient")
+    if not ((L > 0).all() and (np.abs(G).max(axis=1) > 0).all()):
+        raise AssertionError("a zero loss or gradient")
+    if launches["selfcol_detect"] != N:
+        raise AssertionError(f"detection launched {launches} times, "
+                             f"expected once per step ({N})")
+    if launches["friction_bwd"] != st["launches"]:
+        raise AssertionError(
+            f"friction_bwd launched {launches['friction_bwd']} times, not "
+            f"once per adjoint trip ({st['trips']:.0f}), GMRES matvec "
+            f"({st['gmres_matvecs']:.0f}) and residual VJP "
+            f"({st['residual_vjps']:.0f})")
+    split = helper.last_split
+    log(f"[gradient] {N} steps x B={B} on {card}: {wall:.2f} s, "
+        f"{B * N / wall:.1f} episode-gradient steps/s; forward "
+        f"{split['forward_s']:.2f} s ({100 * split['forward_s'] / wall:.1f} "
+        f"%), backward {split['backward_s']:.2f} s "
+        f"({100 * split['backward_s'] / wall:.1f} %)")
+    log(f"[gradient] loss mean {L.mean():.6e} (min {L.min():.3e}, max "
+        f"{L.max():.3e}); |dL/dwind| max {np.abs(G[:, :3]).max():.3e}; "
+        f"launches {launches}; adjoint: {st['trips']:.0f} fixed-point "
+        f"trips over the batch, {st['lane_trips'] / st['lane_steps']:.2f} "
+        f"mean trips per episode-step, {st['fallback_lanes']:.0f} of "
+        f"{st['lane_steps']:.0f} episode-steps fell to GMRES "
+        f"({st['gmres_matvecs']:.0f} matvecs), {st['residual_vjps']:.0f} "
+        f"residual VJPs; {st['slot_launches'] / st['launches']:.1f} active "
+        f"friction slots per backward launch (of "
+        f"{B * sum(sim.self_cfg.budgets)}); "
+        f"{split['backward_s'] * 1e3 / st['launches']:.3f} ms backward wall "
+        f"per friction_bwd launch")
+    return launches
+
+
+def phase_profile_gradient(B, steps, card, top=8):
+    """Where the time of the gradient path goes: a `steps`-step batched
+    value-and-grad under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sim = flagship(torch.float32, "cuda", steps)
+    params = episode_params(sim, B)
+    loss_fn = base_wind_target(sim, params)
+    vg = sim.episode_value_and_grad(loss_fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vg(params)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy_ms = sum(ms for _, ms, _ in ops)
+    if busy_ms == 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"[profile-grad] {steps} steps x B={B} on {card}: wall "
+        f"{wall_ms:.1f} ms (forward {vg.split['forward_s'] * 1e3:.1f}, "
+        f"backward {vg.split['backward_s'] * 1e3:.1f}; inflated by the "
+        f"profiler), device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f} %), "
+        f"{sum(c for _, _, c in ops)} device launches")
+    for key, ms, count in sorted(ops, key=lambda o: -o[1])[:top]:
+        log(f"[profile-grad]   {100 * ms / busy_ms:5.1f} % of device time  "
+            f"{ms:8.2f} ms  {count:6d} calls  {key[:90]}")
+    hits = [(ms, count) for key, ms, count in ops
+            if "friction_bwd_kernel" in key]
+    if not hits:
+        raise AssertionError("the profiler saw no friction_bwd_kernel")
+    ms, count = map(sum, zip(*hits))
+    log(f"[profile-grad] friction_bwd: {count} calls, "
+        f"{1e3 * ms / count:.2f} us device time per call")
+
+
+def phase_trainer(card):
+    """The trainer through its normal entry point: one iteration of a
+    population L-BFGS-B fit of the wind demo on the card, seeded (all four
+    candidates random restarts).  Every line-search try is a batched
+    evaluation of about a minute here (the f32 adjoint's fixed point and
+    GMRES fallback run to their caps in many steps); from the default
+    guess, or in a second iteration, the line search backtracks about ten
+    times, which overran the script's time limit."""
+    from diffcloth_tpu_torch.optim.solver import solve_demo
+
+    P = 4
+
+    def report(k, X, F):
+        log(f"[trainer] iteration {k}: losses "
+            f"{np.array2string(F, precision=6)}")
+
+    res = solve_demo("wind", seed=1, population=P, maxiter=1,
+                     callback=report)
+    initial = np.array([loss for loss, _ in res.helper.history[:P]])
+    final = res.result.loss
+    st = res.task.sim.bwd_stats.summary()
+    log(f"[trainer] wind demo (n = {res.task.sim.n}, "
+        f"{res.task.sim.n_steps} steps) on {card}: {P} candidates, best "
+        f"loss {initial.min():.6e} -> {final:.6e} in "
+        f"{res.wallclock_s:.1f} s ({res.result.n_evals} batched "
+        f"evaluations); initial losses "
+        f"{np.array2string(initial, precision=6)}; adjoint over all "
+        f"evaluations: {st['lane_trips'] / st['lane_steps']:.2f} trips per "
+        f"episode-step, {st['fallback_lanes']:.0f} of {st['lane_steps']:.0f} "
+        f"episode-steps fell to GMRES, {st['launches']:.0f} friction_bwd "
+        f"launches")
+    if not (np.isfinite(final) and final < initial.min()):
+        raise AssertionError(f"the fit did not lower the loss: "
+                             f"{initial.min()} -> {final}")
+
+
+def phase_gradient_reference(steps):
+    """The f64 value-and-grad of a small folded batch on the card against
+    the same call on the CPU (the CPU path is held to the JAX package by
+    the tests).  Tolerance: 1e-6 of each parameter class's largest entry;
+    the adjoint runs to 1e-8, and the two devices differ only in summation
+    order (the kernels equal their plain versions)."""
+    import dataclasses
+    import torch
+    from diffcloth_tpu_torch import losses
+    from diffcloth_tpu_torch.config import LossType
+    from diffcloth_tpu_torch.core.sim import ClothSim
+    from diffcloth_tpu_torch.geometry import builder as gb
+    from diffcloth_tpu_torch.geometry import states
+    from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
+
+    cfg = TSHIRT_GRID_STANDIN
+    cfg = dataclasses.replace(
+        cfg, step_num=steps, backward_convergence_thresh=1e-8,
+        fabric=dataclasses.replace(cfg.fabric, grid_num_x=10,
+                                   grid_num_y=10))
+    scene = gb.build_scene(cfg)
+    x0 = np.stack([states.folded_grid(scene, 5,
+                                      1.5 * float(scene.radii.mean())),
+                   scene.x_rest])
+    winds = np.array([[0.5, 0.05, 0.5], [0.2, 0.0, 0.4]])
+    target = None
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sim = ClothSim(scene, device=dev, dtype=torch.float64)
+        t64 = lambda a: torch.as_tensor(a, dtype=torch.float64,  # noqa
+                                        device=sim.device)
+        p = sim.default_params().expand(2).replace(x0=t64(x0))
+        if target is None:
+            target = sim.rollout(p.replace(wind=t64(winds))).full_x()
+        loss_fn = losses.make_loss_fn(
+            LossType.MATCH_TRAJECTORY,
+            losses.LossInfo(target_x=target.to(sim.device)))
+        L, g = sim.episode_value_and_grad(loss_fn)(
+            p.replace(wind=t64(winds * 0.7)))
+        out[dev] = (L.cpu(), {k: v.cpu() for k, v in g.items()})
+    (Lc, gc), (Lg, gg) = out["cpu"], out["cuda"]
+    rel = {}
+    for k, a in gc.items():
+        scale = float(a.abs().max())
+        rel[k] = float((gg[k] - a).abs().max()) / max(scale, 1e-300)
+        if rel[k] > 1e-6:
+            raise AssertionError(f"card vs CPU gradient {k}: {rel[k]:.3e} "
+                                 f"of its largest entry")
+    if not torch.allclose(Lg, Lc, rtol=1e-9, atol=0):
+        raise AssertionError(f"card vs CPU loss {Lg} vs {Lc}")
+    log(f"[grad-reference] 10x10 folded grid, {steps} steps, f64, B=2: card "
+        f"vs CPU loss {Lg.tolist()} vs {Lc.tolist()}; gradient max error "
+        f"per class / its largest entry (tolerance 1e-6): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=None,
@@ -432,12 +724,27 @@ def main():
 
     rng = np.random.RandomState(0)
     sim = flagship(torch.float32, "cuda", args.steps)
-    kernels = phase_kernels(sim, BATCH, rng)
-    launches = phase_main_path(sim, BATCH, card)
+    timed = Timer()
+    with timed("kernels"):
+        kernels = phase_kernels(sim, BATCH, rng)
+    with timed("forward path"):
+        launches = phase_main_path(sim, BATCH, card)
+    with timed("forward profile"):
+        phase_profile(BATCH, 10, card)
+    with timed("forward reference"):
+        phase_reference(10)
+    with timed("gradient path"):
+        launches["friction_bwd"] = phase_gradient(
+            sim, BATCH, card)["friction_bwd"]
+    with timed("gradient profile"):
+        phase_profile_gradient(BATCH, 10, card)
+    with timed("trainer"):
+        phase_trainer(card)
+    with timed("gradient reference"):
+        phase_gradient_reference(10)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    phase_profile(BATCH, 10, card)
-    phase_reference(10)
+    log(f"[time] all phases {timed.total:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

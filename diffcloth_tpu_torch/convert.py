@@ -1,14 +1,17 @@
-"""Hand parameters from the JAX package to the port as plain numpy arrays.
+"""Hand parameters between the JAX package and the port as plain numpy
+arrays.
 
 `sim_params_from_numpy` takes the JAX `SimParams` as a dict of numpy arrays
 (`{k: np.asarray(v) for k, v in p._asdict().items()}`), with or without a
 leading batch dim, and returns the port's `SimParams`, so that both
-packages compute the same episode.  Nothing here imports JAX.
+packages compute the same episode.  `sim_params_to_numpy` is its inverse,
+for the port's parameters and its gradients alike (a dict that the JAX
+`SimParams(**d)` takes).  Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -26,3 +29,7 @@ def sim_params_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
         k: torch.as_tensor(np.array(arrays[k])).to(device=device,
                                                       dtype=dtype)
         for k in names})
+
+
+def sim_params_to_numpy(params: SimParams) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

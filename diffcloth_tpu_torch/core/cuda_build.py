@@ -4,8 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into its own shared library under
 `build/torch_kernels/` at the repository root, then loaded with `ctypes`
 (no PyTorch headers, so a build takes seconds).  Libraries are named by a
-hash of their source and flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is built at import time: the first CUDA
+hash of their source, the shared headers (`csrc/*.cuh`) and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused.  Nothing is built at import time: the first CUDA
 launch builds what it needs, and `build_all` builds every kernel at once,
 one `nvcc` process per source, all started together.
 """
@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
 # every kernel source of the port
-KERNELS = ("selfcol_detect", "friction_fwd")
+KERNELS = ("selfcol_detect", "friction_fwd", "friction_bwd")
 
 # --fmad=false: no multiply-add contraction, so a kernel's f32 arithmetic
 # rounds op for op like its plain PyTorch version (detection hits at the
@@ -52,8 +52,11 @@ def nvcc_path() -> str:
 
 def _paths(name: str):
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     lib = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
     return src, lib
 

@@ -1,12 +1,15 @@
 """Layered self-friction over compact contact slots: slot geometry, the
-CUDA forward sweep and its plain PyTorch version.
+CUDA forward and backward sweeps and their plain PyTorch versions.
 
 Counterpart of `diffcloth_tpu/core/friction_pallas.py`: `layer_specs`,
-`KernelGeom`, `build_kernel_geom` (with `x=`), `slot_masses` (:76-202) and
-`self_friction_kernel` (:495-516).  The TPU `_fwd_kernel` becomes
-`csrc/friction_fwd.cu`; `friction_sweep` launches it for CUDA tensors and
-runs `friction_sweep_plain` for CPU tensors.  The sweep is exact f32
-whatever the simulation dtype, as in the JAX package.
+`KernelGeom`, `build_kernel_geom` (with `x=`), `slot_masses` (:76-202),
+the custom-VJP sweep (:472-492) and `self_friction_kernel` (:495-516).
+The TPU `_fwd_kernel` becomes `csrc/friction_fwd.cu` and `_bwd_kernel`
+(the transposed linearization at the saved selects) `csrc/friction_bwd.cu`;
+`friction_sweep` / `friction_sweep_bwd` launch them for CUDA tensors and
+run `friction_sweep_plain` / `friction_sweep_bwd_plain` for CPU tensors.
+`FrictionSweep` ties the two together as a `torch.autograd.Function`.  The
+sweep is exact f32 whatever the simulation dtype, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -152,12 +155,17 @@ def dry_friction_slots(nrm: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 def friction_sweep_plain(fr, geom: KernelGeom, kred, imr, imp,
                          budgets: tuple):
     """Plain PyTorch version of the sweep kernel.  fr (B, n, 3) f32 ->
-    (fr' (B, n, 3), vals (B, 6, TC)); vals rows 0-2 hold q, 3-5 p."""
-    specs, TC = layer_specs(budgets)
+    (fr' (B, n, 3), vals (B, 6, TC)); vals rows 0-2 hold q, 3-5 p.  Written
+    without in-place updates, so that autograd of it is a second oracle
+    for the backward sweep."""
+    specs, _ = layer_specs(budgets)
     B = fr.shape[0]
-    fr = fr.clone()
-    vals = torch.zeros((B, 6, TC), dtype=torch.float32, device=fr.device)
+    vals = []
     for l, (start, c_pad, _) in enumerate(specs):
+        if not bool(geom.counts[:, l].any()):
+            # an empty layer leaves fr as it is (the kernel skips it too)
+            vals.append(fr.new_zeros((B, 6, c_pad)))
+            continue
         sl = slice(start, start + c_pad)
         act = (torch.arange(c_pad, device=fr.device)[None]
                < geom.counts[:, l:l + 1])
@@ -171,10 +179,9 @@ def friction_sweep_plain(fr, geom: KernelGeom, kred, imr, imp,
         r = kred[:, sl, None] * dry_friction_slots(
             geom.normalT[:, :, sl].transpose(1, 2), d)
         r = torch.where(act[..., None], r, 0.0)
-        vals[:, 0:3, sl] = q.transpose(1, 2)
-        vals[:, 3:6, sl] = p.transpose(1, 2)
-        fr.scatter_add_(1, ir[..., None].expand(B, c_pad, 3), r)
-    return fr, vals
+        vals.append(torch.cat([q, p], dim=-1).transpose(1, 2))
+        fr = fr.scatter_add(1, ir[..., None].expand(B, c_pad, 3), r)
+    return fr, torch.cat(vals, dim=-1).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,9 +194,10 @@ def _layer_start(budgets: tuple, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The kernel's C entry point, loaded and configured once (argument
-    types and the shared-memory limit), so that a sweep pays neither."""
+def _fwd_kernel():
+    """The forward kernel's C entry point, loaded and configured once
+    (argument types and the shared-memory limit), so that a sweep pays
+    neither."""
     lib = cuda_build.load("friction_fwd")
     init = lib.friction_fwd_init
     init.argtypes = [ctypes.c_int]
@@ -202,38 +210,51 @@ def _kernel():
     return fn
 
 
+def _check_slot_args(name, fr, geom: KernelGeom, kred, imr, imp,
+                     budgets: tuple, vals=None, slot_bufs: int = 1):
+    """Raise unless every operand is what the sweep kernels take: contiguous
+    f32 / int32 tensors on fr's device, of the shapes of `budgets`, and an
+    (n, 3) state plus `slot_bufs` (max c_pad, 3) slot buffers that fit in
+    shared memory.  Returns (specs, TC, widest c_pad)."""
+    specs, TC = layer_specs(budgets)
+    B, n, _ = fr.shape
+    f32, i32 = torch.float32, torch.int32
+    expect = [(fr, (B, n, 3), f32), (geom.idx_row, (B, TC), i32),
+              (geom.idx_part, (B, TC), i32), (geom.normalT, (B, 3, TC), f32),
+              (kred, (B, TC), f32), (imr, (B, TC), f32), (imp, (B, TC), f32),
+              (geom.counts, (B, len(specs)), i32)]
+    if vals is not None:
+        expect.append((vals, (B, 6, TC), f32))
+    for t, shape, dt in expect:
+        if (tuple(t.shape) != shape or t.dtype != dt or t.device != fr.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous {dt} {shape} "
+                             f"tensor on {fr.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    max_c_pad = max(c_pad for _, c_pad, _ in specs)
+    if 3 * (n + slot_bufs * max_c_pad) * 4 > SMEM_LIMIT:
+        raise ValueError(f"n = {n} does not fit the sweep's shared memory")
+    return specs, TC, max_c_pad
+
+
 def friction_sweep(fr, geom: KernelGeom, kred, imr, imp, budgets: tuple):
     """One layered self-friction sweep on batched slot data: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.  fr
     (B, n, 3) f32 -> (fr', vals (B, 6, TC))."""
     if not fr.is_cuda:
         return friction_sweep_plain(fr, geom, kred, imr, imp, budgets)
-    specs, TC = layer_specs(budgets)
+    specs, TC, max_c_pad = _check_slot_args("friction_sweep", fr, geom,
+                                            kred, imr, imp, budgets)
     B, n, _ = fr.shape
-    L = len(specs)
-    f32, i32 = torch.float32, torch.int32
-    expect = ((fr, (B, n, 3), f32), (geom.idx_row, (B, TC), i32),
-              (geom.idx_part, (B, TC), i32), (geom.normalT, (B, 3, TC), f32),
-              (kred, (B, TC), f32), (imr, (B, TC), f32), (imp, (B, TC), f32),
-              (geom.counts, (B, L), i32))
-    for t, shape, dt in expect:
-        if (tuple(t.shape) != shape or t.dtype != dt or t.device != fr.device
-                or not t.is_contiguous()):
-            raise ValueError(f"friction_sweep: expected a contiguous {dt} "
-                             f"{shape} tensor on {fr.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    max_c_pad = max(c_pad for _, c_pad, _ in specs)
-    if 3 * (n + max_c_pad) * 4 > SMEM_LIMIT:
-        raise ValueError(f"n = {n} does not fit the sweep's shared memory")
-    layer_start = _layer_start(budgets, fr.device)
-    fn = _kernel()
+    fn = _fwd_kernel()
     out = torch.empty_like(fr)
-    vals = torch.empty((B, 6, TC), dtype=f32, device=fr.device)
+    vals = torch.empty((B, 6, TC), dtype=torch.float32, device=fr.device)
     stream = torch.cuda.current_stream(fr.device).cuda_stream
     ptrs = [t.data_ptr() for t in (fr, out, vals, geom.idx_row,
                                    geom.idx_part, geom.normalT, kred, imr,
-                                   imp, geom.counts, layer_start)]
-    cuda_build.check(fn(*ptrs, L, B, n, TC, max_c_pad, stream),
+                                   imp, geom.counts,
+                                   _layer_start(budgets, fr.device))]
+    cuda_build.check(fn(*ptrs, len(specs), B, n, TC, max_c_pad, stream),
                      "friction_fwd")
     friction_sweep.launches += 1
     return out, vals
@@ -242,12 +263,159 @@ def friction_sweep(fr, geom: KernelGeom, kred, imr, imp, budgets: tuple):
 friction_sweep.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# the backward sweep: the transposed linearization at the saved selects
+
+def dry_friction_jt_slots(nrm: torch.Tensor, d: torch.Tensor,
+                          w: torch.Tensor) -> torch.Tensor:
+    """(d dff/dd)^T w per slot (friction_pallas.py `_dff_JT`, :231-249), on
+    (..., 3) slot data, written op for op as the CUDA kernel computes it:
+
+        take-off: 0;  stick: -w;
+        slide: -((n.w) + mu sign(sd) (t.w)) n
+               - (mu |sd| / |fT|) (w - (n.w) n - (t.w) t)."""
+    sd = (d[..., 0] * nrm[..., 0] + d[..., 1] * nrm[..., 1]
+          + d[..., 2] * nrm[..., 2])[..., None]
+    fN = nrm * sd
+    fT = d - fN
+    n2 = (fT[..., 0] * fT[..., 0] + fT[..., 1] * fT[..., 1]
+          + fT[..., 2] * fT[..., 2])[..., None]
+    safe = n2 > EPS * EPS
+    tnorm = torch.where(safe, torch.sqrt(torch.where(safe, n2, 1.0)), EPS)
+    t_hat = fT / tnorm
+    slide = MU_CLOTH * torch.abs(sd)
+    nw = (nrm[..., 0] * w[..., 0] + nrm[..., 1] * w[..., 1]
+          + nrm[..., 2] * w[..., 2])[..., None]
+    tw = (t_hat[..., 0] * w[..., 0] + t_hat[..., 1] * w[..., 1]
+          + t_hat[..., 2] * w[..., 2])[..., None]
+    jt_slide = (-(nw + MU_CLOTH * torch.sign(sd) * tw) * nrm
+                - (slide / tnorm) * ((w - nw * nrm) - tw * t_hat))
+    jt = torch.where(tnorm <= slide, -w, jt_slide)
+    return torch.where(sd < 0.0, jt, 0.0)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Three-term dot product over the last dim, summed left to right."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def friction_sweep_bwd_plain(g, geom: KernelGeom, kred, imr, imp, vals,
+                             budgets: tuple):
+    """Plain PyTorch version of the backward sweep kernel (friction_pallas.py
+    `_bwd_kernel`, :309-376).  g (B, n, 3) f32, the cotangent of the sweep's
+    output; vals (B, 6, TC) the forward's saved q and p.  Layers run in
+    reverse; every slot of a layer reads the cotangent left after the later
+    layers.  Returns (g' (B, n, 3), c_kred, c_imr, c_imp (B, TC) each), the
+    slot cotangents zero past each layer's count."""
+    specs, TC = layer_specs(budgets)
+    B = g.shape[0]
+    g = g.clone()
+    ck = torch.zeros((B, TC), dtype=torch.float32, device=g.device)
+    ci = torch.zeros_like(ck)
+    cp = torch.zeros_like(ck)
+    for l in reversed(range(len(specs))):
+        if not bool(geom.counts[:, l].any()):
+            continue
+        start, c_pad, _ = specs[l]
+        sl = slice(start, start + c_pad)
+        act = (torch.arange(c_pad, device=g.device)[None]
+               < geom.counts[:, l:l + 1])
+        a3 = act[..., None]
+        ir = torch.where(act, geom.idx_row[:, sl].long(), 0)
+        ip = torch.where(act, geom.idx_part[:, sl].long(), 0)
+        w3 = torch.gather(g, 1, ir[..., None].expand(B, c_pad, 3))
+        w3 = torch.where(a3, w3, 0.0)
+        q = vals[:, 0:3, sl].transpose(1, 2)
+        p = vals[:, 3:6, sl].transpose(1, 2)
+        mr, mp, kr = imr[:, sl, None], imp[:, sl, None], kred[:, sl, None]
+        nrm = geom.normalT[:, :, sl].transpose(1, 2)
+        d = q * mr - p * mp
+        u = torch.where(a3, kr * dry_friction_jt_slots(nrm, d, w3), 0.0)
+        ck[:, sl] = torch.where(act, _dot3(dry_friction_slots(nrm, d), w3),
+                                0.0)
+        ci[:, sl] = torch.where(act, _dot3(u, q), 0.0)
+        cp[:, sl] = torch.where(act, -_dot3(u, p), 0.0)
+        # (g + row adds) + partner adds: each vertex is a row in at most one
+        # slot and a partner in at most one slot of a layer (a matching)
+        g.scatter_add_(1, ir[..., None].expand(B, c_pad, 3), u * mr)
+        g.scatter_add_(1, ip[..., None].expand(B, c_pad, 3), -(u * mp))
+    return g, ck, ci, cp
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    """The backward kernel's C entry point, loaded and configured once."""
+    lib = cuda_build.load("friction_bwd")
+    init = lib.friction_bwd_init
+    init.argtypes = [ctypes.c_int]
+    init.restype = ctypes.c_int
+    cuda_build.check(init(SMEM_LIMIT), "friction_bwd_init")
+    fn = lib.friction_bwd
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def friction_sweep_bwd(g, geom: KernelGeom, kred, imr, imp, vals,
+                       budgets: tuple):
+    """The backward sweep on batched slot data: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.  Returns (g', c_kred, c_imr,
+    c_imp) as `friction_sweep_bwd_plain` does."""
+    if not g.is_cuda:
+        return friction_sweep_bwd_plain(g, geom, kred, imr, imp, vals,
+                                        budgets)
+    specs, TC, max_c_pad = _check_slot_args(
+        "friction_sweep_bwd", g, geom, kred, imr, imp, budgets, vals=vals,
+        slot_bufs=2)
+    B, n, _ = g.shape
+    fn = _bwd_kernel()
+    out = torch.empty_like(g)
+    ck = torch.empty((3, B, TC), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (g, out, ck[0], ck[1], ck[2], vals,
+                                   geom.idx_row, geom.idx_part,
+                                   geom.normalT, kred, imr, imp, geom.counts,
+                                   _layer_start(budgets, g.device))]
+    cuda_build.check(fn(*ptrs, len(specs), B, n, TC, max_c_pad, stream),
+                     "friction_bwd")
+    friction_sweep_bwd.launches += 1
+    return out, ck[0], ck[1], ck[2]
+
+
+friction_sweep_bwd.launches = 0
+
+
+class FrictionSweep(torch.autograd.Function):
+    """The sweep as a differentiable function of (fr, k_red, 1/m_row,
+    1/m_part), the counterpart of the `jax.custom_vjp` at
+    friction_pallas.py:472-492: the forward saves `vals`, the backward is
+    the transposed-linearization kernel.  The slot geometry (indices,
+    normals, counts) is a constant: it gets no cotangent, as there."""
+
+    @staticmethod
+    def forward(ctx, fr, kred, imr, imp, geom: KernelGeom, budgets: tuple):
+        out, vals = friction_sweep(fr, geom, kred, imr, imp, budgets)
+        ctx.save_for_backward(kred, imr, imp, vals)
+        ctx.geom, ctx.budgets = geom, budgets
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        kred, imr, imp, vals = ctx.saved_tensors
+        gfr, ck, ci, cp = friction_sweep_bwd(g.contiguous(), ctx.geom, kred,
+                                             imr, imp, vals, ctx.budgets)
+        return gfr, ck, ci, cp, None, None
+
+
 def self_friction(f: torch.Tensor, geom: KernelGeom, masses,
                   r_init: torch.Tensor, budgets: tuple) -> torch.Tensor:
     """r_init + the layered self-friction contributions (counterpart of
     `self_friction_kernel`, which takes the density where this takes
-    `masses = slot_masses(geom, density)`, constant over a step).  f, r_init
-    (n,3) or (B,n,3) in the simulation dtype; the sweep runs in f32."""
+    `masses = slot_masses(geom, density)`).  f, r_init (n,3) or (B,n,3) in
+    the simulation dtype; the sweep runs in f32 through `FrictionSweep`, so
+    the result is differentiable in f, r_init and the masses, the casts to
+    and from f32 carrying the cotangent."""
     single = f.dim() == 2
     if single:
         f, r_init = f[None], r_init[None]
@@ -256,7 +424,7 @@ def self_friction(f: torch.Tensor, geom: KernelGeom, masses,
     k_red, imr, imp = masses
     if k_red.dim() == 1:
         k_red, imr, imp = k_red[None], imr[None], imp[None]
-    fr = (f + r_init).to(torch.float32)
-    out, _ = friction_sweep(fr.contiguous(), geom, k_red, imr, imp, budgets)
+    fr = (f + r_init).to(torch.float32).contiguous()
+    out = FrictionSweep.apply(fr, k_red, imr, imp, geom, budgets)
     r = r_init + (out - fr).to(f.dtype)
     return r[0] if single else r

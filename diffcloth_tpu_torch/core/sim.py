@@ -1,18 +1,22 @@
-"""Episode runner: device scene assembly, attachment trajectories and the
-forward rollout, single or batched.
+"""Episode runner: device scene assembly, attachment trajectories, the
+rollout and its gradient, single or batched.
 
-Counterpart of `diffcloth_tpu/core/sim.py` for single-stage scenes, forward
-only: `scene_to_device`, `stage_to_device`, `ClothSim.default_params`,
-`p_inv`, `x_fixed_seq`, `simulate` / `rollout` with the explosion freeze,
-and `rollout_chunked`.  The JAX `lax.scan` over steps is a Python loop;
-`vmap` over a population of episodes is a leading batch dim on the
-`SimParams` (one shared P^{-1}, as the JAX package's batched paths share
-it).  Self-collision always runs the kernel pipeline that the JAX package
-selects on a TPU (symmetric detection kernel -> layering -> slot
-geometry -> friction sweep kernel).
+Counterpart of `diffcloth_tpu/core/sim.py` for single-stage scenes:
+`scene_to_device`, `stage_to_device`, `ClothSim.default_params`, `p_inv`,
+`x_fixed_seq`, `simulate` / `rollout` with the explosion freeze,
+`rollout_chunked`, `episode_loss` and `episode_value_and_grad`.  The JAX
+`lax.scan` over steps is a Python loop; `vmap` over a population of
+episodes is a leading batch dim on the `SimParams` (one shared P^{-1}, as
+the JAX package's batched paths share it).  Eager PyTorch runs no device
+program longer than one kernel, so the JAX package's `_chunked` variants
+(bounded device executions of `chunk` steps) fold into these single
+functions.  Self-collision always runs the kernel pipeline that the JAX
+package selects on a TPU (symmetric detection kernel -> layering -> slot
+geometry -> friction sweep kernels, forward and backward).
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -134,6 +138,7 @@ class ClothSim:
         if dtype == torch.float32:
             eps_f = max(eps_f, 1e-6)
         self.eps_forward = eps_f
+        self.eps_backward = cfg.backward_convergence_thresh
 
         dev = self.device
         self.scene_dev = scene_to_device(scene, dtype, dev)
@@ -159,10 +164,12 @@ class ClothSim:
                 k_partners=SELF_K_PARTNERS, max_layers=SELF_MAX_LAYERS,
                 budgets=tuple(min(c, scene.n) for c in budgets))
 
-        self.step = step_mod.make_step(
+        self.step, self.residual = step_mod.make_step(
             self.scene_dev, self.dense, h=self.h,
             wind_config=cfg.wind_config, flags=self.flags,
-            eps_forward=self.eps_forward, self_cfg=self.self_cfg)
+            eps_forward=self.eps_forward, eps_backward=self.eps_backward,
+            self_cfg=self.self_cfg)
+        self.bwd_stats = self.step.bwd_stats
 
     # ------------------------------------------------------------------ params
 
@@ -274,3 +281,55 @@ class ClothSim:
         kernel, so there is nothing to split."""
         return self.simulate(params, self.p_inv(params),
                              self.x_fixed_seq(params), record_forces=False)
+
+    def episode_loss(self, loss_fn):
+        """Forward-only loss: params (single or batched) -> loss (a scalar,
+        or (B,) for batched params, with one shared P^{-1}).  `loss_fn`
+        maps records to losses (see losses.py)."""
+        def value(params: SimParams):
+            with torch.no_grad():
+                return loss_fn(self.rollout_chunked(params))
+        return value
+
+    def episode_value_and_grad(self, loss_fn):
+        """params -> (loss, dparams), single or batched (batched: (B,)
+        losses and a batched SimParams of gradients, every episode's
+        gradient its own; one P^{-1}, from sample 0, serves the batch, so
+        k_pertype and density must agree across it).
+
+        P^{-1} enters as data: gradients to k and density flow through the
+        step's operator-form residual, not through P^{-1}, which only
+        preconditions (sim.py:777-800).  The gradient chains through
+        `x_fixed_seq` into the spline params, through the explosion freeze
+        (a select, so a frozen episode passes zero cotangents) and into x0
+        and v0.  `value_and_grad.split` holds the forward and backward wall
+        seconds of the last call."""
+        def value_and_grad(params: SimParams):
+            p_inv = self.p_inv(params)
+            leaves = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in params.items()}
+            p = SimParams(**leaves)
+            t0 = time.perf_counter()
+            with torch.enable_grad():
+                recs = self.simulate(p, p_inv, self.x_fixed_seq(p),
+                                     record_forces=False)
+                loss = loss_fn(recs)
+                _sync(self.device)
+                t1 = time.perf_counter()
+                grads = torch.autograd.grad(loss.sum(),
+                                            list(leaves.values()),
+                                            allow_unused=True)
+            _sync(self.device)
+            value_and_grad.split = {"forward_s": t1 - t0,
+                                    "backward_s": time.perf_counter() - t1}
+            return loss.detach(), SimParams(**{
+                k: torch.zeros_like(v) if g is None else g
+                for (k, v), g in zip(leaves.items(), grads)})
+
+        value_and_grad.split = None
+        return value_and_grad
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,10 +1,13 @@
-"""The forward PD step: local-global loop with self-collision friction.
+"""The differentiable PD step: forward local-global loop with
+self-collision friction, and the implicit adjoint.
 
-Counterpart of `diffcloth_tpu/core/step.py` `make_step` -> `pd_forward`
-(:216-642) on the dense-operator path, forward only (the implicit adjoint
-`step_bwd` comes with the gradient slice).  Velocity-based projective
-dynamics with dry frictional contact (Simulation::step,
-Simulation.cpp:1043-1428):
+Counterpart of `diffcloth_tpu/core/step.py` `make_step` on the dense-operator
+path: `pd_forward` (:216-642), `residual` (:406-419), the K map (:683-692),
+`_gmres_cycle` (:97-140) and `step_bwd` in its default `fp` mode
+(:659-830; the experimental `gmres` mode is not ported).
+
+Forward: velocity-based projective dynamics with dry frictional contact
+(Simulation::step, Simulation.cpp:1043-1428):
 
     s_n   = x_n + h v_n + h^2 M^{-1} f_ext
     loop: b~ = h sum_t k_t A_t^T (p_t(x_now) - A_t x_n) + M v_n + h f_ext
@@ -13,22 +16,36 @@ Simulation.cpp:1043-1428):
           v_new = P^{-1}(b~ + r);  x_new = x_n + h v_new
 
 with the strict-eps exit, the plateau exit after PLATEAU_WINDOW sweeps
-without a new best, and the best-iterate revert.
+without a new best, and the best-iterate revert.  Self-collision runs the
+kernel pipeline once per step (detection kernel -> layering -> slot
+geometry) and the friction sweep kernel once per PD iteration.
 
-Self-collision runs the kernel pipeline once per step (detection kernel ->
-layering -> slot geometry) and the friction sweep kernel once per PD
-iteration.  Everything is batched over a leading dim B: where the JAX
-package vmaps a `while_loop`, here every state update is masked per
-episode, so an episode that is done stops changing exactly as a finished
-vmapped lane does.  The loop tests on the host whether any episode is
-still active only every CHECK_EVERY sweeps; the masked extra sweeps are
-no-ops.
+Backward (Simulation::stepBackward, Simulation.cpp:1455-1780): implicit
+differentiation of the residual R(v_new; x_n, v_n, theta, x_fixed) =
+P v_new - b~(x_new) - r(f) = 0.  The adjoint lambda solves
+(dR/dv)^T lambda = w, w = v_bar + h x_bar, by the reference's fixed point
+lambda <- P^{-1}(w + (dK/dv)^T lambda) with K(v) = b~(x_n + h v) + r(f(v)),
+capped at max_backward_iters, with a GMRES(16) fallback of up to 3 cycles;
+one VJP of R then gives every gradient.  Each (dK/dv)^T product is one
+`torch.autograd.grad` of K at v_new (graph kept across trips), and its
+friction part is the backward sweep kernel (`friction_cuda.FrictionSweep`).
+`StepFn` (a `torch.autograd.Function`) is the counterpart of the step's
+`jax.custom_vjp`.
+
+Everything is batched over a leading dim B: where the JAX package vmaps a
+`while_loop`, here every update is masked per episode (the PD loop's state,
+the adjoint's lambda), so an episode that is done stops changing exactly as
+a finished vmapped lane does, and a batched result equals the per-episode
+ones.  The loops test on the host whether any episode is still active only
+every CHECK_EVERY sweeps; the masked extra sweeps are no-ops.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Optional
 
+import numpy as np
 import torch
 
 from diffcloth_tpu_torch.config import (GRAVITY, SimFlags, WindConfig,
@@ -41,8 +58,13 @@ from diffcloth_tpu_torch.core.types import SceneDev, SimParams
 # sweeps without a new best iterate before the plateau exit (the JAX
 # package's default)
 PLATEAU_WINDOW = 12
-# PD sweeps between the host's reads of "is any episode still active"
+# PD sweeps (and adjoint trips) between the host's reads of "is any
+# episode still active"
 CHECK_EVERY = 4
+# Krylov vectors and cycles of the adjoint's GMRES fallback (step.py:782-798)
+GMRES_M = 16
+GMRES_CYCLES = 3
+PARAM_FIELDS = tuple(f.name for f in dataclasses.fields(SimParams))
 
 
 @dataclasses.dataclass
@@ -89,21 +111,129 @@ def _frob(a):
     return torch.sqrt(torch.sum(a * a, dim=(-2, -1)))
 
 
+@dataclasses.dataclass
+class BackwardStats:
+    """Counters of the adjoint, summed over `step_bwd` calls since the last
+    `reset()`.  Every (dK/dv)^T product (a fixed-point trip or a GMRES
+    matvec) and every residual VJP launches the backward friction sweep once
+    for the whole batch when self-collision is on."""
+    trips: int = 0           # fixed-point sweeps over the batch
+    gmres_matvecs: int = 0   # (dK/dv)^T products of the GMRES fallback
+    residual_vjps: int = 0   # VJPs of the residual
+    lane_steps: object = 0   # (episode, step) pairs with a nonzero cotangent
+    lane_trips: object = 0   # their fixed-point trips
+    fallback_lanes: object = 0   # of them that fell to the GMRES fallback
+    slot_launches: object = 0    # active friction slots over all launches
+
+    def reset(self):
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
+
+    def summary(self) -> dict:
+        """Host numbers (one device read)."""
+        out = {f.name: float(getattr(self, f.name))
+               for f in dataclasses.fields(self)}
+        out["launches"] = (out["trips"] + out["gmres_matvecs"]
+                           + out["residual_vjps"])
+        return out
+
+
+def _lstsq_host(H: torch.Tensor, e1: torch.Tensor, eps: float):
+    """Least squares min |e1 - H y| per episode, on the host in f64 by SVD
+    (numpy's gelsd), with the cutoff rcond = eps * max(H.shape) that
+    jnp.linalg.lstsq applies in the simulation dtype.  A rank-deficient H
+    (a happy breakdown) is fine; an episode with non-finite H or e1 gets a
+    NaN y, which the caller replaces by zeros as the JAX package does."""
+    Hn = H.detach().cpu().double().numpy()
+    en = e1.detach().cpu().double().numpy()
+    y = np.full((Hn.shape[0], Hn.shape[2]), np.nan)
+    rcond = eps * max(Hn.shape[1:])
+    for b in range(Hn.shape[0]):
+        if np.isfinite(Hn[b]).all() and np.isfinite(en[b]).all():
+            y[b] = np.linalg.lstsq(Hn[b], en[b], rcond=rcond)[0]
+    return torch.as_tensor(y).to(device=H.device, dtype=H.dtype)
+
+
+def _gmres_cycle(op, b, x0, m: int):
+    """One GMRES(m) cycle on op(u) = b from x0, for each episode of the batch
+    (step.py:97-140): Arnoldi with modified Gram-Schmidt, then the
+    (m+1, m) Hessenberg least squares on the host.  b, x0 (B, n, 3)."""
+    B = x0.shape[0]
+    shape = x0.shape
+    r0 = (b - op(x0)).reshape(B, -1)
+    beta = torch.linalg.vector_norm(r0, dim=1)
+    V = torch.zeros((B, m + 1, r0.shape[1]), dtype=r0.dtype,
+                    device=r0.device)
+    H = torch.zeros((B, m + 1, m), dtype=r0.dtype, device=r0.device)
+    V[:, 0] = r0 / torch.clamp(beta, min=1e-30)[:, None]
+    for j in range(m):
+        w = op(V[:, j].reshape(shape)).reshape(B, -1)
+        for i in range(j + 1):
+            hij = torch.sum(V[:, i] * w, dim=1)
+            w = w - hij[:, None] * V[:, i]
+            H[:, i, j] = hij
+        hnext = torch.linalg.vector_norm(w, dim=1)
+        H[:, j + 1, j] = hnext
+        V[:, j + 1] = w / torch.clamp(hnext, min=1e-30)[:, None]
+    e1 = torch.zeros((B, m + 1), dtype=r0.dtype, device=r0.device)
+    e1[:, 0] = beta
+    y = _lstsq_host(H, e1, torch.finfo(r0.dtype).eps)
+    return x0 + torch.einsum("bm,bmn->bn", y, V[:, :m]).reshape(shape)
+
+
+class StepFn(torch.autograd.Function):
+    """One PD step as a differentiable function of (x_n, v_n, x_fixed, the
+    SimParams fields): the counterpart of the step's `jax.custom_vjp`
+    (step.py:646-832).  The forward runs the PD loop; the backward the
+    implicit adjoint.  P^{-1}, t and the step index are constants (P^{-1}
+    only preconditions; gradients to k and density flow through the
+    operator-form residual), as are the step's diagnostics."""
+
+    @staticmethod
+    def forward(ctx, step_def, p_inv, t, step_idx, x_n, v_n, x_fixed,
+                *param_tensors):
+        params = SimParams(**dict(zip(PARAM_FIELDS, param_tensors)))
+        x_new, v_new, aux, geom = step_def.forward(
+            x_n, v_n, params, x_fixed, p_inv, t, step_idx)
+        ctx.save_for_backward(x_n, v_n, v_new, x_fixed, *param_tensors)
+        ctx.step_def, ctx.geom = step_def, geom
+        ctx.p_inv, ctx.t, ctx.step_idx = p_inv, t, step_idx
+        aux_t = tuple(getattr(aux, f.name) for f in dataclasses.fields(aux))
+        ctx.mark_non_differentiable(*aux_t)
+        return (x_new, v_new) + aux_t
+
+    @staticmethod
+    def backward(ctx, x_bar, v_bar, *_aux_bar):
+        x_n, v_n, v_new, x_fixed, *param_tensors = ctx.saved_tensors
+        params = SimParams(**dict(zip(PARAM_FIELDS, param_tensors)))
+        wanted = tuple(k for k, need in zip(PARAM_FIELDS,
+                                            ctx.needs_input_grad[7:]) if need)
+        gx, gv, gxf, gp = ctx.step_def.backward(
+            x_n, v_n, v_new, params, x_fixed, ctx.geom, ctx.p_inv, ctx.t,
+            ctx.step_idx, x_bar, v_bar, wanted)
+        return (None, None, None, None, gx, gv, gxf) + tuple(
+            gp.get(k) for k in PARAM_FIELDS)
+
+
 def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
               wind_config: WindConfig, flags: SimFlags, eps_forward: float,
-              self_cfg: Optional[SelfColConfig] = None):
-    """Build the batched forward PD step for one attachment stage:
+              eps_backward: float, self_cfg: Optional[SelfColConfig] = None):
+    """Build the batched differentiable PD step for one attachment stage:
 
         step(x (B,n,3), v, params (batched SimParams), x_fixed (B,F,3),
              p_inv (n,n), t (0-dim tensor), step_idx (int))
           -> (x_new, v_new, StepAux)
-    """
+
+    and the residual R(v_new, x_n, v_n, params, x_fixed, geom, t, step_idx)
+    it differentiates.  `step.bwd_stats` counts the adjoint's work."""
     n = int(scene.area.shape[0])
     max_iter = flags.max_forward_iters or pd_total_iters(eps_forward)
+    max_back = flags.max_backward_iters
     h2 = h * h
     # self-collision is the only contact until obstacles are ported
     use_self = (flags.contact_enabled and flags.self_collision_enabled
                 and self_cfg is not None)
+    stats = BackwardStats()
 
     def wind_factor(params: SimParams, t, step_idx):
         """(sin(freq t + phase) + 1)/2 and friends (fillForces,
@@ -136,6 +266,9 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
             f = f + params.force_field
         return f
 
+    def masses(params: SimParams):
+        return params.density[:, None] * scene.area        # M = rho Area
+
     def btilde_of(params, m, f_ext, v_n, x_eval, x_fixed, y_n):
         """b~ in residual form (step.py:387-404):
         h sum_t k_t A0_t^T (p0_t - A0_t x_n) + m v_n + h f_ext."""
@@ -147,10 +280,21 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
                            p_sp - y_n[3])
         return h * At_d + m[..., None] * v_n + h * f_ext
 
-    def step(x_n, v_n, params: SimParams, x_fixed, p_inv, t, step_idx):
+    def apply_C(params, v):
+        """C v = h^2 (sum_t k_t S_t) v."""
+        return h2 * dn.apply_S_pertype(dense.S, params.k_pertype, v)
+
+    def friction(f, geom, slot_m):
+        return fc.self_friction(f, geom, slot_m, torch.zeros_like(f),
+                                self_cfg.budgets)
+
+    # -- forward PD loop ----------------------------------------------------
+
+    def pd_forward(x_n, v_n, params: SimParams, x_fixed, p_inv, t,
+                   step_idx):
         B = x_n.shape[0]
         dev = x_n.device
-        m = params.density[:, None] * scene.area             # M = rho Area
+        m = masses(params)
         f_ext = external_force(params, m, t, step_idx)
         s_n = x_n + h * v_n + h2 * f_ext / m[..., None]
         v_iter0 = (s_n - x_n) / h
@@ -158,6 +302,7 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
         overflow = torch.zeros(B, dtype=torch.bool, device=dev)
         pairs = torch.zeros(B, dtype=torch.int64, device=dev)
         slots = torch.zeros(B, dtype=torch.int32, device=dev)
+        geom = slot_m = None
         if use_self:
             tables, overflow = scd.detect_tables(
                 self_cfg.allowed, scene.radii, x_n, v_iter0, h,
@@ -175,10 +320,8 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
         def one_iter(x_now, v_now):
             btilde = btilde_of(params, m, f_ext, v_n, x_now, x_fixed, y_n)
             if use_self:
-                f = btilde - h2 * dn.apply_S_pertype(dense.S,
-                                                     params.k_pertype, v_now)
-                r = fc.self_friction(f, geom, slot_m, torch.zeros_like(f),
-                                     self_cfg.budgets)
+                f = btilde - apply_C(params, v_now)
+                r = friction(f, geom, slot_m)
             else:
                 f = r = torch.zeros_like(x_n)
             v_new = dn.mm(p_inv, btilde + r)
@@ -224,13 +367,168 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
         v_new = torch.where(s3, v_now, best_v)
         if not use_self:
             # the pre-friction force record, reconstructed once post-loop
-            f = btilde_of(params, m, f_ext, v_n, x_new, x_fixed, y_n) - \
-                h2 * dn.apply_S_pertype(dense.S, params.k_pertype, v_new)
+            f = (btilde_of(params, m, f_ext, v_n, x_new, x_fixed, y_n)
+                 - apply_C(params, v_new))
         avg_def, max_def = deformation(scene, x_new)
         aux = StepAux(f=f, r=r, converged=done, iters=it,
                       avg_deformation=avg_def, max_deformation=max_def,
                       selfcol_overflow=overflow, selfcol_pairs=pairs,
                       selfcol_slots=slots)
-        return x_new, v_new, aux
+        return x_new, v_new, aux, geom
 
-    return step
+    # -- the residual and the K map ------------------------------------------
+
+    def residual(v_new, x_n, v_n, params: SimParams, x_fixed, geom, t,
+                 step_idx):
+        """R(v_new) = P v_new - b~ - r with every parameter dependence
+        explicit (operator form), so one VJP gives every gradient the
+        reference hand-derives in stepBackward (:1622-1764).  The slot
+        masses are recomputed from params.density here, so dL/drho flows
+        through them; the slot geometry (normals included) is a constant."""
+        m = masses(params)
+        f_ext = external_force(params, m, t, step_idx)
+        x_new = x_n + h * v_new
+        btilde = btilde_of(params, m, f_ext, v_n, x_new, x_fixed,
+                           dn.apply_A(dense, x_n))
+        Cv = apply_C(params, v_new)
+        R = m[..., None] * v_new + Cv - btilde
+        if use_self:
+            R = R - friction(btilde - Cv, geom,
+                             fc.slot_masses(geom, params.density))
+        return R
+
+    def k_map(vn, x_n, v_n, params, x_fixed, geom, slot_m, t, step_idx):
+        """K(v) = b~(x_n + h v) + r(f(v)), so that P - dR/dv = dK/dv
+        (step.py:683-692): the fixed point needs only K's VJP."""
+        m = masses(params)
+        f_ext = external_force(params, m, t, step_idx)
+        btilde = btilde_of(params, m, f_ext, v_n, x_n + h * vn, x_fixed,
+                           dn.apply_A(dense, x_n))
+        if not use_self:
+            return btilde
+        return btilde + friction(btilde - apply_C(params, vn), geom, slot_m)
+
+    # -- the implicit adjoint ------------------------------------------------
+
+    def step_bwd(x_n, v_n, v_new, params: SimParams, x_fixed, geom, p_inv,
+                 t, step_idx, x_bar, v_bar, wanted):
+        """Cotangents of (x_new, v_new) -> those of x_n, v_n and x_fixed,
+        and a dict of those of the SimParams fields named in `wanted`."""
+        B = x_n.shape[0]
+        nh = n * h
+        params = SimParams(**{k: v.detach() for k, v in params.items()})
+        x_n, v_n, v_new, x_fixed = (a.detach()
+                                    for a in (x_n, v_n, v_new, x_fixed))
+        # total cotangent on v_new: x_new = x_n + h v_new
+        w = v_bar + h * x_bar
+        if flags.gradient_clipping:
+            # the reference clips the folded gradient dL_dx = w/h at
+            # threshold * n_particles (Simulation.cpp:1460-1466)
+            norm = _frob(w) / h
+            cap = flags.gradient_clipping_threshold * n
+            scale = torch.where(norm > cap,
+                                cap / torch.clamp(norm, min=1e-30), 1.0)
+            w = w * scale[:, None, None]
+        w_norm = _frob(w)
+        # zero-cotangent short-circuit: a frozen (exploded) step receives
+        # zero cotangents through the episode's freeze select; lambda = 0
+        # is exact there, and evaluating the residual at the exploded state
+        # would turn 0 * NaN into NaN, so its outputs are selected away
+        live = w_norm > 0
+        if not bool(live.any()):
+            return (x_bar, torch.zeros_like(v_n), torch.zeros_like(x_fixed),
+                    {k: torch.zeros_like(getattr(params, k))
+                     for k in wanted})
+        launches = 0
+
+        slot_m = fc.slot_masses(geom, params.density) if use_self else None
+        with torch.enable_grad():
+            vn = v_new.clone().requires_grad_(True)
+            K = k_map(vn, x_n, v_n, params, x_fixed, geom, slot_m, t,
+                      step_idx)
+
+        def vjp_k(u):
+            nonlocal launches
+            launches += 1
+            return torch.autograd.grad(K, vn, u, retain_graph=True)[0]
+
+        m = masses(params)
+
+        def op_pre(u):
+            """P^{-1} (dR/dv)^T u, the GMRES operator."""
+            return dn.mm(p_inv, m[..., None] * u + apply_C(params, u)
+                         - vjp_k(u))
+
+        # ---- the reference's fixed point (Simulation.cpp:1569-1599)
+        b_pre = dn.mm(p_inv, w)
+        lam = b_pre
+        it = torch.ones(B, dtype=torch.int32, device=w.device)
+        done = ~live
+        bad = torch.zeros_like(live)
+        for k in range(max_back - 1):
+            act = ~(done | bad)
+            if k and k % CHECK_EVERY == 0 and not bool(act.any()):
+                break
+            lam_next = dn.mm(p_inv, w + vjp_k(lam))
+            delta = _frob(lam_next - lam) / nh
+            bad_k = ~torch.isfinite(delta) | (
+                _frob(lam_next) > 1e8 * (w_norm + 1e-30))
+            lam = torch.where(act[:, None, None], lam_next, lam)
+            it = it + act.to(torch.int32)
+            done = torch.where(act, delta < eps_backward, done)
+            bad = torch.where(act, bad_k, bad)
+        trips = launches
+        stats.trips += trips
+        stats.lane_steps = stats.lane_steps + live.sum()
+        stats.lane_trips = stats.lane_trips + torch.where(live, it - 1,
+                                                          0).sum()
+
+        # ---- GMRES(16) fallback, up to 3 cycles, for the episodes whose
+        # fixed point did not converge (step.py:782-798)
+        need = ~(done & ~bad) & live
+        stats.fallback_lanes = stats.fallback_lanes + need.sum()
+        for _ in range(GMRES_CYCLES):
+            if not bool(need.any()):
+                break
+            x0 = torch.where(torch.isfinite(lam), lam, 0.0)
+            sol = _gmres_cycle(op_pre, b_pre, x0, GMRES_M)
+            sol = torch.where(torch.isfinite(sol), sol, 0.0)
+            res = _frob(b_pre - op_pre(sol)) / nh
+            lam = torch.where(need[:, None, None], sol, lam)
+            need = need & ((res >= eps_backward) | ~torch.isfinite(res))
+        stats.gmres_matvecs += launches - trips
+        lam = torch.where(live[:, None, None], lam, 0.0)
+
+        # ---- one VJP of the residual for x_n, v_n, x_fixed and params
+        with torch.enable_grad():
+            leaves = {"x_n": x_n, "v_n": v_n, "x_fixed": x_fixed}
+            leaves.update({k: getattr(params, k) for k in wanted})
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in leaves.items()}
+            pr = params.replace(**{k: leaves[k] for k in wanted})
+            R = residual(v_new, leaves["x_n"], leaves["v_n"], pr,
+                         leaves["x_fixed"], geom, t, step_idx)
+            grads = torch.autograd.grad(R, list(leaves.values()), lam,
+                                        allow_unused=True)
+        launches += 1
+        stats.residual_vjps += 1
+        if use_self:
+            stats.slot_launches = (stats.slot_launches
+                                   + geom.counts.sum() * launches)
+        g = {}
+        for k, gr, leaf in zip(leaves, grads, leaves.values()):
+            gr = torch.zeros_like(leaf) if gr is None else gr
+            g[k] = torch.where(live.view((-1,) + (1,) * (gr.dim() - 1)),
+                               gr, 0.0)
+        return (x_bar - g.pop("x_n"), -g.pop("v_n"), -g.pop("x_fixed"),
+                {k: -v for k, v in g.items()})
+
+    step_def = types.SimpleNamespace(forward=pd_forward, backward=step_bwd)
+
+    def step(x_n, v_n, params: SimParams, x_fixed, p_inv, t, step_idx):
+        out = StepFn.apply(step_def, p_inv, t, step_idx, x_n, v_n, x_fixed,
+                           *(getattr(params, k) for k in PARAM_FIELDS))
+        return out[0], out[1], StepAux(*out[2:])
+
+    step.bwd_stats = stats
+    return step, residual

@@ -28,38 +28,12 @@
 // Compiled with --fmad=false so every product and sum rounds as in the
 // plain PyTorch version.
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "friction_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr float kMu = 0.1f;     // cloth-cloth friction (Simulation.cpp:666)
-constexpr float kEps = 1e-12f;  // safe_norm guard (constraints.EPS)
-
-// dry_friction_force(n, d, mu) for one slot, op for op as the plain
-// version: sums left to right, no contraction.
-__device__ __forceinline__ void dry_friction(const float n[3],
-                                             const float d[3], float r[3]) {
-  const float sd = d[0] * n[0] + d[1] * n[1] + d[2] * n[2];
-  float fN[3], fT[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    fN[c] = n[c] * sd;
-    fT[c] = d[c] - fN[c];
-  }
-  const float n2 = fT[0] * fT[0] + fT[1] * fT[1] + fT[2] * fT[2];
-  const bool safe = n2 > kEps * kEps;
-  const float tnorm = safe ? sqrtf(n2) : kEps;
-  const bool in_contact = sd < 0.0f;
-  const float slide = kMu * fabsf(sd);
-  const bool stick = tnorm <= slide;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float t_hat = fT[c] / tnorm;
-    const float rc = stick ? (-fN[c] - fT[c]) : (-fN[c] - slide * t_hat);
-    r[c] = in_contact ? rc : 0.0f;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 friction_kernel(const float* __restrict__ fr_in, float* __restrict__ fr_out,
@@ -98,7 +72,7 @@ friction_kernel(const float* __restrict__ fr_in, float* __restrict__ fr_out,
           nrm[c] = normalT[((size_t)b * 3 + c) * TC + slot];
           d[c] = q[c] * mr - p[c] * mp;
         }
-        dry_friction(nrm, d, r);
+        friction::dry_friction(nrm, d, r);
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
           r_slot[3 * s + c] = kr * r[c];

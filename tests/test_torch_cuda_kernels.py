@@ -7,11 +7,12 @@ which the machine with the card may lack, so run them there with
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Tolerances: detection tables are exact (the kernel computes d^2 in the
-plain version's order without contraction); the friction sweep within
-rtol 1e-5 / atol 1e-6, since a row's contributions within a layer may be
-added in another order (rows are unique per layer, so in practice the two
-agree bit for bit); the f64 card episode within 1e-6 of the CPU one, the
-f32 friction sweep inside the f64 simulation being the only inexact step.
+plain version's order without contraction); the friction sweeps, forward
+and backward, within rtol 1e-5 / atol 1e-6, since a row's contributions
+within a layer may be added in another order (rows and partners are unique
+per layer, so in practice the two agree bit for bit); the f64 card episode
+within 1e-6 of the CPU one, the f32 friction sweep inside the f64
+simulation being the only inexact step.
 """
 import dataclasses
 
@@ -115,6 +116,63 @@ def test_friction_kernel_matches_plain(dev, budgets, B):
     torch.testing.assert_close(vals_k, vals_p, rtol=1e-5, atol=1e-6)
 
 
+def sweep_inputs(dev, n, B, bud, pile=0):
+    """Slot geometry, masses and a forward force state on the card."""
+    x, v, radii, allowed, area = cloud(2, n, B, pile)
+    allowed_d = torch.as_tensor(scd.pack_allowed(allowed), device=dev)
+    xd = x.to(dev)
+    tables, _ = scd.detect_tables(allowed_d, radii.to(dev), xd, v.to(dev),
+                                  H, 8, 16)
+    kg = fc.build_kernel_geom(tables, area.to(dev), n, bud, x=xd)
+    rho = torch.full((B,), 0.3, device=dev)
+    f = torch.as_tensor(np.random.RandomState(3).randn(B, n, 3) * 0.1,
+                        dtype=torch.float32, device=dev)
+    return kg, fc.slot_masses(kg, rho), f
+
+
+@pytest.mark.parametrize("budgets", ["default", "drop"])
+@pytest.mark.parametrize("B", [1, 5])
+def test_friction_bwd_kernel_matches_plain(dev, budgets, B):
+    n = 200
+    bud = (tuple(min(c, n) for c in compact_slot_budgets(4))
+           if budgets == "default" else (8, 4))
+    kg, (kred, imr, imp), f = sweep_inputs(dev, n, B, bud, pile=20)
+    assert int(kg.counts.sum()) > 0
+    if budgets == "drop":
+        assert bool(kg.overflow.any()), "forced budgets dropped nothing"
+    _, vals = fc.friction_sweep_plain(f, kg, kred, imr, imp, bud)
+    g = torch.as_tensor(np.random.RandomState(4).randn(B, n, 3),
+                        dtype=torch.float32, device=dev)
+    before = fc.friction_sweep_bwd.launches
+    out_k = fc.friction_sweep_bwd(g, kg, kred, imr, imp, vals, bud)
+    assert fc.friction_sweep_bwd.launches == before + 1
+    out_p = fc.friction_sweep_bwd_plain(g, kg, kred, imr, imp, vals, bud)
+    torch.cuda.synchronize()
+    assert float((out_p[0] - g).abs().max()) > 0, "friction never acted"
+    for a, b in zip(out_k, out_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_friction_sweep_autograd_on_card(dev):
+    """FrictionSweep's backward (the kernel) against autograd of the plain
+    forward on the same card tensors."""
+    n, B = 200, 3
+    bud = tuple(min(c, n) for c in compact_slot_budgets(4))
+    kg, masses, f = sweep_inputs(dev, n, B, bud)
+    g = torch.as_tensor(np.random.RandomState(5).randn(B, n, 3),
+                        dtype=torch.float32, device=dev)
+    fk = f.clone().requires_grad_(True)
+    fp = f.clone().requires_grad_(True)
+    mk = [m.clone().requires_grad_(True) for m in masses]
+    mp = [m.clone().requires_grad_(True) for m in masses]
+    out_k = fc.FrictionSweep.apply(fk, *mk, kg, bud)
+    out_p, _ = fc.friction_sweep_plain(fp, kg, *mp, bud)
+    gk = torch.autograd.grad(out_k, [fk] + mk, g)
+    gp = torch.autograd.grad(out_p, [fp] + mp, g)
+    for a, b in zip(gk, gp):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     n = 64
     x, v, radii, allowed, area = cloud(4, n, 2)
@@ -138,6 +196,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         fc.friction_sweep(f.transpose(0, 1).contiguous().transpose(0, 1),
                           kg, kred, imr, imp, bud)
+    vals = torch.zeros((2, 6, kg.idx_row.shape[1]), device=dev)
+    with pytest.raises(ValueError):
+        fc.friction_sweep_bwd(f, kg, kred, imr, imp, vals[:, :3], bud)
+    with pytest.raises(ValueError):
+        fc.friction_sweep_bwd(f.double(), kg, kred, imr, imp, vals, bud)
 
 
 def test_folded_episode_on_card_matches_cpu(dev):

@@ -1,6 +1,7 @@
-"""The port stands alone: `diffcloth_tpu_torch` and `chip_smoke.py` import
-neither JAX nor the JAX package, and the port's entry points run on the
-card unless the caller asks for the CPU."""
+"""The port stands alone: `diffcloth_tpu_torch` (its optimizer, task setup,
+losses and command line included) and `chip_smoke.py` import neither JAX
+nor the JAX package, and the port's entry points run on the card unless
+the caller asks for the CPU."""
 import os
 import pathlib
 import re
@@ -28,6 +29,11 @@ names = [m.name for m in pkgutil.walk_packages(
     diffcloth_tpu_torch.__path__, "diffcloth_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the gradient path's modules are among them
+need = {"diffcloth_tpu_torch.losses", "diffcloth_tpu_torch.tasks.setup",
+        "diffcloth_tpu_torch.optim.helper", "diffcloth_tpu_torch.optim.lbfgsb",
+        "diffcloth_tpu_torch.optim.solver", "diffcloth_tpu_torch.apps.optimize"}
+assert need <= set(names), need - set(names)
 import chip_smoke
 
 from diffcloth_tpu_torch import config as tc
@@ -50,12 +56,19 @@ assert bool(torch.isfinite(rec.steps.x).all())
 assert not torch.equal(rec.steps.x[-1], p.x0), "the cloth did not move"
 
 torch.cuda.is_available = lambda: False      # a machine without a card
-try:
-    ClothSim(scene)
-except RuntimeError as e:
-    assert "device='cpu'" in str(e), e
-else:
-    raise AssertionError("ClothSim without device= ran without a card")
+from diffcloth_tpu_torch.apps import optimize
+from diffcloth_tpu_torch.optim.solver import solve_demo
+from diffcloth_tpu_torch.tasks.setup import build_task
+for entry in (lambda: ClothSim(scene), lambda: build_task("wind"),
+              lambda: solve_demo("wind", population=2, maxiter=1),
+              lambda: optimize.main(["--demo", "wind", "--mode",
+                                     "simulate"])):
+    try:
+        entry()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError("an entry point ran without a card")
 assert not any(m.split(".")[0] in ("jax", "diffcloth_tpu")
                for m in sys.modules)
 print("OK", len(names))
