@@ -16,11 +16,14 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from diffcloth_tpu_torch.core.device import resolve_device
 from diffcloth_tpu_torch.core.types import SimParams
 
 
-def sim_params_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
+def sim_params_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
                           dtype=torch.float32) -> SimParams:
+    """On the card unless `device` says otherwise."""
+    device = resolve_device(device)
     names = [f.name for f in dataclasses.fields(SimParams)]
     missing = set(names) - set(arrays)
     if missing:

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from diffcloth_tpu_torch.core.constraints import safe_norm
+from diffcloth_tpu_torch.core.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -23,9 +24,11 @@ class PrimitiveSet:
     mu: torch.Tensor         # (P,) default friction coefficients
 
 
-def empty_primitive_set(dtype=torch.float32, device="cpu") -> PrimitiveSet:
+def empty_primitive_set(dtype=torch.float32, device=None) -> PrimitiveSet:
+    """On the card unless `device` says otherwise."""
     return PrimitiveSet(kind=np.zeros((0,), np.int32),
-                        mu=torch.zeros((0,), dtype=dtype, device=device))
+                        mu=torch.zeros((0,), dtype=dtype,
+                                       device=resolve_device(device)))
 
 
 @dataclasses.dataclass

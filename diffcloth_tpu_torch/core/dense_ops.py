@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from diffcloth_tpu_torch.core.constraints import EPS, safe_norm
+from diffcloth_tpu_torch.core.device import resolve_device
 from diffcloth_tpu_torch.geometry import builder as gb
 
 
@@ -50,13 +51,15 @@ def _rows_to_dense(rows_idx: np.ndarray, rows_w: np.ndarray,
 
 
 def build_dense_ops(scene_host, stage_host, dtype=torch.float32,
-                    device="cpu") -> DenseOps:
-    """Host-side densification of the per-type constraint rows.
+                    device=None) -> DenseOps:
+    """Host-side densification of the per-type constraint rows, onto
+    `device` (the card unless it says otherwise).
 
     The stretch rows are stored in SPLIT order — all column-0 rows (T),
     then all column-1 rows (T) — as in the JAX package (dense_ops.py:89-104),
     so the projection reads each block as one contiguous slice.  A^T A is
     permutation-invariant, and y_s and p_s share the order."""
+    device = resolve_device(device)
     n = scene_host.n
     s_rows = gb.stretch_rows(scene_host.triangle)
     b_rows = gb.bend_rows(scene_host.bending)

@@ -5,9 +5,14 @@ Counterpart of `diffcloth_tpu/core/friction_pallas.py`: `layer_specs`,
 `KernelGeom`, `build_kernel_geom` (with `x=`), `slot_masses` (:76-202),
 the custom-VJP sweep (:472-492) and `self_friction_kernel` (:495-516).
 The TPU `_fwd_kernel` becomes `csrc/friction_fwd.cu` and `_bwd_kernel`
-(the transposed linearization at the saved selects) `csrc/friction_bwd.cu`;
-`friction_sweep` / `friction_sweep_bwd` launch them for CUDA tensors and
-run `friction_sweep_plain` / `friction_sweep_bwd_plain` for CPU tensors.
+(the transposed linearization at the saved selects) `csrc/friction_bwd.cu`.
+
+A step's slot geometry and masses are fixed for all its sweeps and adjoint
+trips, so `sweep_operands` validates them once per step (pure Python, on
+CPU and card tensors alike) and caches the kernels' argument struct.
+`friction_sweep` / `friction_sweep_bwd` then check only the per-call state
+(and selects) against it, and launch the kernels for CUDA tensors or run
+`friction_sweep_plain` / `friction_sweep_bwd_plain` for CPU tensors.
 `FrictionSweep` ties the two together as a `torch.autograd.Function`.  The
 sweep is exact f32 whatever the simulation dtype, as in the JAX package.
 """
@@ -184,78 +189,147 @@ def friction_sweep_plain(fr, geom: KernelGeom, kred, imr, imp,
     return fr, torch.cat(vals, dim=-1).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# a step's slot operands, validated once
+
+class _SweepArgs(ctypes.Structure):
+    """The slot operands as both kernels take them: `friction::SweepGeom`
+    in csrc/friction_common.cuh, field for field."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in (
+        "idx_row", "idx_part", "normalT", "kred", "imr", "imp", "counts",
+        "layer_start")]
+        + [(k, ctypes.c_int) for k in ("L", "B", "n", "TC", "max_c_pad")])
+
+
+def _smem_bytes(n: int, TC: int, max_c_pad: int, L: int, in_rows: int,
+                out_rows: int, bufs: int) -> int:
+    """Shared memory of one sweep block, `friction::smem_layout`'s total:
+    the mbarrier, the (n, 3) state, staged and built slot rows of TC, slot
+    buffers of (max c_pad, 3), counts and layer_start."""
+    def a16(x):
+        return (x + 15) & ~15
+    return (16 + a16(12 * n) + a16(4 * TC * in_rows)
+            + a16(4 * TC * out_rows) + a16(12 * max_c_pad * bufs)
+            + 4 * (2 * L + 1))
+
+
+# the backward block is the larger of the two: 14 staged slot rows
+# (indices, normal, masses, selects), 3 cotangent rows, 2 slot buffers
+BWD_SMEM_ROWS = (14, 3, 2)
+
+
 @functools.lru_cache(maxsize=None)
 def _layer_start(budgets: tuple, device: torch.device) -> torch.Tensor:
     """(L+1,) int32 slot offsets of the layers, on the device (copied once
-    per budget tuple, not once per sweep)."""
+    per budget tuple, not once per step)."""
     specs, TC = layer_specs(budgets)
     return torch.tensor([s for s, _, _ in specs] + [TC], dtype=torch.int32,
                         device=device)
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_kernel():
-    """The forward kernel's C entry point, loaded and configured once
-    (argument types and the shared-memory limit), so that a sweep pays
-    neither."""
-    lib = cuda_build.load("friction_fwd")
-    init = lib.friction_fwd_init
+@dataclasses.dataclass(frozen=True)
+class SweepOperands:
+    """One step's validated slot operands for a (B, n, 3) state: the batched
+    geometry, the slot masses (k_red, 1/m_row, 1/m_part), the budgets, and
+    `args`, a pointer to the kernels' argument struct (it points into these
+    tensors, which this object keeps alive).  Made by `sweep_operands`."""
+    geom: KernelGeom
+    masses: tuple
+    budgets: tuple
+    state_shape: tuple    # (B, n, 3)
+    vals_shape: tuple     # (B, 6, TC)
+    device: torch.device
+    args: object
+
+
+def sweep_operands(geom: KernelGeom, masses, budgets: tuple,
+                   n: int) -> SweepOperands:
+    """Validate a step's slot geometry and masses once, for every sweep and
+    adjoint trip of the step: contiguous int32 / f32 tensors on one device,
+    of the shapes `budgets` give, and an (n, 3) state whose blocks fit in
+    shared memory.  Pure Python on shapes, dtypes and devices, so CPU
+    tensors are held to it too.  A single geometry (no leading dim, masses
+    (TC,)) becomes a batch of one.  Raises ValueError."""
+    kred, imr, imp = masses
+    if geom.idx_row.dim() == 1:
+        geom = KernelGeom(**{f.name: getattr(geom, f.name)[None]
+                             for f in dataclasses.fields(geom)})
+        kred, imr, imp = kred[None], imr[None], imp[None]
+    specs, TC = layer_specs(budgets)
+    B, L = geom.idx_row.shape[0], len(specs)
+    dev = geom.idx_row.device
+    f32, i32 = torch.float32, torch.int32
+    for name, t, shape, dt in (
+            ("idx_row", geom.idx_row, (B, TC), i32),
+            ("idx_part", geom.idx_part, (B, TC), i32),
+            ("normalT", geom.normalT, (B, 3, TC), f32),
+            ("counts", geom.counts, (B, L), i32),
+            ("k_red", kred, (B, TC), f32),
+            ("inv_m_row", imr, (B, TC), f32),
+            ("inv_m_part", imp, (B, TC), f32)):
+        if (tuple(t.shape) != shape or t.dtype != dt or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"sweep operands: {name} must be a contiguous {dt} {shape} "
+                f"tensor on {dev}, got a{'' if t.is_contiguous() else ' non'}"
+                f"-contiguous {t.dtype} {tuple(t.shape)} on {t.device}")
+    max_c_pad = max(c_pad for _, c_pad, _ in specs)
+    if n < 1 or _smem_bytes(n, TC, max_c_pad, L,
+                            *BWD_SMEM_ROWS) > SMEM_LIMIT:
+        raise ValueError(f"sweep operands: a state of n = {n} with "
+                         f"{TC} slots does not fit the sweeps' shared memory")
+    ls = _layer_start(tuple(budgets), dev)
+    args = _SweepArgs(*(t.data_ptr() for t in (
+        geom.idx_row, geom.idx_part, geom.normalT, kred, imr, imp,
+        geom.counts, ls)), L, B, n, TC, max_c_pad)
+    return SweepOperands(geom=geom, masses=(kred, imr, imp),
+                         budgets=tuple(budgets), state_shape=(B, n, 3),
+                         vals_shape=(B, 6, TC), device=dev,
+                         args=ctypes.pointer(args))
+
+
+def _check_call(name: str, t: torch.Tensor, shape: tuple,
+                ops: SweepOperands) -> None:
+    """The per-call check: a contiguous f32 tensor of `shape` on the
+    operands' device."""
+    if (t.shape != shape or t.dtype != torch.float32 or t.device != ops.device
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous torch.float32 {shape} "
+                         f"tensor on {ops.device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _load_kernel(name: str, n_args: int):
+    """A sweep kernel's C entry point, loaded and configured once (argument
+    types and the shared-memory limit), so that a sweep pays neither."""
+    lib = cuda_build.load(name)
+    init = getattr(lib, name + "_init")
     init.argtypes = [ctypes.c_int]
     init.restype = ctypes.c_int
-    cuda_build.check(init(SMEM_LIMIT), "friction_fwd_init")
-    fn = lib.friction_fwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    cuda_build.check(init(SMEM_LIMIT), name + "_init")
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.POINTER(_SweepArgs)] + [ctypes.c_void_p] * n_args
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_slot_args(name, fr, geom: KernelGeom, kred, imr, imp,
-                     budgets: tuple, vals=None, slot_bufs: int = 1):
-    """Raise unless every operand is what the sweep kernels take: contiguous
-    f32 / int32 tensors on fr's device, of the shapes of `budgets`, and an
-    (n, 3) state plus `slot_bufs` (max c_pad, 3) slot buffers that fit in
-    shared memory.  Returns (specs, TC, widest c_pad)."""
-    specs, TC = layer_specs(budgets)
-    B, n, _ = fr.shape
-    f32, i32 = torch.float32, torch.int32
-    expect = [(fr, (B, n, 3), f32), (geom.idx_row, (B, TC), i32),
-              (geom.idx_part, (B, TC), i32), (geom.normalT, (B, 3, TC), f32),
-              (kred, (B, TC), f32), (imr, (B, TC), f32), (imp, (B, TC), f32),
-              (geom.counts, (B, len(specs)), i32)]
-    if vals is not None:
-        expect.append((vals, (B, 6, TC), f32))
-    for t, shape, dt in expect:
-        if (tuple(t.shape) != shape or t.dtype != dt or t.device != fr.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: expected a contiguous {dt} {shape} "
-                             f"tensor on {fr.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    max_c_pad = max(c_pad for _, c_pad, _ in specs)
-    if 3 * (n + slot_bufs * max_c_pad) * 4 > SMEM_LIMIT:
-        raise ValueError(f"n = {n} does not fit the sweep's shared memory")
-    return specs, TC, max_c_pad
+@functools.lru_cache(maxsize=None)
+def _fwd_kernel():
+    return _load_kernel("friction_fwd", 4)
 
 
-def friction_sweep(fr, geom: KernelGeom, kred, imr, imp, budgets: tuple):
+def friction_sweep(fr, ops: SweepOperands):
     """One layered self-friction sweep on batched slot data: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.  fr
     (B, n, 3) f32 -> (fr', vals (B, 6, TC))."""
+    _check_call("friction_sweep: fr", fr, ops.state_shape, ops)
     if not fr.is_cuda:
-        return friction_sweep_plain(fr, geom, kred, imr, imp, budgets)
-    specs, TC, max_c_pad = _check_slot_args("friction_sweep", fr, geom,
-                                            kred, imr, imp, budgets)
-    B, n, _ = fr.shape
-    fn = _fwd_kernel()
+        return friction_sweep_plain(fr, ops.geom, *ops.masses, ops.budgets)
     out = torch.empty_like(fr)
-    vals = torch.empty((B, 6, TC), dtype=torch.float32, device=fr.device)
-    stream = torch.cuda.current_stream(fr.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (fr, out, vals, geom.idx_row,
-                                   geom.idx_part, geom.normalT, kred, imr,
-                                   imp, geom.counts,
-                                   _layer_start(budgets, fr.device))]
-    cuda_build.check(fn(*ptrs, len(specs), B, n, TC, max_c_pad, stream),
-                     "friction_fwd")
+    vals = fr.new_empty(ops.vals_shape)
+    cuda_build.check(_fwd_kernel()(
+        ops.args, fr.data_ptr(), out.data_ptr(), vals.data_ptr(),
+        torch.cuda.current_stream(fr.device).cuda_stream), "friction_fwd")
     friction_sweep.launches += 1
     return out, vals
 
@@ -344,43 +418,28 @@ def friction_sweep_bwd_plain(g, geom: KernelGeom, kred, imr, imp, vals,
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
-    """The backward kernel's C entry point, loaded and configured once."""
-    lib = cuda_build.load("friction_bwd")
-    init = lib.friction_bwd_init
-    init.argtypes = [ctypes.c_int]
-    init.restype = ctypes.c_int
-    cuda_build.check(init(SMEM_LIMIT), "friction_bwd_init")
-    fn = lib.friction_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _load_kernel("friction_bwd", 5)
 
 
-def friction_sweep_bwd(g, geom: KernelGeom, kred, imr, imp, vals,
-                       budgets: tuple):
+def friction_sweep_bwd(g, vals, ops: SweepOperands):
     """The backward sweep on batched slot data: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.  Returns (g', c_kred, c_imr,
-    c_imp) as `friction_sweep_bwd_plain` does."""
+    tensors, the plain version for CPU tensors.  g (B, n, 3) f32, vals
+    (B, 6, TC) the forward's selects.  Returns (g', c_kred, c_imr, c_imp)
+    as `friction_sweep_bwd_plain` does."""
+    _check_call("friction_sweep_bwd: g", g, ops.state_shape, ops)
+    _check_call("friction_sweep_bwd: vals", vals, ops.vals_shape, ops)
     if not g.is_cuda:
-        return friction_sweep_bwd_plain(g, geom, kred, imr, imp, vals,
-                                        budgets)
-    specs, TC, max_c_pad = _check_slot_args(
-        "friction_sweep_bwd", g, geom, kred, imr, imp, budgets, vals=vals,
-        slot_bufs=2)
-    B, n, _ = g.shape
-    fn = _bwd_kernel()
+        return friction_sweep_bwd_plain(g, ops.geom, *ops.masses, vals,
+                                        ops.budgets)
+    B, _, TC = ops.vals_shape
     out = torch.empty_like(g)
-    ck = torch.empty((3, B, TC), dtype=torch.float32, device=g.device)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (g, out, ck[0], ck[1], ck[2], vals,
-                                   geom.idx_row, geom.idx_part,
-                                   geom.normalT, kred, imr, imp, geom.counts,
-                                   _layer_start(budgets, g.device))]
-    cuda_build.check(fn(*ptrs, len(specs), B, n, TC, max_c_pad, stream),
-                     "friction_bwd")
+    ck = g.new_empty((3, B, TC))
+    cuda_build.check(_bwd_kernel()(
+        ops.args, g.data_ptr(), vals.data_ptr(), out.data_ptr(),
+        ck.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream),
+        "friction_bwd")
     friction_sweep_bwd.launches += 1
-    return out, ck[0], ck[1], ck[2]
+    return (out,) + ck.unbind(0)
 
 
 friction_sweep_bwd.launches = 0
@@ -390,41 +449,37 @@ class FrictionSweep(torch.autograd.Function):
     """The sweep as a differentiable function of (fr, k_red, 1/m_row,
     1/m_part), the counterpart of the `jax.custom_vjp` at
     friction_pallas.py:472-492: the forward saves `vals`, the backward is
-    the transposed-linearization kernel.  The slot geometry (indices,
+    the transposed-linearization kernel.  The masses are `ops.masses`,
+    passed again so that autograd sees them.  The slot geometry (indices,
     normals, counts) is a constant: it gets no cotangent, as there."""
 
     @staticmethod
-    def forward(ctx, fr, kred, imr, imp, geom: KernelGeom, budgets: tuple):
-        out, vals = friction_sweep(fr, geom, kred, imr, imp, budgets)
-        ctx.save_for_backward(kred, imr, imp, vals)
-        ctx.geom, ctx.budgets = geom, budgets
+    def forward(ctx, fr, kred, imr, imp, ops: SweepOperands):
+        out, vals = friction_sweep(fr, ops)
+        ctx.save_for_backward(vals)
+        ctx.ops = ops
         return out
 
     @staticmethod
     def backward(ctx, g):
-        kred, imr, imp, vals = ctx.saved_tensors
-        gfr, ck, ci, cp = friction_sweep_bwd(g.contiguous(), ctx.geom, kred,
-                                             imr, imp, vals, ctx.budgets)
-        return gfr, ck, ci, cp, None, None
+        vals, = ctx.saved_tensors
+        gfr, ck, ci, cp = friction_sweep_bwd(g.contiguous(), vals, ctx.ops)
+        return gfr, ck, ci, cp, None
 
 
-def self_friction(f: torch.Tensor, geom: KernelGeom, masses,
-                  r_init: torch.Tensor, budgets: tuple) -> torch.Tensor:
+def self_friction(f: torch.Tensor, ops: SweepOperands,
+                  r_init: torch.Tensor) -> torch.Tensor:
     """r_init + the layered self-friction contributions (counterpart of
     `self_friction_kernel`, which takes the density where this takes
-    `masses = slot_masses(geom, density)`).  f, r_init (n,3) or (B,n,3) in
-    the simulation dtype; the sweep runs in f32 through `FrictionSweep`, so
-    the result is differentiable in f, r_init and the masses, the casts to
-    and from f32 carrying the cotangent."""
+    `ops = sweep_operands(geom, slot_masses(geom, density), budgets, n)`).
+    f, r_init (n,3) (with single-sample operands) or (B,n,3) in the
+    simulation dtype; the sweep runs in f32 through `FrictionSweep`, so the
+    result is differentiable in f, r_init and the masses, the casts to and
+    from f32 carrying the cotangent."""
     single = f.dim() == 2
     if single:
         f, r_init = f[None], r_init[None]
-        geom = KernelGeom(**{k.name: getattr(geom, k.name)[None]
-                             for k in dataclasses.fields(geom)})
-    k_red, imr, imp = masses
-    if k_red.dim() == 1:
-        k_red, imr, imp = k_red[None], imr[None], imp[None]
     fr = (f + r_init).to(torch.float32).contiguous()
-    out = FrictionSweep.apply(fr, k_red, imr, imp, geom, budgets)
+    out = FrictionSweep.apply(fr, *ops.masses, ops)
     r = r_init + (out - fr).to(f.dtype)
     return r[0] if single else r

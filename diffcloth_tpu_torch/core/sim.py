@@ -31,6 +31,7 @@ from diffcloth_tpu_torch.core import selfcol_cuda as scd
 from diffcloth_tpu_torch.core import solver as slv
 from diffcloth_tpu_torch.core import spline as spl
 from diffcloth_tpu_torch.core import step as step_mod
+from diffcloth_tpu_torch.core.device import resolve_device
 from diffcloth_tpu_torch.core.types import (EpisodeRecords, SceneDev,
                                             SimParams, StageDev, StepRecord,
                                             make_sim_params)
@@ -41,15 +42,6 @@ from diffcloth_tpu_torch.geometry import builder as gb
 SELF_K_PARTNERS = 8
 SELF_MAX_LAYERS = 16
 SELF_COMPACT_LAYERS = 4
-
-
-def resolve_device(device=None) -> torch.device:
-    """The port runs on the card unless the caller asks for the CPU."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the plain PyTorch versions on the CPU")
-    return dev
 
 
 def set_full_f32_matmul() -> None:
@@ -71,7 +63,8 @@ def _wind_falloff(scene: gb.Scene) -> np.ndarray:
 
 
 def scene_to_device(scene: gb.Scene, dtype=torch.float32,
-                    device="cpu") -> SceneDev:
+                    device=None) -> SceneDev:
+    device = resolve_device(device)
     s_rows = gb.stretch_rows(scene.triangle)
     b_rows = gb.bend_rows(scene.bending)
     sp_rows = gb.spring_rows(scene.springs)
@@ -96,7 +89,8 @@ def scene_to_device(scene: gb.Scene, dtype=torch.float32,
 
 
 def stage_to_device(stage: gb.AttachmentStage, dtype=torch.float32,
-                    device="cpu") -> StageDev:
+                    device=None) -> StageDev:
+    device = resolve_device(device)
     a_rows = gb.attach_rows(stage)
 
     def f(a):

@@ -17,6 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
+from diffcloth_tpu_torch.core.device import resolve_device
 from diffcloth_tpu_torch.geometry import builder as gb
 
 
@@ -41,11 +42,13 @@ def _host_f64(a) -> np.ndarray:
 
 
 def make_host_p_inv_fn(gram_stack: np.ndarray, area: np.ndarray, h: float,
-                       dtype=torch.float32, device="cpu"):
+                       dtype=torch.float32, device=None):
     """Returns host-side (k_pertype, density) -> P^{-1} (an (n,n) tensor of
-    `dtype` on `device`) for one stage.  gram_stack: (4, n, n) float64."""
+    `dtype` on `device`, the card unless it says otherwise) for one stage.
+    gram_stack: (4, n, n) float64."""
     import scipy.linalg
 
+    device = resolve_device(device)
     h2 = h * h
     eye = np.eye(area.shape[0])
 

@@ -284,9 +284,13 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
         """C v = h^2 (sum_t k_t S_t) v."""
         return h2 * dn.apply_S_pertype(dense.S, params.k_pertype, v)
 
-    def friction(f, geom, slot_m):
-        return fc.self_friction(f, geom, slot_m, torch.zeros_like(f),
-                                self_cfg.budgets)
+    def sweep_ops(geom, params: SimParams):
+        """The step's slot operands, validated once for all its sweeps."""
+        return fc.sweep_operands(geom, fc.slot_masses(geom, params.density),
+                                 self_cfg.budgets, n)
+
+    def friction(f, ops):
+        return fc.self_friction(f, ops, torch.zeros_like(f))
 
     # -- forward PD loop ----------------------------------------------------
 
@@ -302,7 +306,7 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
         overflow = torch.zeros(B, dtype=torch.bool, device=dev)
         pairs = torch.zeros(B, dtype=torch.int64, device=dev)
         slots = torch.zeros(B, dtype=torch.int32, device=dev)
-        geom = slot_m = None
+        geom = ops = None
         if use_self:
             tables, overflow = scd.detect_tables(
                 self_cfg.allowed, scene.radii, x_n, v_iter0, h,
@@ -313,7 +317,7 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
                         | (tables.n_layers > len(self_cfg.budgets)))
             pairs = (tables.partner >= 0).sum(dim=(1, 2)) // 2
             slots = geom.counts.sum(dim=1, dtype=torch.int32)
-            slot_m = fc.slot_masses(geom, params.density)
+            ops = sweep_ops(geom, params)
 
         y_n = dn.apply_A(dense, x_n)        # constant across PD iterations
 
@@ -321,7 +325,7 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
             btilde = btilde_of(params, m, f_ext, v_n, x_now, x_fixed, y_n)
             if use_self:
                 f = btilde - apply_C(params, v_now)
-                r = friction(f, geom, slot_m)
+                r = friction(f, ops)
             else:
                 f = r = torch.zeros_like(x_n)
             v_new = dn.mm(p_inv, btilde + r)
@@ -393,11 +397,10 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
         Cv = apply_C(params, v_new)
         R = m[..., None] * v_new + Cv - btilde
         if use_self:
-            R = R - friction(btilde - Cv, geom,
-                             fc.slot_masses(geom, params.density))
+            R = R - friction(btilde - Cv, sweep_ops(geom, params))
         return R
 
-    def k_map(vn, x_n, v_n, params, x_fixed, geom, slot_m, t, step_idx):
+    def k_map(vn, x_n, v_n, params, x_fixed, ops, t, step_idx):
         """K(v) = b~(x_n + h v) + r(f(v)), so that P - dR/dv = dK/dv
         (step.py:683-692): the fixed point needs only K's VJP."""
         m = masses(params)
@@ -406,7 +409,7 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
                            dn.apply_A(dense, x_n))
         if not use_self:
             return btilde
-        return btilde + friction(btilde - apply_C(params, vn), geom, slot_m)
+        return btilde + friction(btilde - apply_C(params, vn), ops)
 
     # -- the implicit adjoint ------------------------------------------------
 
@@ -441,11 +444,10 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
                      for k in wanted})
         launches = 0
 
-        slot_m = fc.slot_masses(geom, params.density) if use_self else None
+        ops = sweep_ops(geom, params) if use_self else None
         with torch.enable_grad():
             vn = v_new.clone().requires_grad_(True)
-            K = k_map(vn, x_n, v_n, params, x_fixed, geom, slot_m, t,
-                      step_idx)
+            K = k_map(vn, x_n, v_n, params, x_fixed, ops, t, step_idx)
 
         def vjp_k(u):
             nonlocal launches

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from diffcloth_tpu_torch.core.device import resolve_device
 
 @dataclasses.dataclass
 class StageDev:
@@ -151,13 +152,14 @@ class EpisodeRecords:
 
 
 def make_sim_params(n: int, n_fixed: int, n_prims: int, n_steps: int,
-                    dtype=torch.float32, device="cpu",
+                    dtype=torch.float32, device=None,
                     k_stretch: float = 100.0, k_bend: float = 0.0,
                     k_attach: float = 10000.0, k_spring: float = 0.0,
                     density: float = 0.054) -> SimParams:
     """Defaults: attachment stiffness is the reference AttachmentSpring::k_stiff
-    default (diffcloth_tpu/core/types.py:111-130)."""
-    kw = dict(dtype=dtype, device=device)
+    default (diffcloth_tpu/core/types.py:111-130); the card unless `device`
+    says otherwise."""
+    kw = dict(dtype=dtype, device=resolve_device(device))
     z3 = torch.zeros((n, 3), **kw)
     return SimParams(
         k_pertype=torch.tensor([k_spring, k_attach, k_stretch, k_bend], **kw),

@@ -16,107 +16,135 @@
 // then u * imr is added to g[row_s] and -(u * imp) to g[part_s].  Slots
 // past counts[l] get zero slot cotangents.
 //
-// What bounds it on the H100: neither bytes nor operations.  One call moves
-// about 40 KB per sample (the (n, 3) cotangent in and out, the active slots'
-// data and vals, three slot cotangent rows) and does about a hundred
-// operations per active slot; the layers are a dependent chain inside one
-// block, so its time is launch and synchronisation latency.  Design, after
-// the forward: one block per sample keeps the whole (n, 3) f32 cotangent in
-// shared memory for all layers.  Per layer a read phase computes every
-// active slot's row and partner adds from the pre-layer cotangent into two
-// shared slot buffers, __syncthreads(), a row pass adds the row buffer,
-// __syncthreads(), a partner pass adds the partner buffer.  A layer is a
-// matching (each vertex is the row of at most one slot and the partner of
-// at most one slot, selfcol.layer_tables_from_partners), so no two threads
-// of a pass add into one vertex, and every vertex receives (g + row) + part
-// in that order, as the plain version's two scatter-adds give it.  Compiled
-// with --fmad=false so every product and sum rounds as in the plain
-// PyTorch version.
+// What bounds it on the H100: latency.  One call moves about 40 KB per
+// sample (the (n, 3) cotangent in and out, the slot rows and vals, three
+// slot cotangent rows) and does about a hundred operations per active slot:
+// its byte bound is under half a microsecond, below what any launch costs;
+// the layers are a dependent chain inside one block per sample.  Design,
+// as the forward's: one load phase (csrc/staging.cuh) stages the sample's
+// cotangent, slot rows and vals into shared memory with TMA bulk copies on
+// one mbarrier, one round trip in all.  The layer chain touches only shared
+// memory: per non-empty layer a read phase computes every active slot's row
+// and partner adds from the pre-layer cotangent into two slot buffers and
+// its three cotangents into shared rows, __syncthreads(), a row pass adds
+// the row buffer, __syncthreads(), a partner pass adds the partner buffer.
+// A layer is a matching (each vertex is the row of at most one slot and the
+// partner of at most one slot, selfcol.layer_tables_from_partners), so no
+// two threads of a pass add into one vertex, and every vertex receives
+// (g + row) + part in that order, as the plain version's two scatter-adds
+// give it: the kernel equals the plain version bit for bit.  Empty layers
+// cost nothing; a sample with no active slot carries its cotangent
+// through.  Inactive slots' cotangents are zeroed in one shared-memory
+// pass, and one store phase writes g and the three cotangent rows with
+// coalesced 16-byte stores (4-byte cp.async loads and 4-byte stores for a
+// state whose rows are not 16-byte aligned).  Compiled with --fmad=false
+// so every product and sum rounds as in the plain PyTorch version.
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
+#include "staging.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using friction::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
-friction_bwd_kernel(const float* __restrict__ g_in, float* __restrict__ g_out,
-                    float* __restrict__ c_kred, float* __restrict__ c_imr,
-                    float* __restrict__ c_imp, const float* __restrict__ vals,
-                    const int* __restrict__ idx_row,
-                    const int* __restrict__ idx_part,
-                    const float* __restrict__ normalT,
-                    const float* __restrict__ kred,
-                    const float* __restrict__ imr,
-                    const float* __restrict__ imp,
-                    const int* __restrict__ counts,
-                    const int* __restrict__ layer_start, int L, int n, int TC,
-                    int max_c_pad) {
-  extern __shared__ float smem[];
-  float* g = smem;                        // (n, 3) cotangent
-  float* add_row = smem + 3 * n;          // (max c_pad, 3) row adds
-  float* add_part = add_row + 3 * max_c_pad;  // (max c_pad, 3) partner adds
-  const int b = blockIdx.x;
-  const float* src = g_in + (size_t)b * 3 * n;
-  for (int e = threadIdx.x; e < 3 * n; e += kThreads) g[e] = src[e];
+friction_bwd_kernel(const friction::SweepGeom g,
+                    const float* __restrict__ g_in,
+                    const float* __restrict__ vals_in,
+                    float* __restrict__ g_out, float* __restrict__ ck_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const friction::Smem m = friction::smem_layout(g, 14, 3, 2);
+  const int b = blockIdx.x, TC = g.TC, L = g.L;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* gs = reinterpret_cast<float*>(smem + m.state);      // (n, 3)
+  int* row_of = reinterpret_cast<int*>(smem + m.slots);       // staged rows
+  int* part_of = row_of + TC;
+  float* nrmT = reinterpret_cast<float*>(part_of + TC);       // (3, TC)
+  float* kr_s = nrmT + 3 * TC;
+  float* mr_s = kr_s + TC;
+  float* mp_s = mr_s + TC;
+  float* vq = mp_s + TC;                                      // (6, TC)
+  float* ck = reinterpret_cast<float*>(smem + m.outs);        // (3, TC)
+  float* ci = ck + TC;
+  float* cp = ci + TC;
+  float* add_row = reinterpret_cast<float*>(smem + m.bufs);   // (c_pad, 3)
+  float* add_part = add_row + 3 * g.max_c_pad;                // (c_pad, 3)
+  int* cnt = reinterpret_cast<int*>(smem + m.ints);
+  int* ls = cnt + L;
 
   const size_t so = (size_t)b * TC;   // slot offset of this sample
-  const float* vq = vals + (size_t)b * 6 * TC;
-  for (int l = L - 1; l >= 0; --l) {
-    const int start = layer_start[l];
-    const int c_pad = layer_start[l + 1] - start;
-    const int cnt = counts[b * L + l];
-    __syncthreads();   // the later layer's adds (or the load) are visible
-    for (int s = threadIdx.x; s < c_pad; s += kThreads) {
-      const int slot = start + s;
-      if (s < cnt) {
-        const int row = idx_row[so + slot];
-        const float mr = imr[so + slot], mp = imp[so + slot];
-        const float kr = kred[so + slot];
-        float q[3], p[3], d[3], nrm[3], w[3], jt[3], r[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          q[c] = vq[(size_t)c * TC + slot];
-          p[c] = vq[(size_t)(3 + c) * TC + slot];
-          nrm[c] = normalT[((size_t)b * 3 + c) * TC + slot];
-          w[c] = g[3 * row + c];
-          d[c] = q[c] * mr - p[c] * mp;
-        }
-        friction::dry_friction_jt(nrm, d, w, jt);
-        friction::dry_friction(nrm, d, r);
-        float u[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          u[c] = kr * jt[c];
-          add_row[3 * s + c] = u[c] * mr;
-          add_part[3 * s + c] = -(u[c] * mp);
-        }
-        c_kred[so + slot] = r[0] * w[0] + r[1] * w[1] + r[2] * w[2];
-        c_imr[so + slot] = u[0] * q[0] + u[1] * q[1] + u[2] * q[2];
-        c_imp[so + slot] = -(u[0] * p[0] + u[1] * p[1] + u[2] * p[2]);
-      } else {
-        c_kred[so + slot] = 0.0f;
-        c_imr[so + slot] = 0.0f;
-        c_imp[so + slot] = 0.0f;
-      }
-    }
-    __syncthreads();   // every read of the pre-layer cotangent is done
-    for (int s = threadIdx.x; s < cnt; s += kThreads) {
-      const int row = idx_row[so + start + s];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) g[3 * row + c] += add_row[3 * s + c];
-    }
-    __syncthreads();   // row adds land before the partner adds
-    for (int s = threadIdx.x; s < cnt; s += kThreads) {
-      const int part = idx_part[so + start + s];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) g[3 * part + c] += add_part[3 * s + c];
-    }
+  const staging::Piece in[] = {
+      {gs, g_in + (size_t)b * 3 * g.n, 12 * g.n},
+      {row_of, g.idx_row + so, 4 * TC},
+      {part_of, g.idx_part + so, 4 * TC},
+      {nrmT, g.normalT + 3 * so, 12 * TC},
+      {kr_s, g.kred + so, 4 * TC},
+      {mr_s, g.imr + so, 4 * TC},
+      {mp_s, g.imp + so, 4 * TC},
+      {vq, vals_in + 6 * so, 24 * TC}};
+  staging::load(in, bar);
+  for (int i = threadIdx.x; i <= L; i += kThreads) {
+    ls[i] = g.layer_start[i];
+    if (i < L) cnt[i] = g.counts[b * L + i];
   }
   __syncthreads();
-  float* dst = g_out + (size_t)b * 3 * n;
-  for (int e = threadIdx.x; e < 3 * n; e += kThreads) dst[e] = g[e];
+  friction::zero_inactive(ck, 3, cnt, ls, L, TC);   // while copies land
+  staging::wait(bar);
+
+  bool synced = true;   // every thread sees the cotangent as it stands
+  for (int l = L - 1; l >= 0; --l) {
+    const int c_l = cnt[l];
+    if (c_l == 0) continue;
+    if (!synced) __syncthreads();   // the later layer's adds are visible
+    const int start = ls[l];
+    for (int s = threadIdx.x; s < c_l; s += kThreads) {
+      const int slot = start + s;
+      const int row = row_of[slot];
+      const float mr = mr_s[slot], mp = mp_s[slot], kr = kr_s[slot];
+      float q[3], p[3], d[3], nrm[3], w[3], jt[3], r[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        q[c] = vq[c * TC + slot];
+        p[c] = vq[(3 + c) * TC + slot];
+        nrm[c] = nrmT[c * TC + slot];
+        w[c] = gs[3 * row + c];
+        d[c] = q[c] * mr - p[c] * mp;
+      }
+      friction::dry_friction_jt(nrm, d, w, jt);
+      friction::dry_friction(nrm, d, r);
+      float u[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        u[c] = kr * jt[c];
+        add_row[3 * s + c] = u[c] * mr;
+        add_part[3 * s + c] = -(u[c] * mp);
+      }
+      ck[slot] = r[0] * w[0] + r[1] * w[1] + r[2] * w[2];
+      ci[slot] = u[0] * q[0] + u[1] * q[1] + u[2] * q[2];
+      cp[slot] = -(u[0] * p[0] + u[1] * p[1] + u[2] * p[2]);
+    }
+    __syncthreads();   // every read of the pre-layer cotangent is done
+    for (int s = threadIdx.x; s < c_l; s += kThreads) {
+      const int row = row_of[start + s];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) gs[3 * row + c] += add_row[3 * s + c];
+    }
+    __syncthreads();   // row adds land before the partner adds
+    for (int s = threadIdx.x; s < c_l; s += kThreads) {
+      const int part = part_of[start + s];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) gs[3 * part + c] += add_part[3 * s + c];
+    }
+    synced = false;
+  }
+  const size_t sc = (size_t)g.B * TC;   // ck_out's row stride
+  const staging::Piece out[] = {
+      {g_out + (size_t)b * 3 * g.n, gs, 12 * g.n},
+      {ck_out + so, ck, 4 * TC},
+      {ck_out + sc + so, ci, 4 * TC},
+      {ck_out + 2 * sc + so, cp, 4 * TC}};
+  staging::store(out);
 }
 
 }  // namespace
@@ -129,26 +157,18 @@ extern "C" int friction_bwd_init(int max_smem) {
                                    max_smem);
 }
 
-// g_in / g_out (B, n, 3) f32; c_kred / c_imr / c_imp (B, TC) f32 outputs;
-// vals (B, 6, TC) the forward's saved q and p; idx_row / idx_part (B, TC)
-// int32; normalT (B, 3, TC); kred / imr / imp (B, TC) f32; counts (B, L)
-// int32; layer_start (L + 1) int32 with layer l's slots in
-// [layer_start[l], layer_start[l + 1]); max_c_pad the widest layer.  The
-// shared memory it needs, 3 (n + 2 max_c_pad) floats, must not exceed what
+// g: the step's slot operands; g_in / g_out (B, n, 3) f32; vals (B, 6, TC)
+// the forward's saved q and p; ck_out (3, B, TC) f32, the cotangents of
+// kred, imr and imp.  The shared memory it needs,
+// friction::smem_layout(g, 14, 3, 2), must not exceed what
 // friction_bwd_init allowed.
-extern "C" int friction_bwd(const float* g_in, float* g_out, float* c_kred,
-                            float* c_imr, float* c_imp, const float* vals,
-                            const int* idx_row, const int* idx_part,
-                            const float* normalT, const float* kred,
-                            const float* imr, const float* imp,
-                            const int* counts, const int* layer_start, int L,
-                            int B, int n, int TC, int max_c_pad,
+extern "C" int friction_bwd(const friction::SweepGeom* g, const float* g_in,
+                            const float* vals, float* g_out, float* ck_out,
                             void* stream) {
-  if (B < 1 || n < 1 || L < 1 || TC < 1 || max_c_pad < 1)
+  if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)3 * (n + 2 * max_c_pad) * sizeof(float);
-  friction_bwd_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      g_in, g_out, c_kred, c_imr, c_imp, vals, idx_row, idx_part, normalT,
-      kred, imr, imp, counts, layer_start, L, n, TC, max_c_pad);
+  const int smem = friction::smem_layout(*g, 14, 3, 2).bytes;
+  friction_bwd_kernel<<<g->B, kThreads, smem, (cudaStream_t)stream>>>(
+      *g, g_in, vals, g_out, ck_out);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,10 @@
-// Per-slot dry-friction math shared by the forward and backward sweeps
-// (csrc/friction_fwd.cu, csrc/friction_bwd.cu): the Signorini-Coulomb
-// take-off / stick / slide split with mu = 0.1 (friction_pallas.py
-// `_fric_cases`, `_dff_T`, `_dff_JT`), op for op as the plain PyTorch
-// versions in core/friction_cuda.py compute it: three-term sums left to
-// right, and the kernels are compiled with --fmad=false.
+// What the forward and backward sweeps share (csrc/friction_fwd.cu,
+// csrc/friction_bwd.cu): the per-step slot operands, one sample's
+// shared-memory layout, and the per-slot dry-friction math, the
+// Signorini-Coulomb take-off / stick / slide split with mu = 0.1
+// (friction_pallas.py `_fric_cases`, `_dff_T`, `_dff_JT`), op for op as the
+// plain PyTorch versions in core/friction_cuda.py compute it: three-term
+// sums left to right, and the kernels are compiled with --fmad=false.
 #pragma once
 #include <math.h>
 
@@ -11,6 +12,62 @@ namespace friction {
 
 constexpr float kMu = 0.1f;     // cloth-cloth friction (Simulation.cpp:666)
 constexpr float kEps = 1e-12f;  // safe_norm guard (constraints.EPS)
+constexpr int kThreads = 256;   // one block of kThreads per sample
+
+// The slot operands of one step, fixed for all its sweeps and adjoint
+// trips; the wrapper validates them once and passes this struct by pointer
+// (`_SweepArgs` in core/friction_cuda.py mirrors its layout).  Slot axes
+// are the concatenated layers, layer l in [layer_start[l],
+// layer_start[l + 1]); TC and every layer's width are multiples of 128.
+struct SweepGeom {
+  const int* idx_row;      // (B, TC) row vertex of each slot
+  const int* idx_part;     // (B, TC) partner vertex
+  const float* normalT;    // (B, 3, TC) row-signed normal
+  const float* kred;       // (B, TC) reduced mass
+  const float* imr;        // (B, TC) 1 / row mass
+  const float* imp;        // (B, TC) 1 / partner mass
+  const int* counts;       // (B, L) active slots per layer
+  const int* layer_start;  // (L + 1)
+  int L, B, n, TC, max_c_pad;
+};
+
+__host__ __device__ inline int align16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// One sample's shared memory, byte offsets (core/friction_cuda.py
+// `_smem_bytes` computes the same total): the mbarrier at 0, the (n, 3)
+// state, `in_rows` staged slot rows of TC, `out_rows` slot rows built for
+// the store, `bufs` (max c_pad, 3) slot buffers, then counts (L) and
+// layer_start (L + 1).
+struct Smem {
+  int state, slots, outs, bufs, ints, bytes;
+};
+
+__host__ __device__ inline Smem smem_layout(const SweepGeom& g, int in_rows,
+                                            int out_rows, int bufs) {
+  Smem m;
+  m.state = 16;
+  m.slots = m.state + align16(12 * g.n);
+  m.outs = m.slots + align16(4 * g.TC * in_rows);
+  m.bufs = m.outs + align16(4 * g.TC * out_rows);
+  m.ints = m.bufs + align16(12 * g.max_c_pad * bufs);
+  m.bytes = m.ints + 4 * (2 * g.L + 1);
+  return m;
+}
+
+// Zero `rows` slot rows of TC at every slot past its layer's count: the
+// outputs of inactive slots, in one shared-memory pass.
+__device__ __forceinline__ void zero_inactive(float* rows, int n_rows,
+                                              const int* cnt, const int* ls,
+                                              int L, int TC) {
+  for (int t = threadIdx.x; t < TC; t += blockDim.x) {
+    int l = 0;
+    while (l + 1 < L && t >= ls[l + 1]) ++l;
+    if (t - ls[l] >= cnt[l])
+      for (int r = 0; r < n_rows; ++r) rows[r * TC + t] = 0.0f;
+  }
+}
 
 // The case data of one slot at the relative force d against normal n.
 struct Cases {

@@ -13,87 +13,112 @@
 // f32 throughout: the TPU build's bf16-rounded one-hot selects are not
 // copied.
 //
-// What bounds it on the H100: neither bytes nor operations — one call
-// moves about 40 KB per sample (the (n,3) state in and out, the slot data,
-// vals) and does a few hundred operations per active slot; the sweep is a
-// chain of dependent layers inside one block, so its time is launch and
-// synchronisation latency.  Design: one block per sample keeps the whole
-// (n,3) f32 state in shared memory (12 KB at n = 1024) for all layers;
-// per layer a read phase computes every active slot's force from the
-// pre-layer state into a shared slot buffer, __syncthreads(), then a write
-// phase adds them into the rows with shared-memory atomicAdd (rows are
-// unique within a layer by construction; a duplicate would sum, as the
-// TPU kernel's one-hot product does).  Slots past counts[l] cost only
-// their vals zero-fill, as the TPU kernel skips empty 128-slot chunks.
-// Compiled with --fmad=false so every product and sum rounds as in the
-// plain PyTorch version.
+// What bounds it on the H100: latency.  One call moves about 40 KB per
+// sample (the (n, 3) state in and out, the slot rows, vals) and does a few
+// dozen operations per active slot: at 3.35 TB/s its byte bound is under
+// half a microsecond, below what any launch costs.  What is left is a
+// chain of dependent steps inside one block per sample.  Design: one load
+// phase (csrc/staging.cuh) brings the sample's state and all its slot rows
+// into shared memory with TMA bulk copies on one mbarrier, so the block
+// pays one memory round trip where a per-layer reload paid 2 L + 2.  The
+// layer chain then touches only shared memory: per non-empty layer a read
+// phase computes every active slot's force from the pre-layer state into a
+// slot buffer and its q, p into the vals rows, __syncthreads(), and a
+// write phase adds the forces into the rows.  A layer is a matching (each
+// vertex is the row of at most one slot, selfcol.layer_tables_from_
+// partners), so no two threads add into one row and each row gets one
+// add, bit-equal to the plain version's scatter-add.  Empty layers cost
+// nothing; a sample with no active slot only carries its state through.
+// Inactive slots' vals are zeroed in one shared-memory pass, and one store
+// phase writes the state and vals back with coalesced 16-byte stores
+// (measured faster than TMA bulk stores, csrc/staging.cuh).  A state whose
+// rows are not 16-byte aligned (n % 4 != 0) is loaded by 4-byte cp.async
+// beside the bulk copies.  Compiled with --fmad=false so every product and
+// sum rounds as in the plain PyTorch version.
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
+#include "staging.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using friction::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
-friction_kernel(const float* __restrict__ fr_in, float* __restrict__ fr_out,
-                float* __restrict__ vals, const int* __restrict__ idx_row,
-                const int* __restrict__ idx_part,
-                const float* __restrict__ normalT,
-                const float* __restrict__ kred, const float* __restrict__ imr,
-                const float* __restrict__ imp, const int* __restrict__ counts,
-                const int* __restrict__ layer_start, int L, int n, int TC) {
-  extern __shared__ float smem[];
-  float* fr = smem;              // (n, 3) force state
-  float* r_slot = smem + 3 * n;  // (max c_pad, 3) per-layer slot forces
-  const int b = blockIdx.x;
-  const float* src = fr_in + (size_t)b * 3 * n;
-  for (int e = threadIdx.x; e < 3 * n; e += kThreads) fr[e] = src[e];
+friction_kernel(const friction::SweepGeom g, const float* __restrict__ fr_in,
+                float* __restrict__ fr_out, float* __restrict__ vals_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const friction::Smem m = friction::smem_layout(g, 8, 6, 1);
+  const int b = blockIdx.x, TC = g.TC, L = g.L;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* fr = reinterpret_cast<float*>(smem + m.state);      // (n, 3)
+  int* row_of = reinterpret_cast<int*>(smem + m.slots);       // staged rows
+  int* part_of = row_of + TC;
+  float* nrmT = reinterpret_cast<float*>(part_of + TC);       // (3, TC)
+  float* kr_s = nrmT + 3 * TC;
+  float* mr_s = kr_s + TC;
+  float* mp_s = mr_s + TC;
+  float* vals = reinterpret_cast<float*>(smem + m.outs);      // (6, TC)
+  float* r_slot = reinterpret_cast<float*>(smem + m.bufs);    // (c_pad, 3)
+  int* cnt = reinterpret_cast<int*>(smem + m.ints);
+  int* ls = cnt + L;
 
   const size_t so = (size_t)b * TC;   // slot offset of this sample
-  float* vq = vals + (size_t)b * 6 * TC;
+  const staging::Piece in[] = {
+      {fr, fr_in + (size_t)b * 3 * g.n, 12 * g.n},
+      {row_of, g.idx_row + so, 4 * TC},
+      {part_of, g.idx_part + so, 4 * TC},
+      {nrmT, g.normalT + 3 * so, 12 * TC},
+      {kr_s, g.kred + so, 4 * TC},
+      {mr_s, g.imr + so, 4 * TC},
+      {mp_s, g.imp + so, 4 * TC}};
+  staging::load(in, bar);
+  for (int i = threadIdx.x; i <= L; i += kThreads) {
+    ls[i] = g.layer_start[i];
+    if (i < L) cnt[i] = g.counts[b * L + i];
+  }
+  __syncthreads();
+  friction::zero_inactive(vals, 6, cnt, ls, L, TC);   // while copies land
+  staging::wait(bar);
+
+  bool synced = true;   // every thread sees the state as it stands
   for (int l = 0; l < L; ++l) {
-    const int start = layer_start[l];
-    const int c_pad = layer_start[l + 1] - start;
-    const int cnt = counts[b * L + l];
-    __syncthreads();   // previous layer's writes (or the load) are visible
-    for (int s = threadIdx.x; s < c_pad; s += kThreads) {
+    const int c_l = cnt[l];
+    if (c_l == 0) continue;
+    if (!synced) __syncthreads();   // the previous layer's adds are visible
+    const int start = ls[l];
+    for (int s = threadIdx.x; s < c_l; s += kThreads) {
       const int slot = start + s;
-      if (s < cnt) {
-        const int row = idx_row[so + slot];
-        const int part = idx_part[so + slot];
-        const float mr = imr[so + slot], mp = imp[so + slot];
-        const float kr = kred[so + slot];
-        float q[3], p[3], d[3], nrm[3], r[3];
+      const int row = row_of[slot], part = part_of[slot];
+      const float mr = mr_s[slot], mp = mp_s[slot], kr = kr_s[slot];
+      float q[3], p[3], d[3], nrm[3], r[3];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          q[c] = fr[3 * row + c];
-          p[c] = fr[3 * part + c];
-          nrm[c] = normalT[((size_t)b * 3 + c) * TC + slot];
-          d[c] = q[c] * mr - p[c] * mp;
-        }
-        friction::dry_friction(nrm, d, r);
+      for (int c = 0; c < 3; ++c) {
+        q[c] = fr[3 * row + c];
+        p[c] = fr[3 * part + c];
+        nrm[c] = nrmT[c * TC + slot];
+        d[c] = q[c] * mr - p[c] * mp;
+      }
+      friction::dry_friction(nrm, d, r);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          r_slot[3 * s + c] = kr * r[c];
-          vq[(size_t)c * TC + slot] = q[c];
-          vq[(size_t)(3 + c) * TC + slot] = p[c];
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < 6; ++c) vq[(size_t)c * TC + slot] = 0.0f;
+      for (int c = 0; c < 3; ++c) {
+        r_slot[3 * s + c] = kr * r[c];
+        vals[c * TC + slot] = q[c];
+        vals[(3 + c) * TC + slot] = p[c];
       }
     }
     __syncthreads();   // every read of the pre-layer state is done
-    for (int s = threadIdx.x; s < cnt; s += kThreads) {
-      const int row = idx_row[so + start + s];
+    for (int s = threadIdx.x; s < c_l; s += kThreads) {
+      const int row = row_of[start + s];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) atomicAdd(&fr[3 * row + c], r_slot[3 * s + c]);
+      for (int c = 0; c < 3; ++c) fr[3 * row + c] += r_slot[3 * s + c];
     }
+    synced = false;
   }
-  __syncthreads();
-  float* dst = fr_out + (size_t)b * 3 * n;
-  for (int e = threadIdx.x; e < 3 * n; e += kThreads) dst[e] = fr[e];
+  const staging::Piece out[] = {
+      {fr_out + (size_t)b * 3 * g.n, fr, 12 * g.n},
+      {vals_out + (size_t)b * 6 * TC, vals, 24 * TC}};
+  staging::store(out);
 }
 
 }  // namespace
@@ -105,24 +130,15 @@ extern "C" int friction_fwd_init(int max_smem) {
       friction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
 }
 
-// fr_in / fr_out (B, n, 3) f32; vals (B, 6, TC) f32; idx_row / idx_part
-// (B, TC) int32; normalT (B, 3, TC); kred / imr / imp (B, TC) f32; counts
-// (B, L) int32; layer_start (L + 1) int32 with layer l's slots in
-// [layer_start[l], layer_start[l + 1]); max_c_pad the widest layer.  The
-// shared memory it needs, 3 (n + max_c_pad) floats, must not exceed what
-// friction_fwd_init allowed.
-extern "C" int friction_fwd(const float* fr_in, float* fr_out, float* vals,
-                            const int* idx_row, const int* idx_part,
-                            const float* normalT, const float* kred,
-                            const float* imr, const float* imp,
-                            const int* counts, const int* layer_start, int L,
-                            int B, int n, int TC, int max_c_pad,
-                            void* stream) {
-  if (B < 1 || n < 1 || L < 1 || TC < 1 || max_c_pad < 1)
+// g: the step's slot operands; fr_in / fr_out (B, n, 3) f32; vals (B, 6, TC)
+// f32.  The shared memory it needs, friction::smem_layout(g, 8, 6, 1), must
+// not exceed what friction_fwd_init allowed.
+extern "C" int friction_fwd(const friction::SweepGeom* g, const float* fr_in,
+                            float* fr_out, float* vals, void* stream) {
+  if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)3 * (n + max_c_pad) * sizeof(float);
-  friction_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      fr_in, fr_out, vals, idx_row, idx_part, normalT, kred, imr, imp,
-      counts, layer_start, L, n, TC);
+  const int smem = friction::smem_layout(*g, 8, 6, 1).bytes;
+  friction_kernel<<<g->B, kThreads, smem, (cudaStream_t)stream>>>(
+      *g, fr_in, fr_out, vals);
   return (int)cudaGetLastError();
 }

@@ -7,12 +7,15 @@ which the machine with the card may lack, so run them there with
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Tolerances: detection tables are exact (the kernel computes d^2 in the
-plain version's order without contraction); the friction sweeps, forward
-and backward, within rtol 1e-5 / atol 1e-6, since a row's contributions
-within a layer may be added in another order (rows and partners are unique
-per layer, so in practice the two agree bit for bit); the f64 card episode
-within 1e-6 of the CPU one, the f32 friction sweep inside the f64
-simulation being the only inexact step.
+plain version's order without contraction).  The friction sweeps, forward
+and backward, are exact too (rtol 0, atol 0): both compute every slot op
+for op (--fmad=false), and a layer is a matching, so each row and each
+partner receives a single add per layer, in the plain version's order; the
+cases cover states whose rows are not 16-byte aligned (n % 4 != 0, the
+kernels' plain-load path beside the bulk copies), two-layer budgets, one
+sample, and a batch without contact.  The f64 card episode is held within
+1e-6 of the CPU one, the f32 friction sweep inside the f64 simulation
+being the only inexact step.
 """
 import dataclasses
 
@@ -106,14 +109,15 @@ def test_friction_kernel_matches_plain(dev, budgets, B):
     kred, imr, imp = fc.slot_masses(kg, rho)
     f = torch.as_tensor(np.random.RandomState(3).randn(B, n, 3) * 0.1,
                         dtype=torch.float32, device=dev)
+    ops = fc.sweep_operands(kg, (kred, imr, imp), bud, n)
     before = fc.friction_sweep.launches
-    out_k, vals_k = fc.friction_sweep(f, kg, kred, imr, imp, bud)
+    out_k, vals_k = fc.friction_sweep(f, ops)
     assert fc.friction_sweep.launches == before + 1
     out_p, vals_p = fc.friction_sweep_plain(f, kg, kred, imr, imp, bud)
     torch.cuda.synchronize()
     assert float((out_p - f).abs().max()) > 0, "friction never acted"
-    torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(vals_k, vals_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
+    torch.testing.assert_close(vals_k, vals_p, rtol=0, atol=0)
 
 
 def sweep_inputs(dev, n, B, bud, pile=0):
@@ -143,14 +147,60 @@ def test_friction_bwd_kernel_matches_plain(dev, budgets, B):
     _, vals = fc.friction_sweep_plain(f, kg, kred, imr, imp, bud)
     g = torch.as_tensor(np.random.RandomState(4).randn(B, n, 3),
                         dtype=torch.float32, device=dev)
+    ops = fc.sweep_operands(kg, (kred, imr, imp), bud, n)
     before = fc.friction_sweep_bwd.launches
-    out_k = fc.friction_sweep_bwd(g, kg, kred, imr, imp, vals, bud)
+    out_k = fc.friction_sweep_bwd(g, vals, ops)
     assert fc.friction_sweep_bwd.launches == before + 1
     out_p = fc.friction_sweep_bwd_plain(g, kg, kred, imr, imp, vals, bud)
     torch.cuda.synchronize()
     assert float((out_p[0] - g).abs().max()) > 0, "friction never acted"
     for a, b in zip(out_k, out_p):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+SWEEP_CASES = {
+    # n, B, budgets, every count zeroed
+    "n201_B3_default": (201, 3, "default", False),
+    "n625_B4_default": (625, 4, "default", False),
+    "n201_B3_two_layers": (201, 3, (128, 64), False),
+    "n625_B1_two_layers": (625, 1, (128, 64), False),
+    "n200_B5_no_contact": (200, 5, "default", True),
+    "n625_B2_no_contact": (625, 2, (128, 64), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SWEEP_CASES))
+def test_friction_kernels_equal_plain_at_any_width(dev, case):
+    """Both sweeps, forward then backward at the forward's selects, equal
+    their plain versions exactly: unaligned sample bases (n % 4 != 0, B >
+    1), two-layer budgets, one sample, and every count zero (each block
+    only carries its state through and writes zero slot rows)."""
+    n, B, bud, empty = SWEEP_CASES[case]
+    if bud == "default":
+        bud = tuple(min(c, n) for c in compact_slot_budgets(4))
+    kg, masses, f = sweep_inputs(dev, n, B, bud)
+    if empty:
+        kg = dataclasses.replace(kg, counts=torch.zeros_like(kg.counts))
+    else:
+        assert int(kg.counts.sum()) > 0
+    ops = fc.sweep_operands(kg, masses, bud, n)
+    launches = fc.friction_sweep.launches, fc.friction_sweep_bwd.launches
+    out_k, vals_k = fc.friction_sweep(f, ops)
+    g = torch.as_tensor(np.random.RandomState(6).randn(B, n, 3),
+                        dtype=torch.float32, device=dev)
+    bwd_k = fc.friction_sweep_bwd(g, vals_k, ops)
+    assert (fc.friction_sweep.launches, fc.friction_sweep_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    out_p, vals_p = fc.friction_sweep_plain(f, kg, *masses, bud)
+    bwd_p = fc.friction_sweep_bwd_plain(g, kg, *masses, vals_p, bud)
+    torch.cuda.synchronize()
+    for a, b in zip((out_k, vals_k) + bwd_k, (out_p, vals_p) + bwd_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if empty:
+        assert torch.equal(out_k, f) and torch.equal(bwd_k[0], g)
+        assert not any(bool(t.any()) for t in (vals_k,) + bwd_k[1:])
+    else:
+        assert float((out_p - f).abs().max()) > 0, "friction never acted"
 
 
 def test_friction_sweep_autograd_on_card(dev):
@@ -165,7 +215,8 @@ def test_friction_sweep_autograd_on_card(dev):
     fp = f.clone().requires_grad_(True)
     mk = [m.clone().requires_grad_(True) for m in masses]
     mp = [m.clone().requires_grad_(True) for m in masses]
-    out_k = fc.FrictionSweep.apply(fk, *mk, kg, bud)
+    ops = fc.sweep_operands(kg, mk, bud, n)
+    out_k = fc.FrictionSweep.apply(fk, *ops.masses, ops)
     out_p, _ = fc.friction_sweep_plain(fp, kg, *mp, bud)
     gk = torch.autograd.grad(out_k, [fk] + mk, g)
     gp = torch.autograd.grad(out_p, [fp] + mp, g)
@@ -190,17 +241,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     bud = (64, 64)
     kg = fc.build_kernel_geom(tables, area.to(dev), n, bud, x=x.to(dev))
     kred, imr, imp = fc.slot_masses(kg, torch.full((2,), 0.3, device=dev))
+    with pytest.raises(ValueError):
+        fc.sweep_operands(kg, (kred.double(), imr, imp), bud, n)
+    with pytest.raises(ValueError):
+        fc.sweep_operands(kg, (kred.cpu(), imr, imp), bud, n)
+    ops = fc.sweep_operands(kg, (kred, imr, imp), bud, n)
     f = torch.zeros((2, n, 3), device=dev)
     with pytest.raises(ValueError):
-        fc.friction_sweep(f.double(), kg, kred, imr, imp, bud)
+        fc.friction_sweep(f.double(), ops)
     with pytest.raises(ValueError):
         fc.friction_sweep(f.transpose(0, 1).contiguous().transpose(0, 1),
-                          kg, kred, imr, imp, bud)
+                          ops)
+    with pytest.raises(ValueError):
+        fc.friction_sweep(f.cpu(), ops)
     vals = torch.zeros((2, 6, kg.idx_row.shape[1]), device=dev)
     with pytest.raises(ValueError):
-        fc.friction_sweep_bwd(f, kg, kred, imr, imp, vals[:, :3], bud)
+        fc.friction_sweep_bwd(f, vals[:, :3], ops)
     with pytest.raises(ValueError):
-        fc.friction_sweep_bwd(f.double(), kg, kred, imr, imp, vals, bud)
+        fc.friction_sweep_bwd(f.double(), vals, ops)
 
 
 def test_folded_episode_on_card_matches_cpu(dev):

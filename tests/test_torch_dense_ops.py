@@ -42,7 +42,7 @@ def scene_cfg(m):
 def built():
     js, ts = jgb.build_scene(scene_cfg(jc)), tgb.build_scene(scene_cfg(tc))
     jd = jdn.build_dense_ops(js, js.stages[0], jnp.float64)
-    td = tdn.build_dense_ops(ts, ts.stages[0], torch.float64)
+    td = tdn.build_dense_ops(ts, ts.stages[0], torch.float64, "cpu")
     rng = np.random.RandomState(7)
     x = ts.x_rest[None] + rng.randn(B, ts.n, 3) * 0.05
     k = np.abs(rng.randn(B, 4)) * [1.0, 1e4, 550.0, 0.01] + 0.1
@@ -136,7 +136,8 @@ def test_p_inv_bit_equal(built):
     gt = tslv.dense_gram_matrices(ts)[0]
     np.testing.assert_array_equal(gt, gj)
     pj = jslv.make_host_p_inv_fn(gj, area, 1.0 / 90.0, jnp.float64)
-    pt = tslv.make_host_p_inv_fn(gt, area, 1.0 / 90.0, torch.float64)
+    pt = tslv.make_host_p_inv_fn(gt, area, 1.0 / 90.0, torch.float64,
+                                  "cpu")
     for kb, rho in ((k[0], 0.124), (k[1], 0.3)):
         np.testing.assert_array_equal(
             pt(torch.as_tensor(kb),

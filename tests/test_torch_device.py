@@ -1,0 +1,68 @@
+"""Every public function of the port that takes a `device` puts its tensors
+on the card unless the caller asks for the CPU: without a card it raises
+(asking for device='cpu'), and with device="cpu" it runs on the CPU.  The
+card's absence is simulated by patching `torch.cuda.is_available`, so these
+tests mean the same with and without one."""
+import numpy as np
+import pytest
+import torch
+
+from diffcloth_tpu_torch import config as tc
+from diffcloth_tpu_torch import convert
+from diffcloth_tpu_torch.core import contact, dense_ops, sim, solver, types
+from diffcloth_tpu_torch.core.device import resolve_device
+from diffcloth_tpu_torch.geometry import builder as gb
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return gb.build_scene(tc.SceneConfig(
+        fabric=tc.FabricConfig(cloth_dim_x=2, cloth_dim_y=2,
+                               k_stiff_stretching=300, k_stiff_bending=0.05,
+                               grid_num_x=4, grid_num_y=4, density=0.3),
+        attachment_points=tc.AttachmentConfig.LEFT_RIGHT_CORNERS_2,
+        wind_config=tc.WindConfig.WIND_SIN, time_step=1.0 / 60.0,
+        step_num=2, name="tiny"))
+
+
+def _params_arrays():
+    p = types.make_sim_params(4, 1, 1, 2, device="cpu")
+    return convert.sim_params_to_numpy(p)
+
+
+# each entry point, called with **kw, -> one tensor it placed
+ENTRIES = {
+    "make_sim_params": lambda s, **kw: types.make_sim_params(
+        4, 1, 1, 2, **kw).density,
+    "sim_params_from_numpy": lambda s, **kw: convert.sim_params_from_numpy(
+        _params_arrays(), **kw).wind,
+    "scene_to_device": lambda s, **kw: sim.scene_to_device(s, **kw).area,
+    "stage_to_device": lambda s, **kw: sim.stage_to_device(
+        s.stages[0], **kw).attach_w,
+    "build_dense_ops": lambda s, **kw: dense_ops.build_dense_ops(
+        s, s.stages[0], **kw).S,
+    "make_host_p_inv_fn": lambda s, **kw: solver.make_host_p_inv_fn(
+        solver.dense_gram_matrices(s)[0], np.asarray(s.area, np.float64),
+        1.0 / 60.0, **kw)(torch.tensor([0.0, 1e4, 300.0, 0.05]),
+                          torch.tensor(0.3)),
+    "empty_primitive_set": lambda s, **kw: contact.empty_primitive_set(
+        **kw).mu,
+    "ClothSim": lambda s, **kw: sim.ClothSim(s, **kw).scene_dev.area,
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_entry_point_defaults_to_the_card(scene, entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRIES[entry](scene)
+    assert ENTRIES[entry](scene, device="cpu").device.type == "cpu"
+
+
+def test_resolve_device_picks_the_card_when_there_is_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        resolve_device(torch.device("cuda", 0))

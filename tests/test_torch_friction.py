@@ -133,9 +133,9 @@ def test_self_friction_matches_pallas_kernel(budget, batched):
         r_j = jax.vmap(lambda g, fb, d, rb: fp.self_friction_kernel(
             fb, g, d, rb, budgets, interpret=True))(
                 gstack, jnp.asarray(f), jnp.asarray(rho), jnp.asarray(r0))
-        r_t = tfc.self_friction(torch.as_tensor(f), tg,
-                                tfc.slot_masses(tg, torch.as_tensor(rho)),
-                                torch.as_tensor(r0), budgets)
+        ops = tfc.sweep_operands(
+            tg, tfc.slot_masses(tg, torch.as_tensor(rho)), budgets, N)
+        r_t = tfc.self_friction(torch.as_tensor(f), ops, torch.as_tensor(r0))
     else:
         r_j = fp.self_friction_kernel(jnp.asarray(f[0]), jg[0],
                                       jnp.asarray(rho[0]),
@@ -143,9 +143,10 @@ def test_self_friction_matches_pallas_kernel(budget, batched):
                                       interpret=True)
         single = tfc.KernelGeom(**{k: getattr(tg, k)[0]
                                    for k in tg.__dataclass_fields__})
-        r_t = tfc.self_friction(torch.as_tensor(f[0]), single,
-                                tfc.slot_masses(single, float(rho[0])),
-                                torch.as_tensor(r0[0]), budgets)
+        ops = tfc.sweep_operands(
+            single, tfc.slot_masses(single, float(rho[0])), budgets, N)
+        r_t = tfc.self_friction(torch.as_tensor(f[0]), ops,
+                                torch.as_tensor(r0[0]))
     r_j = np.asarray(r_j)
     assert np.abs(r_j - np.asarray(r0 if batched else r0[0])).max() > 1e-3, \
         "no friction was applied"

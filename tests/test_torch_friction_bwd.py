@@ -95,7 +95,8 @@ def test_self_friction_vjp_matches_pallas_kernel(budget, batched):
     ft, rhot, rt = (torch.tensor(a, requires_grad=True)
                     for a in (f, rho, r0))
     masses = tfc.slot_masses(tg, rhot)
-    out = tfc.self_friction(ft, tg, masses, rt, budgets)
+    out = tfc.self_friction(ft, tfc.sweep_operands(tg, masses, budgets, N),
+                            rt)
     gt = torch.autograd.grad(smooth_loss_t(out), [ft, rhot, rt, *masses])
     assert np.abs(np.asarray(gj[0])).max() > 0
     if budget == "drop":

@@ -100,7 +100,7 @@ def folded():
                        wind_freq=jnp.asarray(12.0),
                        wind_phase=jnp.asarray(0.2))
     tp0 = sim_params_from_numpy(
-        {k: np.asarray(v) for k, v in p0._asdict().items()}, dtype=F64)
+        {k: np.asarray(v) for k, v in p0._asdict().items()}, "cpu", F64)
     return jsim, tsim, p0, tp0, target
 
 

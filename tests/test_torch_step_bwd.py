@@ -93,7 +93,7 @@ def test_step_vjp_matches_jax(step_pair, scale):
     arrays = {k: np.stack([np.asarray(v)] * 2)
               for k, v in jp._asdict().items()}
     leaves = {k: v.requires_grad_(True) for k, v in
-              sim_params_from_numpy(arrays, dtype=torch.float64).items()}
+              sim_params_from_numpy(arrays, "cpu", torch.float64).items()}
     pt = SimParams(**leaves)
     xs = torch.tensor(np.stack([x1, x1]), requires_grad=True)
     vs = torch.tensor(np.stack([v1, v1]), requires_grad=True)
