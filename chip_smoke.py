@@ -10,14 +10,16 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      process per source, all at once.
   2. kernels: each kernel's wrapper on card tensors at the main paths'
      shapes (flagship stand-in, n = 1024, B = 32; folded and random states,
-     an overflow row among them, friction at full layer-0 budget, and the
+     overflow rows among them, for detection also a two-layer lattice
+     whose hits tie exactly, friction at full layer-0 budget, and the
      same slot geometry with every count zero, as most sweeps of an
      episode see it) against its plain PyTorch version on the same inputs,
      exactly (max error 0), timed beside the plain version and the least
      time the card could take: device time per call from torch.profiler
      (the JSON line's `ms` and `plain_ms`, at full budget) and wall time of
      back-to-back calls from CUDA events; and the launch floor, the device
-     time of a one-element `zero_()`.
+     time of a one-element `zero_()`.  Detection prints beside its bound
+     the floor of its unfused f32 instructions.
   3. forward path: `ClothSim(...).rollout` of a batch of 32 perturbed-wind
      episodes of the flagship stand-in (half of them starting folded half
      over half) for the full 250 steps on the card.  Launch counters are
@@ -68,6 +70,11 @@ F32_FLOPS = 67e12
 # differences, 6 squares, 4 adds, 1 min, 1 add, 1 square of the reach,
 # 1 compare
 DETECT_OPS_PER_PAIR = 20
+# f32 instructions per second of an H100 SXM at its boost clock (128 lanes
+# x 132 SMs x 1.98 GHz): the detection kernel is built without multiply-add
+# contraction, so each of its operations is one instruction; its floor is
+# DETECT_OPS_PER_PAIR per admissible pair at this rate
+F32_INSTR_PER_S = 128 * 132 * 1.98e9
 # f32 operations of the friction sweep per active slot: d (6), the case
 # split (sd 5, fN 3, fT 3, |fT|^2 5, sqrt 1, compares 3, t_hat 3, the
 # slide force 7), k_red scaling 3, the row add 3
@@ -181,6 +188,37 @@ def initial_states(sim, B):
     return x0
 
 
+def kernel_states(sim, B, rng):
+    """Phase 2's (B, n, 3) numpy positions and velocities: the episodes'
+    initial states with noise, and in sample 1 overflow rows, 20 far-apart
+    vertices stacked on one point (19 partners each > K = 8), 10 in each
+    512-column segment."""
+    n = sim.n
+    x = initial_states(sim, B) + rng.randn(B, n, 3) * 0.01
+    pile = np.arange(25, n, 50)[:20]
+    x[1, pile] = x[1, pile[0]]
+    return x, rng.randn(B, n, 3) * 0.5
+
+
+def lattice_geom(B, n, n_pad, h, dev):
+    """Detection input with exact ties: two layers of a 32-wide square
+    lattice (spacing and layer gap 0.25, radii 0.3, at rest), sample b
+    shifted by 0.5 b in x.  Every d^2 is exact in f32, so a row's hits tie
+    in groups at columns that fall to different lanes of the kernel, and
+    each row has 13 hits in the other layer alone (> K = 8)."""
+    import torch
+    from diffcloth_tpu_torch.core import selfcol_cuda as scd
+    half = (n + 1) // 2
+    i = np.arange(n)
+    j = i % half
+    x = np.stack([(j % 32) * 0.25, (j // 32) * 0.25, (i // half) * 0.25], -1)
+    x = x[None] + np.array([0.5, 0.0, 0.0]) * np.arange(B)[:, None, None]
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    return scd.build_geom(f32(x), f32(np.zeros_like(x)),
+                          f32(np.full(n, 0.3)), h, n_pad)
+
+
 def phase_kernels(sim, B, rng):
     """Each kernel against its plain version at the main path's shapes."""
     import dataclasses
@@ -192,12 +230,7 @@ def phase_kernels(sim, B, rng):
     dev = sim.device
     cfg = sim.self_cfg
     n, h = sim.n, sim.h
-    x = initial_states(sim, B) + rng.randn(B, n, 3) * 0.01
-    # overflow rows: 20 far-apart vertices stacked on one point (19
-    # partners each > K = 8), 10 in each 512-column segment
-    pile = np.arange(25, n, 50)[:20]
-    x[1, pile] = x[1, pile[0]]
-    v = rng.randn(B, n, 3) * 0.5
+    x, v = kernel_states(sim, B, rng)
     xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
     vt = torch.as_tensor(v, dtype=torch.float32, device=dev)
     radii = sim.scene_dev.radii
@@ -220,6 +253,22 @@ def phase_kernels(sim, B, rng):
     log(f"[kernels] detection: kernel == plain exactly on (B={B}, "
         f"n_pad={n_pad}, K={K}); {n_hits} partner slots, {n_overflow} "
         f"overflow rows")
+    lat = lattice_geom(B, n, n_pad, h, dev)
+    lat_k = scd.detect_partners(lat, cfg.allowed, K)
+    lat_p = scd.detect_partners_plain(lat, cfg.allowed, K)
+    torch.cuda.synchronize()
+    if not torch.equal(lat_k, lat_p):
+        bad = (lat_k != lat_p).any(-1).nonzero()[:5].tolist()
+        raise AssertionError(f"detection kernel != plain on the lattice at "
+                             f"rows {bad}")
+    lat_over = int((lat_k[:, :n, K] > K).sum())
+    if lat_over == 0:
+        raise AssertionError("the lattice input has no overflow row")
+    det_err = max(det_err, float((lat_k - lat_p).abs().max()))
+    log(f"[kernels] detection: kernel == plain exactly on a two-layer "
+        f"lattice with exact ties (B={B}, n_pad={n_pad}, K={K}); "
+        f"{int((lat_k[:, :n, :K] >= 0).sum())} partner slots, {lat_over} "
+        f"overflow rows")
     det = lambda: scd.detect_partners(geom, cfg.allowed, K)  # noqa: E731
     det_plain = lambda: scd.detect_partners_plain(  # noqa: E731
         geom, cfg.allowed, K)
@@ -231,6 +280,7 @@ def phase_kernels(sim, B, rng):
     det_bound = max(det_bytes / HBM_BYTES_PER_S, det_ops / F32_FLOPS) * 1e3
     det_by = ("bytes" if det_bytes / HBM_BYTES_PER_S > det_ops / F32_FLOPS
               else "operations")
+    det_floor = det_ops / F32_INSTR_PER_S * 1e3
 
     tables = layer_tables_from_partners(tab_k[:, :n, :K], cfg.max_layers)
     kg = fc.build_kernel_geom(tables, sim.scene_dev.area, n, cfg.budgets,
@@ -316,7 +366,9 @@ def phase_kernels(sim, B, rng):
         f"{bound0['bwd'] / HBM_BYTES_PER_S * 1e3:.5f}")
     log(f"[kernels] detection: device ms per call kernel {det_ms:.4f}, "
         f"plain {det_plain_ms:.4f} (profiler); back-to-back wall ms per call "
-        f"kernel {det_ev[0]:.4f}, plain {det_ev[1]:.4f} (CUDA events)")
+        f"kernel {det_ev[0]:.4f}, plain {det_ev[1]:.4f} (CUDA events); "
+        f"bound {det_bound:.5f} ({det_by}), floor of unfused f32 "
+        f"instructions {det_floor:.5f}")
     for label, times in sweeps.items():
         for name, key in (("friction", "fwd"), ("friction_bwd", "bwd")):
             _, ms, plain_ms, ev, plain_ev = times[key]

@@ -61,6 +61,11 @@ def _paths(name: str):
     return src, lib
 
 
+def library_path(name: str) -> str:
+    """Where kernel `name`'s shared library is (or will be) built."""
+    return _paths(name)[1]
+
+
 def _start_build(name: str):
     """Start nvcc for one source; returns (process, tmp, lib, log) or None
     when the library is already built."""

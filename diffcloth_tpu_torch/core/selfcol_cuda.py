@@ -21,6 +21,7 @@ from diffcloth_tpu_torch.core.selfcol import layer_tables_from_partners
 
 SEGMENT = 512     # column segment of the TPU kernel; n_pad is a multiple
 MAX_K = 32        # largest partner budget the kernel accepts
+MAX_BATCH = 65535  # largest batch: the kernel's grid has one y-block each
 
 
 def round_up(x: int, m: int) -> int:
@@ -111,8 +112,10 @@ def detect_partners(geom: torch.Tensor, allowed: torch.Tensor,
     single = geom.dim() == 2
     g = geom[None] if single else geom
     B, rows, n_pad = g.shape
-    if rows != 8 or g.dtype != torch.float32 or not g.is_contiguous():
-        raise ValueError("geom must be a contiguous (B, 8, n_pad) f32 tensor")
+    if (rows != 8 or g.dtype != torch.float32 or not g.is_contiguous()
+            or g.data_ptr() % 16):
+        raise ValueError("geom must be a contiguous, 16-byte aligned "
+                         "(B, 8, n_pad) f32 tensor")
     if n_pad % SEGMENT:
         raise ValueError(f"n_pad {n_pad} is not a multiple of {SEGMENT}")
     if (allowed.device != g.device or allowed.dtype != torch.int8
@@ -122,6 +125,8 @@ def detect_partners(geom: torch.Tensor, allowed: torch.Tensor,
                          "(n_pad, n_pad) int8 tensor on the geom's device")
     if not 1 <= k_partners <= MAX_K:
         raise ValueError(f"k_partners must be in [1, {MAX_K}]")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"batch must be in [1, {MAX_BATCH}]")
     fn = _kernel()
     out = torch.empty((B, n_pad, k_partners + 1), dtype=torch.int32,
                       device=g.device)

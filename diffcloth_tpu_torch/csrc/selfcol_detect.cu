@@ -5,134 +5,353 @@
 //
 // Semantics (identical to the TPU kernel, overflow rows included): pair
 // (i, j) hits when min(|x_i - x_j|^2, |(x+hv)_i - (x+hv)_j|^2) < (r_i + r_j)^2
-// and allowed[i][j] > 0.  Columns are visited in 512-wide segments in order.
-// Within a segment the row keeps its hits by ascending (d^2, column) and
-// appends the first min(hits, K - count) of them after the slots it already
-// holds.  The count then grows by those plus max(hits - K, 0): the TPU
-// kernel's count, which equals the row's true hit count except when a
-// row's hits straddle segments (then it may stop at K; the JAX package's
-// tests and flags inherit that).
+// and allowed[i][j] > 0; a NaN in either distance is no hit (the min
+// propagates NaN, as torch.minimum does).  Columns are visited in 512-wide
+// segments in order.  Within a segment the row keeps its hits by ascending
+// (d^2, column) and appends the first min(hits, K - count) of them after
+// the slots it already holds.  The count then grows by those plus
+// max(hits - K, 0): the TPU kernel's count, which equals the row's true
+// hit count except when a row's hits straddle segments (then it may stop
+// at K; the JAX package's tests and flags inherit that).
 //
 // Output (B, n_pad, K + 1) int32: cols 0..K-1 partner index (-1 empty),
 // col K the count (> K means overflow).
 //
-// What bounds it on the H100: the all-pairs distance arithmetic, about
-// 14 f32 operations per (row, column) pair and per sample
-// (B * n_pad^2 * 14), plus one read of the (n_pad, n_pad) int8 table per
-// sample (it stays in the 50 MB L2 after the first).  Design: one thread
-// per row, so the sequential per-row selection of the TPU kernel becomes
-// a short sorted insertion that runs only on a hit (hits are rare); the
-// block stages 128 columns of geometry at a time in shared memory, read by
-// all its rows as broadcasts; each row reads its admissibility table 16
-// bytes at a time.  The TPU kernel's 512x512 one-hot tile merges are not
-// carried over.  Compiled with --fmad=false so d^2 rounds exactly as the
-// plain PyTorch version computes it.
+// What bounds it on the H100: the all-pairs hit test, B * n_pad^2 pairs of
+// 20 f32 operations each.  Built with --fmad=false (so that d^2 rounds as
+// the plain version computes it), every operation is its own instruction:
+// at 128 f32 lanes x 132 SMs x 1.98 GHz = 33.5e12 instructions/s,
+// B = 32, n_pad = 1024 takes at least about 0.020 ms, twice the FLOP
+// bound that counts a multiply-add as two operations.  The compiled step
+// (16 pairs per lane) is 378 instructions: those 320, 16 selects
+// gathering the hit bits, 7 shared-memory loads and 35 others, so
+// the loop alone needs about 0.024 ms at one instruction per cycle per
+// scheduler.  Beside it, every block reads its rows of the int8
+// admissibility table and the sample's geometry from L2.
+//
+// Design:
+// - A block is 4 warps on 16 rows of one sample; each warp holds 4 rows'
+//   geometry (7 values each) in every lane's registers, and its 32 lanes
+//   split the columns: lane l takes columns 4l..4l+3 of every 128.  At
+//   B = 32, n_pad = 1024 that is 2048 blocks, 8192 warps, 20 resident per
+//   SM (93 registers a thread, no local memory).
+// - The sample's geometry is staged one 512-column segment at a time by TMA
+//   bulk copies (staging.cuh), double-buffered on two mbarriers, so any
+//   n_pad fits; one __syncthreads() per segment, none inside it.  A lane
+//   reads 4 columns of one geometry row with one 16-byte shared-memory
+//   load and uses them for its 4 rows: 7 loads per 16 pairs.
+// - The common path has no branch: 16 hit predicates go into a bit mask,
+//   ANDed with the admissibility bytes (one coalesced 4-byte load per row:
+//   a warp reads 128 consecutive bytes of the row).  Only a warp-uniform
+//   __any_sync enters the hit path (6 % of the warps' steps at
+//   chip_smoke.py's phase 2 input).
+// - Exact selection at a cost that grows with the hits: the hit path
+//   counts, ORs the lanes' masks and, for each (row, column) some lane hit,
+//   appends the lanes' (d^2, column) to the row's list in shared memory (a
+//   ballot gives each lane its place).  A list about to pass 64 entries is
+//   cut to its K - count smallest by ranking, so rows with any number of
+//   hits stay exact.  At the segment's end each row with hits ranks its
+//   list by (d^2, column) (column as the explicit tie-break: lanes
+//   interleave, so a later column of one lane can tie an earlier column of
+//   another) and lane s takes slot s.  Slots, counts and lists live in
+//   shared memory, the per-row counters in bytes of three registers.
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "staging.cuh"
 
 namespace {
 
 constexpr int kSegment = 512;   // column segment of the TPU kernel (BJ)
-constexpr int kRows = 128;      // rows (threads) per block
-constexpr int kStage = 128;     // columns staged in shared memory at once
-constexpr int kMaxK = 32;       // largest K the kernel accepts
+constexpr int kMaxK = 32;       // largest K the kernel accepts (one lane each)
+constexpr int kWarps = 4;
+constexpr int kRowsPerWarp = 4;   // rows held in each lane's registers
+constexpr int kMinBlocks = 5;     // resident blocks per SM (<= 102 registers)
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
+constexpr int kColsPerStep = 32 * 4;   // a warp's columns per step
+constexpr int kGeomRows = 7;    // x, y, z, (x+hv) x, y, z, r
+constexpr int kCap = 64;        // candidates a row's list holds
+static_assert(kCap >= kMaxK + 32 && kCap < 256,
+              "a cut list takes one ballot's appends; fills are bytes");
+static_assert(kRowsPerWarp <= 4, "per-row counters are bytes of one word");
 
-__global__ void __launch_bounds__(kRows)
+struct Shared {
+  float geom[2][kGeomRows][kSegment];   // double-buffered segments
+  float cand_d2[kWarps][kRowsPerWarp][kCap];
+  int cand_col[kWarps][kRowsPerWarp][kCap];
+  int slot[kWarps][kRowsPerWarp][kMaxK];
+  int count[kWarps][kRowsPerWarp];
+  float row_geom[kWarps][kRowsPerWarp][6];   // for the hit path
+  uint64_t bar[2];
+};
+
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ unsigned byte_of(unsigned w, int r) {
+  return (w >> (8 * r)) & 0xFFu;
+}
+
+// min that propagates NaN, as torch.minimum and jnp.minimum do
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// d^2 of rows xi and xj (x, y, z, then x + h v) in the plain version's
+// order: x, y, z summed left to right, for x and for x + h v, then their
+// min
+__device__ __forceinline__ float pair_d2(const float (&xi)[6],
+                                         const float (&xj)[6]) {
+  float d = xi[0] - xj[0];
+  float a = d * d;
+  d = xi[1] - xj[1];
+  a = a + d * d;
+  d = xi[2] - xj[2];
+  a = a + d * d;
+  d = xi[3] - xj[3];
+  float b = d * d;
+  d = xi[4] - xj[4];
+  b = b + d * d;
+  d = xi[5] - xj[5];
+  b = b + d * d;
+  return min_nan(a, b);
+}
+
+// A warp's candidate list of one row, entries [0, fill) with distinct
+// columns: its `keep` smallest by (d^2, column) move to [0, keep) in that
+// order and the rest are dropped.  Each lane ranks two entries against the
+// whole list.  Returns the entries kept.
+__device__ __forceinline__ int keep_smallest(float* d2s, int* cols, int fill,
+                                             int keep, int lane) {
+  __syncwarp();
+  float d2[2];
+  int col[2], rank[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int e = lane + 32 * q;
+    d2[q] = e < fill ? d2s[e] : 0.f;
+    col[q] = e < fill ? cols[e] : 0;
+    rank[q] = 0;
+  }
+  for (int j = 0; j < fill; ++j) {
+    const float dj = d2s[j];
+    const int cj = cols[j];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      rank[q] += (dj < d2[q]) || (dj == d2[q] && cj < col[q]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int e = lane + 32 * q;
+    if (e < fill && rank[q] < keep) {
+      d2s[rank[q]] = d2[q];
+      cols[rank[q]] = col[q];
+    }
+  }
+  __syncwarp();
+  return min(fill, keep);
+}
+
+// One thread: start the bulk copies of segment `seg`'s geometry into its
+// buffer, on that buffer's barrier.
+__device__ __forceinline__ void stage_segment(Shared& sm, const float* g,
+                                              int n_pad, int seg) {
+  staging::Piece p[kGeomRows];
+#pragma unroll
+  for (int c = 0; c < kGeomRows; ++c)
+    p[c] = {sm.geom[seg & 1][c],
+            g + (size_t)c * n_pad + (size_t)seg * kSegment,
+            kSegment * (int)sizeof(float)};
+  staging::arm(p, &sm.bar[seg & 1]);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 detect_kernel(const float* __restrict__ geom,
               const int8_t* __restrict__ allowed, int* __restrict__ out,
               int n_pad, int k) {
-  __shared__ float s_geom[7][kStage];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  const float* g = geom + (size_t)b * 8 * n_pad;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Shared& sm = *reinterpret_cast<Shared*>(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
+  const float* g = geom + (size_t)blockIdx.y * 8 * n_pad;
+  const int n_seg = n_pad / kSegment;
+  const unsigned lanes_below = (1u << lane) - 1u;
 
-  float xi[6];
+  if (threadIdx.x == 0) {
+    staging::init(&sm.bar[0]);
+    staging::init(&sm.bar[1]);
+    stage_segment(sm, g, n_pad, 0);
+  }
+
+  float xi[kRowsPerWarp][6], ri[kRowsPerWarp];
 #pragma unroll
-  for (int c = 0; c < 6; ++c) xi[c] = g[(size_t)c * n_pad + i];
-  const float ri = g[(size_t)6 * n_pad + i];
-  const int8_t* arow = allowed + (size_t)i * n_pad;
-
-  int slots[kMaxK];
-  for (int s = 0; s < k; ++s) slots[s] = -1;
-  int count = 0;
-  float cand_d2[kMaxK];
-  int cand_col[kMaxK];
-
-  for (int seg = 0; seg < n_pad; seg += kSegment) {
-    const int cap = k - count > 0 ? k - count : 0;
-    int m = 0;      // candidates held (<= cap), sorted by (d2, column)
-    int hits = 0;   // hits in this segment
-    for (int c0 = seg; c0 < seg + kSegment; c0 += kStage) {
-      __syncthreads();
-      for (int q = threadIdx.x; q < kStage; q += kRows) {
+  for (int r = 0; r < kRowsPerWarp; ++r) {
 #pragma unroll
-        for (int c = 0; c < 7; ++c) s_geom[c][q] = g[(size_t)c * n_pad + c0 + q];
+    for (int c = 0; c < 6; ++c) xi[r][c] = g[(size_t)c * n_pad + row0 + r];
+    ri[r] = g[(size_t)6 * n_pad + row0 + r];
+    sm.slot[warp][r][lane] = -1;
+  }
+  if (lane < kRowsPerWarp) {
+    sm.count[warp][lane] = 0;
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      sm.row_geom[warp][lane][c] = g[(size_t)c * n_pad + row0 + lane];
+  }
+
+  for (int seg = 0; seg < n_seg; ++seg) {
+    // the barriers' init is visible, and every warp is done with the
+    // buffer the next segment goes into
+    __syncthreads();
+    if (threadIdx.x == 0 && seg + 1 < n_seg)
+      stage_segment(sm, g, n_pad, seg + 1);
+    staging::wait(&sm.bar[seg & 1], (seg >> 1) & 1);
+    const float* sg = &sm.geom[seg & 1][0][0];
+    const int col0 = seg * kSegment;
+    // per-row bytes: slots the row still takes, list entries, and this
+    // lane's hits in the segment (at most 16)
+    unsigned keeps = 0, fills = 0, hits = 0;
+    // bits 8u + r: of rows that still take slots; of pairs hit in the
+    // segment by some lane
+    unsigned taking = 0, seg_hits = 0;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int keep = max(k - sm.count[warp][r], 0);
+      keeps |= (unsigned)keep << (8 * r);
+      if (keep > 0) taking |= 0x01010101u << r;
+    }
+    // this lane's admissibility words: row r's at adm_w[r * n_pad / 4],
+    // the next step's 32 words on
+    const unsigned* adm_w = reinterpret_cast<const unsigned*>(
+        allowed + (size_t)row0 * n_pad + col0) + lane;
+
+#pragma unroll 1
+    for (int c0 = lane * 4; c0 < kSegment;
+         c0 += kColsPerStep, adm_w += kColsPerStep / 4) {
+      float4 cg[kGeomRows];
+#pragma unroll
+      for (int c = 0; c < kGeomRows; ++c)
+        cg[c] = *reinterpret_cast<const float4*>(sg + c * kSegment + c0);
+      // bit 8u + r: pair (row0 + r, col0 + c0 + u) is admissible
+      unsigned adm = 0;
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const unsigned w = __ldg(adm_w + r * (n_pad / 4));
+        // bit 7 of each byte > 0 as int8: low 7 bits nonzero, sign clear
+        const unsigned pos =
+            ((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) & ~w & 0x80808080u;
+        adm |= pos >> (7 - r);
       }
-      __syncthreads();
-      for (int q = 0; q < kStage; q += 16) {
-        const uint4 packed = *reinterpret_cast<const uint4*>(arow + c0 + q);
-        const int8_t* a = reinterpret_cast<const int8_t*>(&packed);
+      unsigned hm = 0;   // bit 8u + r: the pair hits
 #pragma unroll
-        for (int u = 0; u < 16; ++u) {
-          if (a[u] <= 0) continue;
-          const int c = q + u;
-          float d = xi[0] - s_geom[0][c];
-          float d2a = d * d;
-          d = xi[1] - s_geom[1][c];
-          d2a = d2a + d * d;
-          d = xi[2] - s_geom[2][c];
-          d2a = d2a + d * d;
-          d = xi[3] - s_geom[3][c];
-          float d2b = d * d;
-          d = xi[4] - s_geom[4][c];
-          d2b = d2b + d * d;
-          d = xi[5] - s_geom[5][c];
-          d2b = d2b + d * d;
-          const float reach = ri + s_geom[6][c];
-          // min() propagates NaN like jnp.minimum / torch.minimum
-          if (isnan(d2a) || isnan(d2b)) continue;
-          const float d2 = fminf(d2a, d2b);
-          if (!(d2 < reach * reach)) continue;
-          ++hits;
-          if (cap == 0) continue;
-          int pos;
-          if (m < cap) {
-            pos = m++;
-          } else if (d2 < cand_d2[m - 1]) {
-            pos = m - 1;   // evict the largest (a later column never wins a tie)
-          } else {
-            continue;
-          }
-          while (pos > 0 && cand_d2[pos - 1] > d2) {
-            cand_d2[pos] = cand_d2[pos - 1];
-            cand_col[pos] = cand_col[pos - 1];
-            --pos;
-          }
-          cand_d2[pos] = d2;
-          cand_col[pos] = c0 + c;
+      for (int u = 0; u < 4; ++u) {
+        const float xj[6] = {lane_of(cg[0], u), lane_of(cg[1], u),
+                             lane_of(cg[2], u), lane_of(cg[3], u),
+                             lane_of(cg[4], u), lane_of(cg[5], u)};
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const float d2 = pair_d2(xi[r], xj);
+          const float reach = ri[r] + lane_of(cg[6], u);
+          if (d2 < reach * reach) hm |= 1u << (8 * u + r);
         }
       }
+      hm &= adm;
+      if (!__any_sync(0xffffffffu, hm != 0)) continue;
+
+      // hit path: count, then append each (row, column u) that some lane
+      // hit to the row's list, one ballot each; operands are read again
+      // from shared memory
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r)
+        hits += (unsigned)__popc((hm >> r) & 0x01010101u) << (8 * r);
+      unsigned todo = __reduce_or_sync(0xffffffffu, hm);
+      seg_hits |= todo;
+      todo &= taking;
+      while (todo) {
+        const int b = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int r = b & 7, u = b >> 3;
+        const bool hit = (hm >> b) & 1u;
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        float* d2s = sm.cand_d2[warp][r];
+        int* cols = sm.cand_col[warp][r];
+        int fill = byte_of(fills, r);
+        if (fill + __popc(m) > kCap)
+          fill = keep_smallest(d2s, cols, fill, byte_of(keeps, r), lane);
+        if (hit) {
+          float xr[6], xc[6];
+#pragma unroll
+          for (int c = 0; c < 6; ++c) {
+            xr[c] = sm.row_geom[warp][r][c];
+            xc[c] = sg[c * kSegment + c0 + u];
+          }
+          const int e = fill + __popc(m & lanes_below);
+          d2s[e] = pair_d2(xr, xc);
+          cols[e] = col0 + c0 + u;
+        }
+        fill += __popc(m);
+        fills = (fills & ~(0xFFu << (8 * r))) | ((unsigned)fill << (8 * r));
+      }
     }
-    for (int s = 0; s < m; ++s) slots[count + s] = cand_col[s];
-    count += m + (hits > k ? hits - k : 0);
+
+    // the segment's merge, for the rows with hits: min(hits, keep)
+    // smallest after the held slots
+    unsigned rows = seg_hits | seg_hits >> 8 | seg_hits >> 16 | seg_hits >> 24;
+    rows &= (1u << kRowsPerWarp) - 1u;
+    while (rows) {
+      const int r = __ffs(rows) - 1;
+      rows &= rows - 1;
+      const int h = __reduce_add_sync(0xffffffffu, (int)byte_of(hits, r));
+      const int count = sm.count[warp][r];
+      const int keep = byte_of(keeps, r);
+      int take = 0;
+      if (keep > 0) {
+        // fill >= min(h, keep): a list is only cut to keep entries
+        take = keep_smallest(sm.cand_d2[warp][r], sm.cand_col[warp][r],
+                             byte_of(fills, r), keep, lane);
+        const int s = lane - count;
+        if (s >= 0 && s < take)
+          sm.slot[warp][r][lane] = sm.cand_col[warp][r][s];
+      }
+      __syncwarp();
+      if (lane == 0) sm.count[warp][r] = count + take + max(h - k, 0);
+      __syncwarp();
+    }
   }
-  int* o = out + ((size_t)b * n_pad + i) * (k + 1);
-  for (int s = 0; s < k; ++s) o[s] = slots[s];
-  o[k] = count;
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    int* o = out + ((size_t)blockIdx.y * n_pad + row0 + r) * (k + 1);
+    if (lane < k) o[lane] = sm.slot[warp][r][lane];
+    if (lane == 0) o[k] = sm.count[warp][r];
+  }
 }
 
 }  // namespace
 
-// geom (B, 8, n_pad) f32 rows [x, y, z, x+hv, y+hv, z+hv, r, pad];
-// allowed (n_pad, n_pad) int8, 16-byte aligned; out (B, n_pad, k + 1) int32.
+// geom (B, 8, n_pad) f32 rows [x, y, z, x+hv, y+hv, z+hv, r, pad], 16-byte
+// aligned; allowed (n_pad, n_pad) int8, 16-byte aligned; out (B, n_pad,
+// k + 1) int32.  Returns the launch's cudaError_t.
 extern "C" int selfcol_detect(const float* geom, const int8_t* allowed,
                               int* out, int B, int n_pad, int k,
                               void* stream) {
-  if (B < 1 || k < 1 || k > kMaxK || n_pad < kSegment || n_pad % kSegment)
+  if (B < 1 || B > 65535 || k < 1 || k > kMaxK || n_pad < kSegment ||
+      n_pad % kSegment || reinterpret_cast<uintptr_t>(geom) % 16 ||
+      reinterpret_cast<uintptr_t>(allowed) % 16)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(n_pad / kRows, B);
-  detect_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(geom, allowed, out,
-                                                         n_pad, k);
+  const int smem = (int)sizeof(Shared);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        detect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(n_pad / kRowsPerBlock, B);
+  detect_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      geom, allowed, out, n_pad, k);
   return (int)cudaGetLastError();
 }

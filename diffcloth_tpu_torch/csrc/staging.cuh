@@ -1,5 +1,8 @@
 // One load phase and one store phase for a block that works on a sample
 // held whole in shared memory (csrc/friction_fwd.cu, csrc/friction_bwd.cu).
+// csrc/selfcol_detect.cu uses the pieces of the load on their own: init()
+// once per barrier, arm() per staged segment, wait() with the phase's
+// parity.
 //
 // Load: thread 0 initialises an mbarrier and issues one TMA bulk copy
 // (cp.async.bulk ... mbarrier::complete_tx::bytes) for every piece whose
@@ -40,32 +43,45 @@ __device__ __forceinline__ bool aligned16(const Piece& p) {
            static_cast<uintptr_t>(p.bytes)) & 15) == 0;
 }
 
-// Global -> shared.  Every thread calls it; then __syncthreads() and
-// wait(bar) before reading a piece.
+// One thread initialises a barrier that takes a single arrival per phase;
+// the block synchronises before any thread waits on it.
+__device__ __forceinline__ void init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(1u) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One thread: the barrier's current phase expects the 16-byte aligned
+// pieces' bytes (0 completes it at once), and their bulk copies start.
+// Unaligned pieces are left to the caller.
+template <int N>
+__device__ __forceinline__ void arm(const Piece (&p)[N], uint64_t* bar) {
+  const uint32_t b = smem_u32(bar);
+  uint32_t tx = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (aligned16(p[i])) tx += p[i].bytes;
+  // the single arrival, expecting the bulk copies' bytes
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(b), "r"(tx) : "memory");
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (aligned16(p[i]) && p[i].bytes > 0)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];"
+          ::"r"(smem_u32(p[i].dst)),
+          "l"(reinterpret_cast<uint64_t>(p[i].src)), "r"(p[i].bytes), "r"(b)
+          : "memory");
+}
+
+// Global -> shared, once per barrier.  Every thread calls it; then
+// __syncthreads() and wait(bar) before reading a piece.
 template <int N>
 __device__ __forceinline__ void load(const Piece (&p)[N], uint64_t* bar) {
   if (threadIdx.x == 0) {
-    const uint32_t b = smem_u32(bar);
-    uint32_t tx = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      if (aligned16(p[i])) tx += p[i].bytes;
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1u)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    // the single arrival, expecting the bulk copies' bytes (0 completes
-    // the phase at once)
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 ::"r"(b), "r"(tx) : "memory");
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      if (aligned16(p[i]) && p[i].bytes > 0)
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-            " [%0], [%1], %2, [%3];"
-            ::"r"(smem_u32(p[i].dst)),
-            "l"(reinterpret_cast<uint64_t>(p[i].src)), "r"(p[i].bytes), "r"(b)
-            : "memory");
+    init(bar);
+    arm(p, bar);
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -79,8 +95,10 @@ __device__ __forceinline__ void load(const Piece (&p)[N], uint64_t* bar) {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-// Wait until the barrier's phase 0 has completed (every bulk copy landed).
-__device__ __forceinline__ void wait(uint64_t* bar) {
+// Wait until the barrier's phase of the given parity has completed (every
+// bulk copy of that phase landed): 0 for its first phase, 1 for its
+// second, and so on alternating.
+__device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity = 0) {
   const uint32_t b = smem_u32(bar);
   uint32_t done = 0;
   do {
@@ -88,7 +106,7 @@ __device__ __forceinline__ void wait(uint64_t* bar) {
         "{\n .reg .pred p;\n"
         " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(b), "r"(0u) : "memory");
+        : "=r"(done) : "r"(b), "r"(parity) : "memory");
   } while (!done);
 }
 

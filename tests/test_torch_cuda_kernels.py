@@ -7,7 +7,11 @@ which the machine with the card may lack, so run them there with
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Tolerances: detection tables are exact (the kernel computes d^2 in the
-plain version's order without contraction).  The friction sweeps, forward
+plain version's order without contraction); its cases cover the main
+path's shape, K = 32 with rows whose hits outgrow the kernel's per-row
+list, exact ties across lanes on a lattice, NaN and inf positions, one
+sample, overflow in both of two segments, and three segments.  The
+friction sweeps, forward
 and backward, are exact too (rtol 0, atol 0): both compute every slot op
 for op (--fmad=false), and a layer is a matching, so each row and each
 partner receives a single add per layer, in the plain version's order; the
@@ -62,18 +66,80 @@ def cloud(seed, n, B, pile=0):
     return f32(x), f32(v), f32(radii), allowed, f32(area)
 
 
+def lattice(n, B):
+    """Two layers of a 32-wide square lattice, spacing and layer gap 0.25,
+    radii 0.3, at rest: every d^2 is exact in f32, so a row's hits tie in
+    groups (up to 20 in its layer, 13 in the other) at columns that fall to
+    different lanes of the kernel.  Sample b is shifted by 0.5 b in x
+    (exact)."""
+    half = (n + 1) // 2
+    i = np.arange(n)
+    j = i % half
+    x = np.stack([(j % 32) * 0.25, (j // 32) * 0.25, (i // half) * 0.25], -1)
+    x = x[None] + np.array([0.5, 0.0, 0.0]) * np.arange(B)[:, None, None]
+    rng = np.random.RandomState(2)
+    conn = np.zeros((n, n), bool)
+    for a, b in rng.randint(0, n, (n // 2, 2)):
+        conn[a, b] = conn[b, a] = True
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
+    return (f32(x), f32(np.zeros((B, n, 3))), f32(np.full(n, 0.3)),
+            ~conn & ~np.eye(n, dtype=bool))
+
+
+def nonfinite(n, B):
+    """Random clouds whose sample 0 has NaN, +inf and -inf positions and
+    NaN velocities beside finite ones."""
+    x, v, radii, allowed, _ = cloud(1, n, B, 20)
+    x[0, 0:5] = float("nan")
+    x[0, 5:10, 0] = float("inf")
+    x[0, 10:15, 1] = -float("inf")
+    v[0, 15:20] = float("nan")
+    return x, v, radii, allowed
+
+
+def segment_hits(geom, allowed):
+    """(B, n_pad, segments) hit counts, in the plain version's f32
+    arithmetic."""
+    def d2(row0):
+        out = None
+        for c in range(row0, row0 + 3):
+            diff = geom[:, c, :, None] - geom[:, c, None, :]
+            out = diff * diff if out is None else out + diff * diff
+        return out
+    reach = geom[:, 6, :, None] + geom[:, 6, None, :]
+    hit = (torch.minimum(d2(0), d2(3)) < reach * reach) & (allowed[None] > 0)
+    B, n_pad, _ = hit.shape
+    return hit.reshape(B, n_pad, -1, scd.SEGMENT).sum(-1)
+
+
 DETECT_CASES = {
-    # n, B, K, overflow pile
-    "flagship_width": (1024, 8, 8, 20),
-    "straddle": (600, 3, 4, 0),
-    "small_overflow": (130, 2, 3, 12),
+    # inputs, n, B, K, overflow pile
+    "flagship_width": ("cloud", 1024, 8, 8, 20),
+    "straddle": ("cloud", 600, 3, 4, 0),
+    "small_overflow": ("cloud", 130, 2, 3, 12),
+    # the main path's shape
+    "main_path": ("cloud", 1024, 32, 8, 20),
+    # 200 piled particles: about 100 hits per segment, more than a row's
+    # list in the kernel holds (64)
+    "max_k": ("cloud", 1024, 4, scd.MAX_K, 200),
+    "lattice_ties": ("lattice", 1024, 4, 8, 0),
+    "nan_inf": ("nonfinite", 1024, 3, 8, 0),
+    "n512_B1": ("cloud", 512, 1, 8, 20),
+    # rows with more than K hits in both segments, tied
+    "overflow_both_segments": ("lattice", 600, 3, 4, 0),
+    # three segments: each geometry buffer is staged twice
+    "three_segments": ("cloud", 1300, 2, 8, 30),
 }
 
 
 @pytest.mark.parametrize("case", sorted(DETECT_CASES))
 def test_detection_kernel_equals_plain(dev, case):
-    n, B, K, pile = DETECT_CASES[case]
-    x, v, radii, allowed, _ = cloud(1, n, B, pile)
+    kind, n, B, K, pile = DETECT_CASES[case]
+    if kind == "cloud":
+        x, v, radii, allowed, _ = cloud(1, n, B, pile)
+    else:
+        x, v, radii, allowed = {"lattice": lattice,
+                                "nonfinite": nonfinite}[kind](n, B)
     n_pad = scd.round_up(n, scd.SEGMENT)
     allowed_d = torch.as_tensor(scd.pack_allowed(allowed), device=dev)
     geom = scd.build_geom(x.to(dev), v.to(dev), radii.to(dev), H, n_pad)
@@ -84,8 +150,16 @@ def test_detection_kernel_equals_plain(dev, case):
     torch.cuda.synchronize()
     assert torch.equal(tab_k, tab_p)
     assert (tab_k[:, :n, :K] >= 0).any()
-    if pile:
+    seg_hits = segment_hits(geom, allowed_d)
+    assert torch.equal(seg_hits.sum(-1) > 0, tab_k[..., K] > 0)
+    if pile or kind == "lattice":
         assert (tab_k[:, :n, K] > K).any(), "case has no overflow row"
+    if case == "max_k":
+        assert (seg_hits > 64).any(), "no row outgrows the kernel's list"
+    if case == "overflow_both_segments":
+        assert ((seg_hits > K).all(-1)).any(), "no row overflows twice"
+    if kind == "nonfinite":
+        assert (tab_k[0, :20, K] == 0).all()
     one = scd.detect_partners(geom[0].contiguous(), allowed_d, K)
     assert torch.equal(one, tab_k[0])
 
@@ -236,6 +310,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         scd.detect_partners(geom.double(), allowed_d, 8)
     with pytest.raises(ValueError):
         scd.detect_partners(geom, allowed_d, scd.MAX_K + 1)
+    # the kernel stages geometry by TMA: a base off 16 bytes is refused
+    shifted = torch.empty(geom.numel() + 1, device=dev)[1:].view_as(geom)
+    with pytest.raises(ValueError):
+        scd.detect_partners(shifted.copy_(geom), allowed_d, 8)
     tables, _ = scd.detect_tables(allowed_d, radii.to(dev), x.to(dev),
                                   v.to(dev), H, 8, 16)
     bud = (64, 64)

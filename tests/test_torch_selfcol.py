@@ -65,6 +65,28 @@ def straddle_config():
     return random_config(11, n=600, n_adj=400, radius=(0.06, 0.06))
 
 
+def lattice_config(n=600, width=20):
+    """Two layers of a square lattice (spacing and layer gap 0.25, radii
+    0.29) at rest, n = 600 (two 512-column segments).  Every d^2 is exact
+    in f32, so a row's hits tie in groups at columns that lie apart (in
+    the CUDA kernel, in different lanes), and rows whose other-layer
+    partners lie past column 511 hold more than K = 4 hits in both
+    segments.  No lattice distance, here or in the test's copy contracted
+    by 0.8, lies on the reach (0.58^2), where XLA's and PyTorch's f32
+    arithmetic may round apart."""
+    half = n // 2
+    i = np.arange(n)
+    j = i % half
+    x = np.stack([(j % width) * 0.25, (j // width) * 0.25,
+                  (i // half) * 0.25], -1).astype(np.float32)
+    rng = np.random.RandomState(5)
+    conn = np.zeros((n, n), bool)
+    for a, b in rng.randint(0, n, (n // 2, 2)):
+        conn[a, b] = conn[b, a] = True
+    return (x, np.zeros_like(x), np.full((n,), 0.29, np.float32),
+            ~conn & ~np.eye(n, dtype=bool))
+
+
 CASES = {
     "random0": lambda: random_config(0),
     "random1": lambda: random_config(1),
@@ -72,8 +94,9 @@ CASES = {
     "folded": folded_config,
     "overflow_k3": collapsed_config,
     "straddle": straddle_config,
+    "overflow_ties": lattice_config,
 }
-K_OF = {"overflow_k3": 3, "straddle": 4}
+K_OF = {"overflow_k3": 3, "straddle": 4, "overflow_ties": 4}
 
 
 def jax_table(x, v, radii, allowed, k):
@@ -109,8 +132,18 @@ def test_detect_partners_matches_pallas_exactly(case):
     np.testing.assert_array_equal(ttab, jtab[..., :k + 1])
     n = x.shape[0]
     assert (ttab[:, :n, :k] >= 0).any(), "case has no contacts"
-    if case in ("overflow_k3", "straddle"):
+    if case in ("overflow_k3", "straddle", "overflow_ties"):
         assert (ttab[:, :n, k] > k).any(), "case has no overflow row"
+    if case == "overflow_ties":
+        # d^2 is exact on the lattice, so float64 counts the same hits
+        d2 = ((x[:, None].astype(np.float64) - x[None]) ** 2).sum(-1)
+        hit = (d2 < (radii[:, None] + radii[None]).astype(np.float64) ** 2
+               ) & allowed
+        per_seg = np.stack([hit[:, :tscd.SEGMENT].sum(1),
+                            hit[:, tscd.SEGMENT:].sum(1)], 1)
+        assert (per_seg > k).all(1).any(), "no row overflows both segments"
+        assert any(len(np.unique(d2[i][hit[i]])) < hit[i].sum()
+                   for i in range(n)), "no tied hits"
     # the single-sample call is the batched one's first row
     _, t1 = torch_table(x, v, radii, allowed, k)
     np.testing.assert_array_equal(t1, ttab[0])
@@ -138,7 +171,8 @@ def test_layer_tables_match_jax_exactly(case):
     assert (tb.partner[1] == -1).all() and int(tb.n_layers[1]) == 0
 
 
-@pytest.mark.parametrize("case", ["folded", "random0", "overflow_k3"])
+@pytest.mark.parametrize("case", ["folded", "random0", "overflow_k3",
+                                  "overflow_ties"])
 def test_detect_tables_matches_pallas_pipeline(case):
     x, v, radii, allowed = CASES[case]()
     k = K_OF.get(case, 8)
