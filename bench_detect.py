@@ -75,7 +75,8 @@ def main():
     cfg, n, h, B = sim.self_cfg, sim.n, sim.h, cs.BATCH
     K = cfg.k_partners
     n_pad = cfg.allowed.shape[0]
-    x, v = cs.kernel_states(sim, B, np.random.RandomState(0))
+    x, v = cs.kernel_states(sim, cs.initial_states(sim, B),
+                            np.random.RandomState(0))
     xt = torch.as_tensor(x, dtype=torch.float32, device="cuda")
     vt = torch.as_tensor(v, dtype=torch.float32, device="cuda")
     radii = sim.scene_dev.radii
@@ -92,7 +93,7 @@ def main():
         hit = hit_matrix(geom, cfg.allowed)
         steps = hit.reshape(B, n_pad // 4, 4, n_pad // 128, 128).any(-1)
         ms = cs.device_ms(lambda: scd.detect_partners(geom, cfg.allowed, K),
-                          reps=100)
+                          reps=100, kernel="detect_kernel")
         print(f"[detect] {label}: device ms per call {ms:.5f}; "
               f"{float(hit[:, :n].sum(-1).float().mean()):.2f} hits per "
               f"row; {100 * float(steps.any(2).float().mean()):.1f} % of "

@@ -7,8 +7,9 @@ binary: src/code/main.cpp:115-150).
     python -m diffcloth_tpu_torch.apps.optimize --demo wind --mode simulate
 
 Runs on the card unless --cpu is given.  Demos: wind, wind_sim2real and
-tshirt (where its mesh asset exists); the modes and options of the JAX CLI
-not listed here (visualize, export, the tau ladder) are not ported yet.
+sphere build from grids; tshirt, slope, hat and sock need their mesh or
+position assets; dress is not ported yet, nor are the modes and options of
+the JAX CLI not listed here (visualize, export, the tau ladder).
 """
 from __future__ import annotations
 

@@ -6,7 +6,9 @@ arrays.
 leading batch dim, and returns the port's `SimParams`, so that both
 packages compute the same episode.  `sim_params_to_numpy` is its inverse,
 for the port's parameters and its gradients alike (a dict that the JAX
-`SimParams(**d)` takes).  Nothing here imports JAX.
+`SimParams(**d)` takes).  `primitive_set_from_numpy` carries a JAX
+`PrimitiveSet` (`p._asdict()`, arrays as numpy) across the same way, so
+that both packages simulate the same obstacles.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from diffcloth_tpu_torch.core.contact import PrimitiveSet
 from diffcloth_tpu_torch.core.device import resolve_device
 from diffcloth_tpu_torch.core.types import SimParams
 
@@ -36,3 +39,27 @@ def sim_params_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
 
 def sim_params_to_numpy(params: SimParams) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+# PrimitiveSet fields that stay host numpy (they select code paths)
+_HOST_PRIM_FIELDS = {"kind": np.int32, "rotates": bool, "enabled": bool,
+                     "kinematic": bool}
+
+
+def primitive_set_from_numpy(fields: Mapping[str, np.ndarray],
+                             dtype=torch.float32, device=None
+                             ) -> PrimitiveSet:
+    """A JAX `PrimitiveSet` as a dict of numpy arrays -> the port's, on the
+    card unless `device` says otherwise.  A missing or None `kinematic`
+    means all static, as there."""
+    device = resolve_device(device)
+    out = {}
+    for f in dataclasses.fields(PrimitiveSet):
+        a = fields.get(f.name)
+        if f.name in _HOST_PRIM_FIELDS:
+            out[f.name] = (None if a is None else
+                           np.asarray(a, _HOST_PRIM_FIELDS[f.name]))
+        else:
+            out[f.name] = torch.as_tensor(np.array(a)).to(device=device,
+                                                          dtype=dtype)
+    return PrimitiveSet(**out)

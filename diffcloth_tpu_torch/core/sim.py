@@ -1,7 +1,8 @@
 """Episode runner: device scene assembly, attachment trajectories, the
 rollout and its gradient, single or batched.
 
-Counterpart of `diffcloth_tpu/core/sim.py` for single-stage scenes:
+Counterpart of `diffcloth_tpu/core/sim.py` for single-stage scenes, with
+or without obstacles:
 `scene_to_device`, `stage_to_device`, `ClothSim.default_params`, `p_inv`,
 `x_fixed_seq`, `simulate` / `rollout` with the explosion freeze,
 `rollout_chunked`, `episode_loss` and `episode_value_and_grad`.  The JAX
@@ -24,6 +25,7 @@ import torch
 
 from diffcloth_tpu_torch.config import (SimFlags, SplineType,
                                         TrajectoryConfig, WindConfig)
+from diffcloth_tpu_torch.core import contact as ct
 from diffcloth_tpu_torch.core import dense_ops as dn
 from diffcloth_tpu_torch.core import diagnostics as diag
 from diffcloth_tpu_torch.core import selfcol as sc
@@ -108,9 +110,13 @@ class ClothSim:
     instance per mesh topology, scene config, dtype and device).
 
     `device` defaults to "cuda" and raises when no card is present; pass
-    device="cpu" to run the plain PyTorch versions of the kernels."""
+    device="cpu" to run the plain PyTorch versions of the kernels.  `prims`
+    are the scene's obstacles (none by default; moved to the sim's device
+    and dtype), `spline_type` the attachment splines' parametrization."""
 
     def __init__(self, scene: gb.Scene, *, flags: Optional[SimFlags] = None,
+                 prims: Optional[ct.PrimitiveSet] = None,
+                 spline_type: SplineType = SplineType.ENDPOINT,
                  device=None, dtype=torch.float32):
         self.device = resolve_device(device)
         set_full_f32_matmul()
@@ -121,6 +127,7 @@ class ClothSim:
         self.scene_host = scene
         self.cfg = cfg
         self.dtype = dtype
+        self.spline_type = spline_type
         self.flags = flags or SimFlags(
             wind_enabled=cfg.wind_config != WindConfig.NO_WIND)
         self.h = cfg.time_step
@@ -138,7 +145,9 @@ class ClothSim:
         self.scene_dev = scene_to_device(scene, dtype, dev)
         self.stage_host = scene.stages[0]
         self.stage_dev = stage_to_device(self.stage_host, dtype, dev)
-        self.n_prims = 0     # obstacles come with a later slice
+        self.prims = (ct.empty_primitive_set(dtype, dev) if prims is None
+                      else prims.to(dev, dtype))
+        self.n_prims = self.prims.n
         area64 = np.asarray(scene.area, np.float64)
         self._p_inv_fn = slv.make_host_p_inv_fn(
             slv.dense_gram_matrices(scene)[0], area64, self.h, dtype, dev)
@@ -159,7 +168,7 @@ class ClothSim:
                 budgets=tuple(min(c, scene.n) for c in budgets))
 
         self.step, self.residual = step_mod.make_step(
-            self.scene_dev, self.dense, h=self.h,
+            self.scene_dev, self.dense, self.prims, h=self.h,
             wind_config=cfg.wind_config, flags=self.flags,
             eps_forward=self.eps_forward, eps_backward=self.eps_backward,
             self_cfg=self.self_cfg)
@@ -175,6 +184,8 @@ class ClothSim:
             dtype=self.dtype, device=self.device,
             k_stretch=fab.k_stiff_stretching, k_bend=fab.k_stiff_bending,
             density=fab.density)
+        if self.n_prims > 0:
+            p = p.replace(mu=self.prims.mu.clone())
         sd = self.stage_dev
         return p.replace(
             x0=self.scene_dev.x_rest.clone(),
@@ -212,7 +223,7 @@ class ClothSim:
                     TrajectoryConfig.CORNERS_2_WEARHAT,
                     TrajectoryConfig.CORNERS_1_WEARHAT,
                     TrajectoryConfig.CORNERS_2_WEARSOCK):
-            return spl.eval_splines(SplineType.ENDPOINT, params.spline,
+            return spl.eval_splines(self.spline_type, params.spline,
                                     sd.spline_p0, sd.spline_yup, fracs)
         raise NotImplementedError(f"trajectory {traj} is not ported yet")
 
@@ -234,7 +245,7 @@ class ClothSim:
         frozen = torch.zeros(B, dtype=torch.bool, device=x.device)
         diag_keys = ("converged", "iters", "avg_deformation",
                      "max_deformation", "selfcol_overflow", "selfcol_pairs",
-                     "selfcol_slots")
+                     "selfcol_slots", "obstacle_contacts")
         cols = {k: [] for k in ("x", "v", "f", "r") + diag_keys}
         for i in range(1, self.n_steps + 1):
             t = torch.tensor(float(i), dtype=self.dtype,

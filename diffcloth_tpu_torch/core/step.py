@@ -12,13 +12,17 @@ Forward: velocity-based projective dynamics with dry frictional contact
     s_n   = x_n + h v_n + h^2 M^{-1} f_ext
     loop: b~ = h sum_t k_t A_t^T (p_t(x_now) - A_t x_n) + M v_n + h f_ext
           f  = b~ - h^2 Sk v_now
-          r  = self_friction(f)   [contacts frozen at the step's start]
+          r  = friction(f)        [contacts frozen at the step's start]
           v_new = P^{-1}(b~ + r);  x_new = x_n + h v_new
 
 with the strict-eps exit, the plateau exit after PLATEAU_WINDOW sweeps
-without a new best, and the best-iterate revert.  Self-collision runs the
-kernel pipeline once per step (detection kernel -> layering -> slot
-geometry) and the friction sweep kernel once per PD iteration.
+without a new best, and the best-iterate revert.  friction(f) is the
+obstacle friction (layer 0, contact.obstacle_friction) followed by the
+self-friction sweep on f + r_obstacle (step.py:349-385).  Obstacle contacts
+are detected once per step at the step's time t (plain PyTorch, as in the
+JAX package); self-collision runs the kernel pipeline once per step
+(detection kernel -> layering -> slot geometry) and the friction sweep
+kernel once per PD iteration.
 
 Backward (Simulation::stepBackward, Simulation.cpp:1455-1780): implicit
 differentiation of the residual R(v_new; x_n, v_n, theta, x_fixed) =
@@ -50,6 +54,7 @@ import torch
 
 from diffcloth_tpu_torch.config import (GRAVITY, SimFlags, WindConfig,
                                         pd_total_iters)
+from diffcloth_tpu_torch.core import contact as ct
 from diffcloth_tpu_torch.core import dense_ops as dn
 from diffcloth_tpu_torch.core import friction_cuda as fc
 from diffcloth_tpu_torch.core import selfcol_cuda as scd
@@ -88,6 +93,7 @@ class StepAux:
     selfcol_overflow: torch.Tensor   # capacity exceeded this step
     selfcol_pairs: torch.Tensor      # self-contact pairs layered this step
     selfcol_slots: torch.Tensor      # friction slots each sweep works on
+    obstacle_contacts: torch.Tensor  # particles in obstacle contact
 
 
 def deformation(scene: SceneDev, x):
@@ -181,22 +187,34 @@ def _gmres_cycle(op, b, x0, m: int):
     return x0 + torch.einsum("bm,bmn->bn", y, V[:, :m]).reshape(shape)
 
 
+@dataclasses.dataclass
+class Frozen:
+    """What a step detects once and holds fixed for its sweeps and its
+    adjoint: the obstacle contact set and the self-contact slot geometry
+    (either None when its kind of contact is off).  Constants of the
+    backward: no cotangent reaches the normals or v_out, as in the JAX
+    package, where both are fixed arguments of the residual."""
+    contact: Optional[object]   # contact.ContactSet
+    geom: Optional[object]      # friction_cuda.KernelGeom
+
+
 class StepFn(torch.autograd.Function):
     """One PD step as a differentiable function of (x_n, v_n, x_fixed, the
     SimParams fields): the counterpart of the step's `jax.custom_vjp`
     (step.py:646-832).  The forward runs the PD loop; the backward the
     implicit adjoint.  P^{-1}, t and the step index are constants (P^{-1}
     only preconditions; gradients to k and density flow through the
-    operator-form residual), as are the step's diagnostics."""
+    operator-form residual), as are the step's diagnostics and its
+    `Frozen` contacts."""
 
     @staticmethod
     def forward(ctx, step_def, p_inv, t, step_idx, x_n, v_n, x_fixed,
                 *param_tensors):
         params = SimParams(**dict(zip(PARAM_FIELDS, param_tensors)))
-        x_new, v_new, aux, geom = step_def.forward(
+        x_new, v_new, aux, frozen = step_def.forward(
             x_n, v_n, params, x_fixed, p_inv, t, step_idx)
         ctx.save_for_backward(x_n, v_n, v_new, x_fixed, *param_tensors)
-        ctx.step_def, ctx.geom = step_def, geom
+        ctx.step_def, ctx.frozen = step_def, frozen
         ctx.p_inv, ctx.t, ctx.step_idx = p_inv, t, step_idx
         aux_t = tuple(getattr(aux, f.name) for f in dataclasses.fields(aux))
         ctx.mark_non_differentiable(*aux_t)
@@ -209,30 +227,35 @@ class StepFn(torch.autograd.Function):
         wanted = tuple(k for k, need in zip(PARAM_FIELDS,
                                             ctx.needs_input_grad[7:]) if need)
         gx, gv, gxf, gp = ctx.step_def.backward(
-            x_n, v_n, v_new, params, x_fixed, ctx.geom, ctx.p_inv, ctx.t,
+            x_n, v_n, v_new, params, x_fixed, ctx.frozen, ctx.p_inv, ctx.t,
             ctx.step_idx, x_bar, v_bar, wanted)
         return (None, None, None, None, gx, gv, gxf) + tuple(
             gp.get(k) for k in PARAM_FIELDS)
 
 
-def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
-              wind_config: WindConfig, flags: SimFlags, eps_forward: float,
-              eps_backward: float, self_cfg: Optional[SelfColConfig] = None):
+def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
+              *, h: float, wind_config: WindConfig, flags: SimFlags,
+              eps_forward: float, eps_backward: float,
+              self_cfg: Optional[SelfColConfig] = None):
     """Build the batched differentiable PD step for one attachment stage:
 
         step(x (B,n,3), v, params (batched SimParams), x_fixed (B,F,3),
              p_inv (n,n), t (0-dim tensor), step_idx (int))
           -> (x_new, v_new, StepAux)
 
-    and the residual R(v_new, x_n, v_n, params, x_fixed, geom, t, step_idx)
-    it differentiates.  `step.bwd_stats` counts the adjoint's work."""
+    and the residual R(v_new, x_n, v_n, params, x_fixed, frozen, t,
+    step_idx) it differentiates (`frozen`: the step's `Frozen` contacts).
+    `prims` are the scene's obstacles (an empty set for none).
+    `step.bwd_stats` counts the adjoint's work."""
     n = int(scene.area.shape[0])
     max_iter = flags.max_forward_iters or pd_total_iters(eps_forward)
     max_back = flags.max_backward_iters
     h2 = h * h
-    # self-collision is the only contact until obstacles are ported
+    use_obstacles = flags.contact_enabled and prims.n > 0
     use_self = (flags.contact_enabled and flags.self_collision_enabled
                 and self_cfg is not None)
+    # friction runs in every sweep (step.py:294-297)
+    has_contact = use_obstacles or use_self
     stats = BackwardStats()
 
     def wind_factor(params: SimParams, t, step_idx):
@@ -289,8 +312,17 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
         return fc.sweep_operands(geom, fc.slot_masses(geom, params.density),
                                  self_cfg.budgets, n)
 
-    def friction(f, ops):
-        return fc.self_friction(f, ops, torch.zeros_like(f))
+    def friction(f, frozen: Frozen, ops, params: SimParams, m):
+        """Obstacle friction first (layer 0), then the layered self-contact
+        sweep on f + r_obstacle (step.py:349-385); ops: the step's sweep
+        operands."""
+        if use_obstacles:
+            r = ct.obstacle_friction(f, frozen.contact, m, params.mu)
+        else:
+            r = torch.zeros_like(f)
+        if use_self:
+            r = fc.self_friction(f, ops, r)
+        return r
 
     # -- forward PD loop ----------------------------------------------------
 
@@ -302,6 +334,14 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
         f_ext = external_force(params, m, t, step_idx)
         s_n = x_n + h * v_n + h2 * f_ext / m[..., None]
         v_iter0 = (s_n - x_n) / h
+        contact = None
+        n_contacts = torch.zeros(B, dtype=torch.int64, device=dev)
+        if use_obstacles:
+            # once per step, at the time of the step being produced
+            # (step.py:472-479)
+            contact = ct.detect_obstacle_contacts(prims, x_n, v_iter0, h,
+                                                  t=t)
+            n_contacts = contact.mask.sum(dim=1)
 
         overflow = torch.zeros(B, dtype=torch.bool, device=dev)
         pairs = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -318,14 +358,15 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
             pairs = (tables.partner >= 0).sum(dim=(1, 2)) // 2
             slots = geom.counts.sum(dim=1, dtype=torch.int32)
             ops = sweep_ops(geom, params)
+        frozen = Frozen(contact=contact, geom=geom)
 
         y_n = dn.apply_A(dense, x_n)        # constant across PD iterations
 
         def one_iter(x_now, v_now):
             btilde = btilde_of(params, m, f_ext, v_n, x_now, x_fixed, y_n)
-            if use_self:
+            if has_contact:
                 f = btilde - apply_C(params, v_now)
-                r = friction(f, ops)
+                r = friction(f, frozen, ops, params, m)
             else:
                 f = r = torch.zeros_like(x_n)
             v_new = dn.mm(p_inv, btilde + r)
@@ -369,7 +410,7 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
         s3 = strict[:, None, None]
         x_new = torch.where(s3, x_now, best_x)
         v_new = torch.where(s3, v_now, best_v)
-        if not use_self:
+        if not has_contact:
             # the pre-friction force record, reconstructed once post-loop
             f = (btilde_of(params, m, f_ext, v_n, x_new, x_fixed, y_n)
                  - apply_C(params, v_new))
@@ -377,18 +418,19 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
         aux = StepAux(f=f, r=r, converged=done, iters=it,
                       avg_deformation=avg_def, max_deformation=max_def,
                       selfcol_overflow=overflow, selfcol_pairs=pairs,
-                      selfcol_slots=slots)
-        return x_new, v_new, aux, geom
+                      selfcol_slots=slots, obstacle_contacts=n_contacts)
+        return x_new, v_new, aux, frozen
 
     # -- the residual and the K map ------------------------------------------
 
-    def residual(v_new, x_n, v_n, params: SimParams, x_fixed, geom, t,
-                 step_idx):
+    def residual(v_new, x_n, v_n, params: SimParams, x_fixed,
+                 frozen: Frozen, t, step_idx):
         """R(v_new) = P v_new - b~ - r with every parameter dependence
         explicit (operator form), so one VJP gives every gradient the
-        reference hand-derives in stepBackward (:1622-1764).  The slot
-        masses are recomputed from params.density here, so dL/drho flows
-        through them; the slot geometry (normals included) is a constant."""
+        reference hand-derives in stepBackward (:1622-1764).  The masses
+        (slot masses included) are recomputed from params.density here, so
+        dL/drho flows through them, and mu[prim_id] from params.mu; the
+        frozen contacts (normals, v_out, slot geometry) are constants."""
         m = masses(params)
         f_ext = external_force(params, m, t, step_idx)
         x_new = x_n + h * v_new
@@ -396,25 +438,27 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
                            dn.apply_A(dense, x_n))
         Cv = apply_C(params, v_new)
         R = m[..., None] * v_new + Cv - btilde
-        if use_self:
-            R = R - friction(btilde - Cv, sweep_ops(geom, params))
+        if has_contact:
+            ops = sweep_ops(frozen.geom, params) if use_self else None
+            R = R - friction(btilde - Cv, frozen, ops, params, m)
         return R
 
-    def k_map(vn, x_n, v_n, params, x_fixed, ops, t, step_idx):
+    def k_map(vn, x_n, v_n, params, x_fixed, frozen, ops, t, step_idx):
         """K(v) = b~(x_n + h v) + r(f(v)), so that P - dR/dv = dK/dv
         (step.py:683-692): the fixed point needs only K's VJP."""
         m = masses(params)
         f_ext = external_force(params, m, t, step_idx)
         btilde = btilde_of(params, m, f_ext, v_n, x_n + h * vn, x_fixed,
                            dn.apply_A(dense, x_n))
-        if not use_self:
+        if not has_contact:
             return btilde
-        return btilde + friction(btilde - apply_C(params, vn), ops)
+        return btilde + friction(btilde - apply_C(params, vn), frozen, ops,
+                                 params, m)
 
     # -- the implicit adjoint ------------------------------------------------
 
-    def step_bwd(x_n, v_n, v_new, params: SimParams, x_fixed, geom, p_inv,
-                 t, step_idx, x_bar, v_bar, wanted):
+    def step_bwd(x_n, v_n, v_new, params: SimParams, x_fixed,
+                 frozen: Frozen, p_inv, t, step_idx, x_bar, v_bar, wanted):
         """Cotangents of (x_new, v_new) -> those of x_n, v_n and x_fixed,
         and a dict of those of the SimParams fields named in `wanted`."""
         B = x_n.shape[0]
@@ -444,10 +488,11 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
                      for k in wanted})
         launches = 0
 
-        ops = sweep_ops(geom, params) if use_self else None
+        ops = sweep_ops(frozen.geom, params) if use_self else None
         with torch.enable_grad():
             vn = v_new.clone().requires_grad_(True)
-            K = k_map(vn, x_n, v_n, params, x_fixed, ops, t, step_idx)
+            K = k_map(vn, x_n, v_n, params, x_fixed, frozen, ops, t,
+                      step_idx)
 
         def vjp_k(u):
             nonlocal launches
@@ -509,14 +554,14 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, *, h: float,
                       for k, v in leaves.items()}
             pr = params.replace(**{k: leaves[k] for k in wanted})
             R = residual(v_new, leaves["x_n"], leaves["v_n"], pr,
-                         leaves["x_fixed"], geom, t, step_idx)
+                         leaves["x_fixed"], frozen, t, step_idx)
             grads = torch.autograd.grad(R, list(leaves.values()), lam,
                                         allow_unused=True)
         launches += 1
         stats.residual_vjps += 1
         if use_self:
             stats.slot_launches = (stats.slot_launches
-                                   + geom.counts.sum() * launches)
+                                   + frozen.geom.counts.sum() * launches)
         g = {}
         for k, gr, leaf in zip(leaves, grads, leaves.values()):
             gr = torch.zeros_like(leaf) if gr is None else gr

@@ -117,6 +117,8 @@ class StepRecord:
     #                               (port-only diagnostic)
     selfcol_slots: torch.Tensor   # (N,) int32 friction slots active after
     #                               the budget drop (port-only diagnostic)
+    obstacle_contacts: torch.Tensor  # (N,) int64 particles in obstacle
+    #                                  contact (port-only diagnostic)
 
 
 @dataclasses.dataclass

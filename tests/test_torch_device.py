@@ -12,6 +12,7 @@ from diffcloth_tpu_torch import convert
 from diffcloth_tpu_torch.core import contact, dense_ops, sim, solver, types
 from diffcloth_tpu_torch.core.device import resolve_device
 from diffcloth_tpu_torch.geometry import builder as gb
+from diffcloth_tpu_torch.tasks import setup
 
 
 @pytest.fixture(scope="module")
@@ -23,6 +24,20 @@ def scene():
         attachment_points=tc.AttachmentConfig.LEFT_RIGHT_CORNERS_2,
         wind_config=tc.WindConfig.WIND_SIN, time_step=1.0 / 60.0,
         step_num=2, name="tiny"))
+
+
+SPHERE = [dict(kind=contact.P_SPHERE, center=(0.0, -1.0, 0.0), radius=0.5,
+               mu=0.3)]
+
+
+def _cpu_prims():
+    return setup._prim_struct(SPHERE, device="cpu")
+
+
+def _prims_arrays():
+    p = _cpu_prims()
+    return {f: (v.numpy() if isinstance(v, torch.Tensor) else v)
+            for f, v in vars(p).items()}
 
 
 def _params_arrays():
@@ -48,6 +63,12 @@ ENTRIES = {
     "empty_primitive_set": lambda s, **kw: contact.empty_primitive_set(
         **kw).mu,
     "ClothSim": lambda s, **kw: sim.ClothSim(s, **kw).scene_dev.area,
+    # obstacles made on the CPU follow the sim to its device
+    "ClothSim_prims": lambda s, **kw: sim.ClothSim(
+        s, prims=_cpu_prims(), **kw).prims.center,
+    "prim_struct": lambda s, **kw: setup._prim_struct(SPHERE, **kw).center,
+    "primitive_set_from_numpy": lambda s, **kw:
+        convert.primitive_set_from_numpy(_prims_arrays(), **kw).radius,
 }
 
 

@@ -99,9 +99,13 @@ def test_param_pack_roundtrip(wind_sysid):
         helper.batched_loss_and_grad(np.stack([x, x]))
 
 
-@pytest.mark.parametrize("demo", ["sphere", "hat", "sock", "slope", "dress"])
+@pytest.mark.parametrize("demo", ["hat", "sock", "slope", "dress"])
 def test_unported_demos_raise(demo):
-    with pytest.raises(NotImplementedError):
+    """dress (the twirl) is not ported; hat, sock and slope are, but their
+    mesh or position assets are not in the repository, and the builder
+    raises for them (sphere builds: tests/test_torch_tasks.py)."""
+    err = NotImplementedError if demo == "dress" else FileNotFoundError
+    with pytest.raises(err):
         build_task(demo, device="cpu")
 
 
