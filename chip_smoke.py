@@ -25,7 +25,8 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      over half) for the full 250 steps on the card.  Launch counters are
      zeroed just before and read just after: detection runs once per step,
      friction once per PD sweep.
-  4. profile: the first 10 steps of the same batch under torch.profiler.
+  4. profile: the first 10 steps of the same batch under torch.profiler
+     (device activity alone, as every profile here).
   5. reference: a small folded episode on the card against the same
      episode through the plain versions on the CPU.
   6. gradient path: one batched value-and-grad through
@@ -41,8 +42,8 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
   7. gradient profile: a 10-step value-and-grad of the batch under
      torch.profiler.
   8. trainer: `solve_demo("wind", seed=1, population=4, maxiter=1)` on the
-     card, the loss per iteration; the final loss must be below the
-     initial one.
+     card, the demo cut to 60 of its 200 steps, the loss per iteration;
+     the final loss must be below the initial one.
   9. gradient reference: the f64 value-and-grad of a small folded episode
      batch on the card against the same call on the CPU.
  10. sphere (the obstacle path): `build_task("sphere")` on the card at full
@@ -71,12 +72,39 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         above 1e-6 in size, and within 1e-6 of the largest entry);
      e. fit: `solve_demo("sphere", seed=1, population=4, maxiter=1)` must
         lower the best loss.
+ 11. large mesh: the flagship stand-in's physics on a 128 x 128 grid
+     (n = 16 384, built with dataclasses.replace), B = 8 perturbed winds,
+     half the batch folded half over half (64 rows).  ClothSim's size
+     switches must pick the CG solve, the sparse operators and the sweep
+     detection, and the friction sweeps their global-state route (the
+     state does not fit shared memory).
+     a. forward: 10 steps; converged 1.0, PD steps/s, CG iterations per
+        solve, self-contact pairs and overflow steps; the detection kernel
+        never launches, the forward sweep once per PD sweep, all on the
+        global-state route;
+     a'. kernels: both sweeps on the global-state route at n = 16 384,
+        B = 8, on slot geometry from the sweep pipeline, against their plain
+        versions exactly, at full layer-0 budget and without contact, timed
+        beside their bounds;
+     b. gradient: the batched value-and-grad of GradMask(f_wind=True)
+        against the base wind's rollout, of 11a's episodes; finite, the
+        forward sweep once per PD sweep of 11a plus two per residual VJP,
+        the backward sweep once per adjoint trip, GMRES matvec and residual
+        VJP, on the global-state route;
+     c. profile: phase 4 on 1 step of the batch;
+     d. reference, f64, card against CPU within 1e-6: an episode of a
+        64 x 64 grid (sparse operators, dense P^{-1}, detection kernel),
+        B = 2, 2 steps; and the 128 x 128 scene's modules at its folded and
+        flat states (the sweep pipeline exactly, the sparse operators, one
+        CG solve at the path's caps; an episode at this size ends by a
+        plateau exit that rounding decides, see phase_large_parts).
 
 Prints one JSON line `{"kernels": [...]}` (each kernel's launches counted
 on the path that runs it: the forward path for detection and the forward
-sweep, the gradient path for the backward sweep), the nvidia-smi line,
-and last `{"ok": true, "device": {...}}`.  Needs one card; imports nothing
-of JAX.
+sweep, the gradient path for the backward sweep, phase 11 for the sweeps'
+global-state route, whose entries carry "state": "global"), the
+nvidia-smi line, and last `{"ok": true, "device": {...}}`.  Needs one
+card; imports nothing of JAX.
 """
 import argparse
 import contextlib
@@ -119,6 +147,22 @@ BASE_WIND = [0.04, 0.004, 0.04]
 # episodes of the sphere path's batch: friction coefficients
 # linspace(0.05, 0.9)
 SPHERE_BATCH = 16
+# steps of the wind demo's episodes in the trainer phase (of its 200)
+TRAINER_STEPS = 60
+# the large-mesh scene (phase 11): a LARGE_GRID x LARGE_GRID cloth of the
+# flagship's physics, B = LARGE_BATCH; the depth of its forward episode and
+# value-and-grad, and of its profiled window (a PD sweep there launches
+# about 3600 kernels, 64 CG iterations of sparse gathers, so each step
+# costs seconds of host dispatch)
+LARGE_GRID = 128
+LARGE_BATCH = 8
+LARGE_STEPS = 10
+LARGE_PROFILE_STEPS = 1
+# phase 11d: the dress-scale grid (sparse operators, dense P^{-1}, the
+# detection kernel) and the depth of its f64 episode, run on the card and
+# on the CPU
+LARGE_REF_GRID = 64
+LARGE_REF_STEPS = 2
 # the forward path's hand-written kernels: (name, symbol substring)
 FORWARD_KERNELS = (("selfcol_detect", "detect_kernel"),
                    ("friction_fwd", "friction_kernel"))
@@ -166,7 +210,10 @@ def device_ms(fn, reps=20, warmup=3, kernel=None):
     # a profiler session now and then records only some of the device
     # events, or none: a session with fewer events than calls (for a
     # wrapper, other than one launch of its kernel per call) is taken
-    # again, up to five times
+    # again, up to five times.  For a wrapper, whose calls each launch its
+    # one kernel, the mean over the kernel events a session did record
+    # stands in if no session recorded them all.
+    partial = None
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -178,10 +225,26 @@ def device_ms(fn, reps=20, warmup=3, kernel=None):
         if kernel is None:
             whole = sum(e.count for e in events) >= reps
         else:
-            whole = sum(e.count for e in events if kernel in e.key) == reps
+            hits = [e for e in events if kernel in e.key]
+            count = sum(e.count for e in hits)
+            whole = count == reps
+            if count:
+                partial = (sum(e.self_device_time_total for e in hits)
+                           / count, count)
         if us > 0 and whole:
             return us / 1e3 / reps
-    raise AssertionError("the profiler lost device events in five tries")
+    if partial is not None:
+        log(f"[profiler] {kernel}: {partial[1]} of {reps} launches recorded "
+            f"in the last session with any; the mean over them")
+        return partial[0] / 1e3
+    # on some hosts every session loses events: the CUDA-event time of
+    # back-to-back calls (device time and the host's gaps between launches,
+    # so never under the device time) stands in, and says so
+    ms = time_cuda(fn, reps, warmup)
+    what = kernel or "every kernel"
+    log(f"[profiler] lost device events in five sessions ({what}); "
+        f"CUDA-event ms of back-to-back calls instead: {ms:.4f}")
+    return ms
 
 
 def profiled_ops(prof):
@@ -294,7 +357,6 @@ def phase_kernels(tag, sim, x0, rng, mu=None):
     and the budgets of `sim`.  On a path with obstacles (mu: the batch's
     (B, P) friction coefficients) the sweeps run on f plus the obstacle
     friction of the states' contacts, their r_init on that path."""
-    import dataclasses
     import torch
     from diffcloth_tpu_torch.core import contact as ct
     from diffcloth_tpu_torch.core import friction_cuda as fc
@@ -378,6 +440,55 @@ def phase_kernels(tag, sim, x0, rng, mu=None):
         f = f + r
         log(f"[{tag}] the sweeps' input is f + r_init, the obstacle friction "
             f"of {in_contact} particles in contact (of {B} x {n})")
+    sweeps, bounds, floor_ms = check_sweeps(tag, kg, masses, f, g, n, cfg)
+    if det_ms < det_bound:
+        raise AssertionError(f"detection: {det_ms} ms of device time per "
+                             f"call, below its bound {det_bound} ms")
+    log(f"[{tag}] detection: device ms per call kernel {det_ms:.4f}, "
+        f"plain {det_plain_ms:.4f} (profiler); back-to-back wall ms per call "
+        f"kernel {det_ev[0]:.4f}, plain {det_ev[1]:.4f} (CUDA events); "
+        f"bound {det_bound:.5f} ({det_by}), floor of unfused f32 "
+        f"instructions {det_floor:.5f}")
+    return [
+        dict(name="selfcol_detect", route="cuda",
+             source="diffcloth_tpu_torch/csrc/selfcol_detect.cu",
+             replaces="diffcloth_tpu/core/selfcol_pallas.py:53",
+             launches=0, max_abs_err=det_err, ms=det_ms,
+             plain_ms=det_plain_ms,
+             bound_ms=det_bound, bound_by=det_by, library_ms=None),
+    ] + sweep_entries(sweeps, bounds, "")
+
+
+def sweep_entries(sweeps, bounds, suffix):
+    """The JSON line's entries of the two sweeps (names + suffix), from
+    check_sweeps' times at full budget."""
+    out = []
+    for name, key, line in (("friction_fwd", "fwd", 255),
+                            ("friction_bwd", "bwd", 309)):
+        err, ms, plain_ms = sweeps["with contact"][key][:3]
+        bound, by = bounds[key]
+        out.append(dict(
+            name=name + suffix, route="cuda",
+            source=f"diffcloth_tpu_torch/csrc/{name}.cu",
+            replaces=f"diffcloth_tpu/core/friction_pallas.py:{line}",
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            state="global" if suffix else "shared"))
+    return out
+
+
+def check_sweeps(tag, kg, masses, f, g, n, cfg, route="shared"):
+    """Both friction sweeps against their plain versions on the slot
+    geometry kg (full budget) and on the same geometry with every count
+    zero, exactly, on the operands' `route`; each timed (profiler device
+    time and CUDA events) beside the plain version and its byte bound.
+    Returns ({label: {"fwd"/"bwd": (max error, ms, plain ms, wall ms, plain
+    wall ms)}}, {"fwd"/"bwd": (bound ms, bound_by)}, launch floor ms)."""
+    import dataclasses
+    import torch
+    from diffcloth_tpu_torch.core import friction_cuda as fc
+
+    B = f.shape[0]
     active = int(kg.counts.sum())
     TC = kg.idx_row.shape[1]
     # the same slot geometry with every count zero: no active slot
@@ -385,6 +496,9 @@ def phase_kernels(tag, sim, x0, rng, mu=None):
     sweeps = {}
     for label, geom_l in (("with contact", kg), ("zero contact", kg0)):
         ops = fc.sweep_operands(geom_l, masses, cfg.budgets, n)
+        if ops.route != route:
+            raise AssertionError(f"the sweeps took the {ops.route} route at "
+                                 f"n = {n}, not the {route} one")
         out_k, vals_k = fc.friction_sweep(f, ops)
         out_p, vals_p = fc.friction_sweep_plain(f, geom_l, *masses,
                                                 cfg.budgets)
@@ -409,9 +523,9 @@ def phase_kernels(tag, sim, x0, rng, mu=None):
         if geom_l is kg0 and max(moved) != 0.0:
             raise AssertionError("friction moved a state without contact")
         log(f"[{tag}] friction ({label}): kernel == plain exactly, forward "
-            f"(fr', vals) and backward (g' and the three slot cotangents); "
-            f"{int(geom_l.counts.sum())} active slots, overflow "
-            f"{int(kg.overflow.sum())}")
+            f"(fr', vals) and backward (g' and the three slot cotangents), "
+            f"{route}-state route; {int(geom_l.counts.sum())} active slots, "
+            f"overflow {int(kg.overflow.sum())}")
         fr = lambda: fc.friction_sweep(f, ops)  # noqa: E731
         fr_plain = lambda: fc.friction_sweep_plain(  # noqa: E731
             f, geom_l, *masses, cfg.budgets)
@@ -424,45 +538,37 @@ def phase_kernels(tag, sim, x0, rng, mu=None):
             bwd=(bwd_err, device_ms(fb, kernel="friction_bwd_kernel"),
                  device_ms(fb_plain), time_cuda(fb), time_cuda(fb_plain)))
     # the launch floor: the device time of the least kernel there is
-    one = torch.zeros(1, device=dev)
+    one = torch.zeros(1, device=f.device)
     floor_ms = device_ms(lambda: one.zero_(), reps=50)
-    fr_err, fr_ms, fr_plain_ms = sweeps["with contact"]["fwd"][:3]
-    fb_err, fb_ms, fb_plain_ms = sweeps["with contact"]["bwd"][:3]
     # fr in and out, vals written for every slot, counts, the active slots'
     # data (indices 2, normal 3, masses 3)
     fr_bytes = (2 * f.numel() * 4 + B * 6 * TC * 4 + kg.counts.numel() * 4
                 + active * 4 * (2 + 3 + 3))
     fr_ops = active * FRICTION_OPS_PER_SLOT
-    fr_bound = max(fr_bytes / HBM_BYTES_PER_S, fr_ops / F32_FLOPS) * 1e3
-    fr_by = ("bytes" if fr_bytes / HBM_BYTES_PER_S > fr_ops / F32_FLOPS
-             else "operations")
     # g in and out, the active slots' data (indices 2, normal 3, masses 3)
     # and selects (6), the three slot cotangents written for every slot
     fb_bytes = (2 * g.numel() * 4 + active * 4 * (2 + 3 + 3 + 6)
                 + 3 * B * TC * 4 + kg.counts.numel() * 4)
     fb_ops = active * FRICTION_BWD_OPS_PER_SLOT
-    fb_bound = max(fb_bytes / HBM_BYTES_PER_S, fb_ops / F32_FLOPS) * 1e3
-    fb_by = ("bytes" if fb_bytes / HBM_BYTES_PER_S > fb_ops / F32_FLOPS
-             else "operations")
+    bounds = {}
+    for key, nbytes, ops_n in (("fwd", fr_bytes, fr_ops),
+                               ("bwd", fb_bytes, fb_ops)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_n / F32_FLOPS
+        bounds[key] = (max(t_b, t_o) * 1e3,
+                       "bytes" if t_b > t_o else "operations")
     # without contact: the state in and out, zero slot rows, counts
     bound0 = {"fwd": (2 * f.numel() + B * 6 * TC + kg.counts.numel()) * 4,
               "bwd": (2 * g.numel() + 3 * B * TC + kg.counts.numel()) * 4}
-    for name, ms, bound in (("detection", det_ms, det_bound),
-                            ("friction", fr_ms, fr_bound),
-                            ("friction_bwd", fb_ms, fb_bound)):
-        if ms < bound:
+    for name, key in (("friction", "fwd"), ("friction_bwd", "bwd")):
+        ms = sweeps["with contact"][key][1]
+        if ms < bounds[key][0]:
             raise AssertionError(f"{name}: {ms} ms of device time per call, "
-                                 f"below its bound {bound} ms")
+                                 f"below its bound {bounds[key][0]} ms")
     log(f"[{tag}] launch floor: device ms per call of a one-element "
         f"zero_() {floor_ms:.4f} (profiler); byte bounds of the sweeps: "
-        f"forward {fr_bound:.5f}, backward {fb_bound:.5f}, without contact "
-        f"{bound0['fwd'] / HBM_BYTES_PER_S * 1e3:.5f} and "
+        f"forward {bounds['fwd'][0]:.5f}, backward {bounds['bwd'][0]:.5f}, "
+        f"without contact {bound0['fwd'] / HBM_BYTES_PER_S * 1e3:.5f} and "
         f"{bound0['bwd'] / HBM_BYTES_PER_S * 1e3:.5f}")
-    log(f"[{tag}] detection: device ms per call kernel {det_ms:.4f}, "
-        f"plain {det_plain_ms:.4f} (profiler); back-to-back wall ms per call "
-        f"kernel {det_ev[0]:.4f}, plain {det_ev[1]:.4f} (CUDA events); "
-        f"bound {det_bound:.5f} ({det_by}), floor of unfused f32 "
-        f"instructions {det_floor:.5f}")
     for label, times in sweeps.items():
         for name, key in (("friction", "fwd"), ("friction_bwd", "bwd")):
             _, ms, plain_ms, ev, plain_ev = times[key]
@@ -470,26 +576,7 @@ def phase_kernels(tag, sim, x0, rng, mu=None):
                 f"{ms:.4f}, plain {plain_ms:.4f} (profiler); back-to-back "
                 f"wall ms per call kernel {ev:.4f}, plain {plain_ev:.4f} "
                 f"(CUDA events)")
-    return [
-        dict(name="selfcol_detect", route="cuda",
-             source="diffcloth_tpu_torch/csrc/selfcol_detect.cu",
-             replaces="diffcloth_tpu/core/selfcol_pallas.py:53",
-             launches=0, max_abs_err=det_err, ms=det_ms,
-             plain_ms=det_plain_ms,
-             bound_ms=det_bound, bound_by=det_by, library_ms=None),
-        dict(name="friction_fwd", route="cuda",
-             source="diffcloth_tpu_torch/csrc/friction_fwd.cu",
-             replaces="diffcloth_tpu/core/friction_pallas.py:255",
-             launches=0, max_abs_err=fr_err, ms=fr_ms,
-             plain_ms=fr_plain_ms, bound_ms=fr_bound, bound_by=fr_by,
-             library_ms=None),
-        dict(name="friction_bwd", route="cuda",
-             source="diffcloth_tpu_torch/csrc/friction_bwd.cu",
-             replaces="diffcloth_tpu/core/friction_pallas.py:309",
-             launches=0, max_abs_err=fb_err, ms=fb_ms,
-             plain_ms=fb_plain_ms, bound_ms=fb_bound, bound_by=fb_by,
-             library_ms=None),
-    ]
+    return sweeps, bounds, floor_ms
 
 
 def episode_params(sim, B):
@@ -563,19 +650,19 @@ def phase_main_path(sim, B, card):
     return launches
 
 
-def phase_profile(tag, sim, params, card, top=8):
+def phase_profile(tag, sim, params, card, top=8, kernels=FORWARD_KERNELS):
     """Where the time of a forward path goes: the rollout of `params` (the
     path's batch, its first few steps) under torch.profiler, after the
     path's own run, so nothing is cold.  Prints the device-busy share of
     the window, device time and launches per PD sweep (the forward sweep's
     launches) and the operators with the most device time; returns the
-    records."""
+    records.  The profiler traces the device alone (host operators are not
+    recorded, which cost more to process than the window takes to run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         recs = sim.rollout(params)
         torch.cuda.synchronize()
@@ -594,7 +681,7 @@ def phase_profile(tag, sim, params, card, top=8):
         f"{n_kernels / sweeps:.1f} device launches per sweep")
     # the hand-written kernels' own device time per call, beside the CUDA
     # event time of back-to-back wrapper calls in phase 2
-    log_breakdown(tag, ops, FORWARD_KERNELS, top)
+    log_breakdown(tag, ops, kernels, top)
     return recs
 
 
@@ -732,8 +819,7 @@ def phase_profile_gradient(tag, sim, params, loss_fn, card, top=8):
 
     vg = sim.episode_value_and_grad(loss_fn)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         vg(params)
         torch.cuda.synchronize()
@@ -759,7 +845,8 @@ def phase_trainer(card):
     evaluation of about a minute here (the f32 adjoint's fixed point and
     GMRES fallback run to their caps in many steps); from the default
     guess, or in a second iteration, the line search backtracks about ten
-    times, which overran the script's time limit."""
+    times, which overran the script's time limit.  The demo runs
+    TRAINER_STEPS of its 200 steps, so that phase 11 fits the limit too."""
     from diffcloth_tpu_torch.optim.solver import solve_demo
 
     P = 4
@@ -768,8 +855,9 @@ def phase_trainer(card):
         log(f"[trainer] iteration {k}: losses "
             f"{np.array2string(F, precision=6)}")
 
-    res = solve_demo("wind", seed=1, population=P, maxiter=1,
-                     callback=report)
+    with demo_steps("wind", TRAINER_STEPS):
+        res = solve_demo("wind", seed=1, population=P, maxiter=1,
+                         callback=report)
     initial = np.array([loss for loss, _ in res.helper.history[:P]])
     final = res.result.loss
     st = res.task.sim.bwd_stats.summary()
@@ -1055,8 +1143,7 @@ def phase_sphere_profile(B, steps, card, top=8, device=None):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -1171,6 +1258,332 @@ def run_sphere(card, timed):
         phase_sphere_fit(card)
 
 
+def large_mesh(dtype, device, steps, grid=LARGE_GRID):
+    """The flagship stand-in's physics on a grid x grid cloth (the large-mesh
+    scene, 128 x 128 = 16 384 vertices), cut to `steps` steps."""
+    import dataclasses
+    from diffcloth_tpu_torch.core.sim import ClothSim
+    from diffcloth_tpu_torch.geometry import builder as gb
+    from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
+    cfg = TSHIRT_GRID_STANDIN
+    cfg = dataclasses.replace(cfg, step_num=steps, fabric=dataclasses.replace(
+        cfg.fabric, grid_num_x=grid, grid_num_y=grid))
+    return ClothSim(gb.build_scene(cfg), device=device, dtype=dtype)
+
+
+def large_modes(sim):
+    return (sim.solve_mode, "sparse" if sim.sparse is not None else "dense",
+            sim.self_cfg.method)
+
+
+def zero_counters():
+    from diffcloth_tpu_torch.core import friction_cuda as fc
+    from diffcloth_tpu_torch.core import selfcol_cuda as scd
+    scd.detect_partners.launches = 0
+    for fn in (fc.friction_sweep, fc.friction_sweep_bwd):
+        fn.launches = fn.global_launches = 0
+
+
+def read_counters():
+    from diffcloth_tpu_torch.core import friction_cuda as fc
+    from diffcloth_tpu_torch.core import selfcol_cuda as scd
+    return {"selfcol_detect": scd.detect_partners.launches,
+            "friction_fwd": fc.friction_sweep.launches,
+            "friction_fwd_global": fc.friction_sweep.global_launches,
+            "friction_bwd": fc.friction_sweep_bwd.launches,
+            "friction_bwd_global": fc.friction_sweep_bwd.global_launches}
+
+
+def phase_large_forward(sim, B, card):
+    """11a: the large-mesh scene's batched forward episode on the card.  The
+    size switches must pick CG, sparse operators and the sweep, and the
+    friction sweeps the global-state route.  Returns the counters."""
+    import torch
+    if large_modes(sim) != ("cg", "sparse", "sweep"):
+        raise AssertionError(f"n = {sim.n} took {large_modes(sim)}, not "
+                             f"cg, sparse operators and the sweep")
+    params = episode_params(sim, B)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    recs = sim.rollout(params)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counters()
+    st = recs.steps
+    N = sim.n_steps
+    if tuple(st.x.shape) != (B, N, sim.n, 3):
+        raise AssertionError(f"trajectory shape {tuple(st.x.shape)}")
+    if not (bool(torch.isfinite(st.x).all())
+            and bool(torch.isfinite(st.v).all())):
+        raise AssertionError("non-finite trajectory")
+    conv = float(st.converged.float().mean())
+    if conv != 1.0:
+        raise AssertionError(f"converged fraction {conv}")
+    iters = st.iters.cpu().numpy()
+    sweeps = int(pd_sweeps(iters, sim).sum())
+    if launches["selfcol_detect"] != 0:
+        raise AssertionError(f"the detection kernel ran on the sweep path: "
+                             f"{launches}")
+    if not (launches["friction_fwd"] == launches["friction_fwd_global"]
+            == sweeps):
+        raise AssertionError(f"friction launches {launches}, not once per PD "
+                             f"sweep ({sweeps}) on the global-state route")
+    pairs = st.selfcol_pairs.cpu().numpy()
+    if pairs[0::2].sum() == 0:
+        raise AssertionError("no folded step saw a self-contact")
+    cg_per_solve = float(st.cg_iters.sum()) / float(st.iters.sum())
+    slots = st.selfcol_slots.cpu().numpy()
+    log(f"[large] n = {sim.n}: modes {large_modes(sim)} (solve, operators, "
+        f"self-collision), window {sim.self_cfg.window}, cap_pairs "
+        f"{sim.self_cfg.cap_pairs}; friction sweeps on the global-state "
+        f"route")
+    log(f"[large] forward {N} steps x B={B} on {card}: {elapsed:.2f} s, "
+        f"{B * N / elapsed:.2f} PD steps/s, converged {conv:.4f}, mean "
+        f"iters {iters.mean():.2f} ({sweeps / N:.2f} PD sweeps per step), "
+        f"{cg_per_solve:.2f} CG iterations per solve (cap "
+        f"{sim.cg_max_iters}, rtol {sim.cg_rtol}), "
+        f"{elapsed * 1e3 / sweeps:.3f} ms wall per PD sweep")
+    log(f"[large] self-contact pairs per step: folded episodes "
+        f"{pairs[0::2].mean():.1f} (max {int(pairs.max())}), flat "
+        f"{pairs[1::2].mean():.1f}; {slots[0::2].mean():.1f} friction slots "
+        f"per folded episode-step; overflow in "
+        f"{int(st.selfcol_overflow.sum())} of {st.selfcol_overflow.numel()} "
+        f"episode-steps ({int(st.selfcol_overflow[0::2].sum())} folded); "
+        f"launches {launches}")
+    return launches
+
+
+def phase_large_kernels(sim, B, rng):
+    """11a': both friction kernels on the global-state route at the large
+    scene's n and B, on slot geometry from the sweep pipeline (folded and
+    flat states perturbed as in phase 2), against their plain versions."""
+    import torch
+    from diffcloth_tpu_torch.core import friction_cuda as fc
+    from diffcloth_tpu_torch.core import selfcol as sc
+    cfg = sim.self_cfg
+    n, h, dev = sim.n, sim.h, sim.device
+    x, v = kernel_states(sim, initial_states(sim, B), rng)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    vt = torch.as_tensor(v, dtype=torch.float32, device=dev)
+    cs = sc.detect_self_collisions_sweep(cfg.allowed, sim.scene_dev.radii,
+                                         xt, vt, h, cfg.window,
+                                         cfg.cap_pairs)
+    cs = sc.assign_layers(cs, n, cfg.max_layers)
+    tables = sc.build_layer_tables(cs, n, cfg.max_layers)
+    kg = fc.build_kernel_geom(tables, sim.scene_dev.area, n, cfg.budgets,
+                              x=xt)
+    density = torch.full((B,), sim.cfg.fabric.density, dtype=torch.float32,
+                         device=dev)
+    f = torch.as_tensor(rng.randn(B, n, 3) * 0.05, dtype=torch.float32,
+                        device=dev)
+    g = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
+    log(f"[large-kernels] sweep pipeline on (B={B}, n={n}): "
+        f"{int(cs.mask.sum())} layered pairs, {int(tables.n_layers.max())} "
+        f"layers, overflow in {int(cs.overflow.sum())} samples")
+    sweeps, bounds, _ = check_sweeps("large-kernels", kg,
+                                     fc.slot_masses(kg, density), f, g, n,
+                                     cfg, route="global")
+    return sweep_entries(sweeps, bounds, "_global")
+
+
+def phase_large_gradient(sim, B, card, fwd_sweeps):
+    """11b: the batched value-and-grad of GradMask(f_wind=True) against the
+    base wind's rollout through the optimizer's objective, on the large
+    scene, of 11a's episodes (`fwd_sweeps`: the forward sweep's launches in
+    11a).  Returns the counters."""
+    import torch
+    from diffcloth_tpu_torch.optim.helper import GradMask, OptimizeHelper
+
+    params = episode_params(sim, B)
+    loss_fn = base_wind_target(sim, params)
+    helper = OptimizeHelper(sim, GradMask(f_wind=True), loss_fn,
+                            param_base=params)
+    X = np.stack([helper.params_to_vec(params.sample(i)) for i in range(B)])
+    torch.cuda.synchronize()
+    zero_counters()
+    sim.bwd_stats.reset()
+    t0 = time.perf_counter()
+    L, G = helper.batched_loss_and_grad(X)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    st = sim.bwd_stats.summary()
+    N = sim.n_steps
+    if not (np.isfinite(L).all() and np.isfinite(G).all()):
+        raise AssertionError("non-finite loss or gradient")
+    if not ((L > 0).all() and (np.abs(G).max(axis=1) > 0).all()):
+        raise AssertionError("a zero loss or gradient")
+    if launches["friction_fwd"] != fwd_sweeps + 2 * st["residual_vjps"]:
+        raise AssertionError(
+            f"friction_fwd launched {launches['friction_fwd']} times, not "
+            f"the forward's {fwd_sweeps} plus two per residual VJP "
+            f"({st['residual_vjps']:.0f})")
+    if not (launches["friction_bwd"] == launches["friction_bwd_global"]
+            == st["launches"]):
+        raise AssertionError(
+            f"friction_bwd launched {launches}, not once per adjoint trip "
+            f"({st['trips']:.0f}), GMRES matvec ({st['gmres_matvecs']:.0f}) "
+            f"and residual VJP ({st['residual_vjps']:.0f}) on the "
+            f"global-state route")
+    split = helper.last_split
+    log(f"[large-gradient] {N} steps x B={B} on {card}: {wall:.2f} s, "
+        f"{B * N / wall:.2f} episode-gradient steps/s; forward "
+        f"{split['forward_s']:.2f} s, backward {split['backward_s']:.2f} s "
+        f"({100 * split['backward_s'] / wall:.1f} %); loss mean "
+        f"{L.mean():.6e}; |dL/dwind| max {np.abs(G[:, :3]).max():.3e}")
+    log(f"[large-gradient] adjoint: "
+        f"{st['lane_trips'] / st['lane_steps']:.2f} trips per episode-step, "
+        f"{st['fallback_lanes']:.0f} of {st['lane_steps']:.0f} episode-steps "
+        f"fell to GMRES ({st['gmres_matvecs']:.0f} matvecs), "
+        f"{st['residual_vjps']:.0f} residual VJPs; "
+        f"{st['cg_iters'] / max(st['cg_solves'] * B, 1):.2f} CG iterations "
+        f"per episode-solve over {st['cg_solves']:.0f} solves; launches "
+        f"{launches}")
+    return launches
+
+
+def phase_large_reference(grid, B, steps, modes):
+    """11d: an f64 episode of the large-mesh physics on a grid x grid cloth
+    on the card against the CPU (the CPU path is held to the JAX package by
+    the tests), the first episode folded; the size switches must pick
+    `modes` on both."""
+    import torch
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sim = large_mesh(torch.float64, dev, steps, grid)
+        if large_modes(sim) != modes:
+            raise AssertionError(f"{grid} x {grid} on {dev} took "
+                                 f"{large_modes(sim)}, not {modes}")
+        x0 = initial_states(sim, B)
+        winds = np.array([[0.5, 0.05, 0.5], [0.2, 0.0, 0.4]])[:B]
+        p = sim.default_params().expand(B).replace(
+            x0=torch.as_tensor(x0, dtype=torch.float64, device=sim.device),
+            wind=torch.as_tensor(winds, dtype=torch.float64,
+                                 device=sim.device))
+        t0 = time.perf_counter()
+        out[dev] = sim.rollout(p).steps
+        log(f"[large-reference] {grid} x {grid}, {steps} steps, B={B} on "
+            f"{dev}: {time.perf_counter() - t0:.1f} s")
+    g, c = out["cuda"], out["cpu"]
+    err = float((g.x.cpu() - c.x).abs().max())
+    d_it = int((g.iters.cpu() - c.iters).abs().max())
+    if int(c.selfcol_pairs.sum()) == 0:
+        raise AssertionError("the reference episode has no self-contact")
+    if err > 1e-6 or d_it > 1 or not torch.equal(g.converged.cpu(),
+                                                 c.converged):
+        raise AssertionError(f"card vs CPU: max |dx| {err}, iters differ "
+                             f"by {d_it}")
+    log(f"[large-reference] {grid} x {grid} (n = {grid * grid}, modes "
+        f"{modes}), {steps} steps, f64, B={B}: card vs CPU max |dx| "
+        f"{err:.3e} (tolerance 1e-6), iters within {d_it}, "
+        f"{int(c.selfcol_pairs.sum())} self-contact pairs, CG iterations "
+        f"{int(g.cg_iters.sum())} (card) and {int(c.cg_iters.sum())} (CPU)")
+
+
+def phase_large_parts(seed=3):
+    """11d (2): the large scene's own modules in f64 on the card against the
+    CPU, at its folded and flat states (B = 2) with random velocities:
+    the sweep pipeline (pairs, layers, partner tables and overflow
+    exactly), the sparse operators (A^T A and the projections) and one CG
+    solve at the path's caps (its iterations equal, the solution within
+    1e-6).  An episode is not compared at this size: with the CG caps the
+    PD loop does not converge at n = 16 384 and ends by its plateau exit at
+    a sweep that rounding decides (on the CPU alone, x0 moved by 1e-13
+    ends one step 4 sweeps apart and 1.6e-2 away)."""
+    import torch
+    from diffcloth_tpu_torch.core import selfcol as sc
+    from diffcloth_tpu_torch.core import sparse_ops as spo
+    from diffcloth_tpu_torch.core import step as step_mod
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    v_np = rhs_np = None
+    for dev in ("cuda", "cpu"):
+        sim = large_mesh(torch.float64, dev, 1)
+        if large_modes(sim) != ("cg", "sparse", "sweep"):
+            raise AssertionError(f"{dev}: {large_modes(sim)}")
+        n, cfg = sim.n, sim.self_cfg
+        if v_np is None:
+            v_np = rng.randn(2, n, 3) * 0.5
+            rhs_np = rng.randn(2, n, 3)
+        f64 = lambda a: torch.as_tensor(a, dtype=torch.float64,  # noqa
+                                        device=sim.device)
+        x, v = f64(initial_states(sim, 2)), f64(v_np)
+        t0 = time.perf_counter()
+        cs = sc.detect_self_collisions_sweep(cfg.allowed, sim.scene_dev.radii,
+                                             x, v, sim.h, cfg.window,
+                                             cfg.cap_pairs)
+        cs = sc.assign_layers(cs, n, cfg.max_layers)
+        tables = sc.build_layer_tables(cs, n, cfg.max_layers)
+        p = sim.default_params().expand(2)
+        k = p.k_pertype
+        m = p.density[:, None] * sim.scene_dev.area
+        proj = spo.projections(sim.sparse, sim.scene_dev, x,
+                               sim.x_fixed_seq(p)[:, 0])
+        ata = spo.apply_AtA(sim.sparse, k, x)
+        h2 = sim.h * sim.h
+        u, it = step_mod.pcg(
+            lambda q: m[..., None] * q + h2 * spo.apply_AtA(sim.sparse, k, q),
+            f64(rhs_np), sim.p_inv(p), sim.cg_max_iters, sim.cg_rtol)
+        out[dev] = {"pair_i": cs.pair_i, "pair_j": cs.pair_j,
+                    "mask": cs.mask, "layer": cs.layer,
+                    "overflow": cs.overflow, "partner": tables.partner,
+                    "ata": ata, "u": u, "it": it,
+                    **{f"proj{i}": t for i, t in enumerate(proj)}}
+        out[dev] = {key: t.cpu() for key, t in out[dev].items()}
+        log(f"[large-reference] {LARGE_GRID} x {LARGE_GRID} modules on {dev}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    g, c = out["cuda"], out["cpu"]
+    for key in ("pair_i", "pair_j", "mask", "layer", "overflow", "partner",
+                "it"):
+        if not torch.equal(g[key], c[key]):
+            raise AssertionError(f"card vs CPU: the sweep pipeline's {key} "
+                                 f"differs")
+    errs = {key: float((g[key] - c[key]).abs().max()) for key in g
+            if (key.startswith("proj") or key in ("ata", "u"))
+            and g[key].numel()}
+    if max(errs.values()) > 1e-6:
+        raise AssertionError(f"card vs CPU: {errs}")
+    if int(c["mask"].sum()) == 0:
+        raise AssertionError("the large reference state has no contact")
+    log(f"[large-reference] {LARGE_GRID} x {LARGE_GRID} modules, f64, B=2 "
+        f"(folded, flat): "
+        f"card vs CPU: {int(c['mask'].sum())} layered pairs, their layers "
+        f"and partner tables equal, overflow {c['overflow'].tolist()}; "
+        f"max |error| (tolerance 1e-6): "
+        + ", ".join(f"{key} {e:.1e}" for key, e in errs.items())
+        + f"; CG iterations {c['it'].tolist()} on both")
+
+
+def run_large_mesh(card, timed):
+    """Phase 11, the large-mesh path.  Returns the JSON line's entries of
+    the sweeps' global-state route, their launches counted on this path."""
+    import torch
+    with timed("large forward"):
+        sim = large_mesh(torch.float32, "cuda", LARGE_STEPS)
+        fwd = phase_large_forward(sim, LARGE_BATCH, card)
+    with timed("large kernels"):
+        entries = phase_large_kernels(sim, LARGE_BATCH,
+                                      np.random.RandomState(2))
+    with timed("large gradient"):
+        bwd = phase_large_gradient(sim, LARGE_BATCH, card,
+                                   fwd["friction_fwd"])
+    del sim
+    with timed("large profile"):
+        sim = large_mesh(torch.float32, "cuda", LARGE_PROFILE_STEPS)
+        phase_profile("large-profile", sim, episode_params(sim, LARGE_BATCH),
+                      card, kernels=(("friction_fwd", "friction_kernel"),))
+    del sim
+    with timed("large reference"):
+        phase_large_reference(LARGE_REF_GRID, 2, LARGE_REF_STEPS,
+                              ("dense", "sparse", "kernel"))
+        phase_large_parts()
+    entries[0]["launches"] = fwd["friction_fwd_global"]
+    entries[1]["launches"] = bwd["friction_bwd_global"]
+    return entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=None,
@@ -1224,6 +1637,7 @@ def main():
     run_sphere(card, timed)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    kernels += run_large_mesh(card, timed)
     log(f"[time] all phases {timed.total:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

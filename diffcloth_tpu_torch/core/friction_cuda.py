@@ -9,7 +9,10 @@ The TPU `_fwd_kernel` becomes `csrc/friction_fwd.cu` and `_bwd_kernel`
 
 A step's slot geometry and masses are fixed for all its sweeps and adjoint
 trips, so `sweep_operands` validates them once per step (pure Python, on
-CPU and card tensors alike) and caches the kernels' argument struct.
+CPU and card tensors alike), caches the kernels' argument struct and picks
+the kernels' route: the sample's (n, 3) state staged in shared memory, or,
+when that does not fit beside the slot rows (n past about 15 000), kept in
+global memory (the `_global` entry points of the same sources).
 `friction_sweep` / `friction_sweep_bwd` then check only the per-call state
 (and selects) against it, and launch the kernels for CUDA tensors or run
 `friction_sweep_plain` / `friction_sweep_bwd_plain` for CPU tensors.
@@ -204,8 +207,9 @@ class _SweepArgs(ctypes.Structure):
 def _smem_bytes(n: int, TC: int, max_c_pad: int, L: int, in_rows: int,
                 out_rows: int, bufs: int) -> int:
     """Shared memory of one sweep block, `friction::smem_layout`'s total:
-    the mbarrier, the (n, 3) state, staged and built slot rows of TC, slot
-    buffers of (max c_pad, 3), counts and layer_start."""
+    the mbarrier, the (n, 3) state (n = 0 on the global-state route),
+    staged and built slot rows of TC, slot buffers of (max c_pad, 3),
+    counts and layer_start."""
     def a16(x):
         return (x + 15) & ~15
     return (16 + a16(12 * n) + a16(4 * TC * in_rows)
@@ -240,6 +244,7 @@ class SweepOperands:
     vals_shape: tuple     # (B, 6, TC)
     device: torch.device
     args: object
+    route: str            # "shared" or "global": where the state lives
 
 
 def sweep_operands(geom: KernelGeom, masses, budgets: tuple,
@@ -274,10 +279,15 @@ def sweep_operands(geom: KernelGeom, masses, budgets: tuple,
                 f"tensor on {dev}, got a{'' if t.is_contiguous() else ' non'}"
                 f"-contiguous {t.dtype} {tuple(t.shape)} on {t.device}")
     max_c_pad = max(c_pad for _, c_pad, _ in specs)
-    if n < 1 or _smem_bytes(n, TC, max_c_pad, L,
-                            *BWD_SMEM_ROWS) > SMEM_LIMIT:
-        raise ValueError(f"sweep operands: a state of n = {n} with "
-                         f"{TC} slots does not fit the sweeps' shared memory")
+    if n < 1:
+        raise ValueError(f"sweep operands: n = {n}")
+    # the backward block is the larger: the state goes to global memory
+    # when it does not fit there beside the slot rows
+    route = ("shared" if _smem_bytes(n, TC, max_c_pad, L, *BWD_SMEM_ROWS)
+             <= SMEM_LIMIT else "global")
+    if _smem_bytes(0, TC, max_c_pad, L, *BWD_SMEM_ROWS) > SMEM_LIMIT:
+        raise ValueError(f"sweep operands: {TC} slots do not fit the "
+                         f"sweeps' shared memory")
     ls = _layer_start(tuple(budgets), dev)
     args = _SweepArgs(*(t.data_ptr() for t in (
         geom.idx_row, geom.idx_part, geom.normalT, kred, imr, imp,
@@ -285,7 +295,7 @@ def sweep_operands(geom: KernelGeom, masses, budgets: tuple,
     return SweepOperands(geom=geom, masses=(kred, imr, imp),
                          budgets=tuple(budgets), state_shape=(B, n, 3),
                          vals_shape=(B, 6, TC), device=dev,
-                         args=ctypes.pointer(args))
+                         args=ctypes.pointer(args), route=route)
 
 
 def _check_call(name: str, t: torch.Tensor, shape: tuple,
@@ -299,42 +309,46 @@ def _check_call(name: str, t: torch.Tensor, shape: tuple,
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _load_kernel(name: str, n_args: int):
-    """A sweep kernel's C entry point, loaded and configured once (argument
-    types and the shared-memory limit), so that a sweep pays neither."""
+@functools.lru_cache(maxsize=None)
+def _load_kernel(name: str, route: str, n_args: int):
+    """A sweep kernel's C entry point for a route (`name`, or
+    `name`_global in the same library), loaded and configured once
+    (argument types and the shared-memory limit), so that a sweep pays
+    neither."""
     lib = cuda_build.load(name)
-    init = getattr(lib, name + "_init")
+    symbol = name if route == "shared" else name + "_global"
+    init = getattr(lib, symbol + "_init")
     init.argtypes = [ctypes.c_int]
     init.restype = ctypes.c_int
-    cuda_build.check(init(SMEM_LIMIT), name + "_init")
-    fn = getattr(lib, name)
+    cuda_build.check(init(SMEM_LIMIT), symbol + "_init")
+    fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.POINTER(_SweepArgs)] + [ctypes.c_void_p] * n_args
     fn.restype = ctypes.c_int
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_kernel():
-    return _load_kernel("friction_fwd", 4)
-
-
 def friction_sweep(fr, ops: SweepOperands):
     """One layered self-friction sweep on batched slot data: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors.  fr
-    (B, n, 3) f32 -> (fr', vals (B, 6, TC))."""
+    kernel of the operands' route for CUDA tensors, the plain version for
+    CPU tensors.  fr (B, n, 3) f32 -> (fr', vals (B, 6, TC)).  Counts
+    every launch in `launches`, the global-state route's also in
+    `global_launches`."""
     _check_call("friction_sweep: fr", fr, ops.state_shape, ops)
     if not fr.is_cuda:
         return friction_sweep_plain(fr, ops.geom, *ops.masses, ops.budgets)
     out = torch.empty_like(fr)
     vals = fr.new_empty(ops.vals_shape)
-    cuda_build.check(_fwd_kernel()(
+    cuda_build.check(_load_kernel("friction_fwd", ops.route, 4)(
         ops.args, fr.data_ptr(), out.data_ptr(), vals.data_ptr(),
         torch.cuda.current_stream(fr.device).cuda_stream), "friction_fwd")
     friction_sweep.launches += 1
+    if ops.route == "global":
+        friction_sweep.global_launches += 1
     return out, vals
 
 
 friction_sweep.launches = 0
+friction_sweep.global_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -416,16 +430,12 @@ def friction_sweep_bwd_plain(g, geom: KernelGeom, kred, imr, imp, vals,
     return g, ck, ci, cp
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    return _load_kernel("friction_bwd", 5)
-
-
 def friction_sweep_bwd(g, vals, ops: SweepOperands):
-    """The backward sweep on batched slot data: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.  g (B, n, 3) f32, vals
-    (B, 6, TC) the forward's selects.  Returns (g', c_kred, c_imr, c_imp)
-    as `friction_sweep_bwd_plain` does."""
+    """The backward sweep on batched slot data: the CUDA kernel of the
+    operands' route for CUDA tensors, the plain version for CPU tensors.
+    g (B, n, 3) f32, vals (B, 6, TC) the forward's selects.  Returns (g',
+    c_kred, c_imr, c_imp) as `friction_sweep_bwd_plain` does.  Counts as
+    `friction_sweep` does."""
     _check_call("friction_sweep_bwd: g", g, ops.state_shape, ops)
     _check_call("friction_sweep_bwd: vals", vals, ops.vals_shape, ops)
     if not g.is_cuda:
@@ -434,15 +444,18 @@ def friction_sweep_bwd(g, vals, ops: SweepOperands):
     B, _, TC = ops.vals_shape
     out = torch.empty_like(g)
     ck = g.new_empty((3, B, TC))
-    cuda_build.check(_bwd_kernel()(
+    cuda_build.check(_load_kernel("friction_bwd", ops.route, 5)(
         ops.args, g.data_ptr(), vals.data_ptr(), out.data_ptr(),
         ck.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream),
         "friction_bwd")
     friction_sweep_bwd.launches += 1
+    if ops.route == "global":
+        friction_sweep_bwd.global_launches += 1
     return (out,) + ck.unbind(0)
 
 
 friction_sweep_bwd.launches = 0
+friction_sweep_bwd.global_launches = 0
 
 
 class FrictionSweep(torch.autograd.Function):

@@ -11,9 +11,15 @@ episodes is a leading batch dim on the `SimParams` (one shared P^{-1}, as
 the JAX package's batched paths share it).  Eager PyTorch runs no device
 program longer than one kernel, so the JAX package's `_chunked` variants
 (bounded device executions of `chunk` steps) fold into these single
-functions.  Self-collision always runs the kernel pipeline that the JAX
-package selects on a TPU (symmetric detection kernel -> layering -> slot
-geometry -> friction sweep kernels, forward and backward).
+functions.
+
+`ClothSim` picks its algorithms by mesh size at the JAX package's
+thresholds (sim.py:183-300): the dense P^{-1} up to n = 8000 and
+Jacobi-PCG past it; dense operators while they take at most 300 MB and
+the scatter-free sparse operators past that; self-collision detection by
+the kernel up to n = 10000 and by the sort-based sweep past it.  Either
+detection feeds the same layering, slot geometry and friction sweep
+kernels, forward and backward.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from diffcloth_tpu_torch.core import diagnostics as diag
 from diffcloth_tpu_torch.core import selfcol as sc
 from diffcloth_tpu_torch.core import selfcol_cuda as scd
 from diffcloth_tpu_torch.core import solver as slv
+from diffcloth_tpu_torch.core import sparse_ops as spo
 from diffcloth_tpu_torch.core import spline as spl
 from diffcloth_tpu_torch.core import step as step_mod
 from diffcloth_tpu_torch.core.device import resolve_device
@@ -44,6 +51,14 @@ from diffcloth_tpu_torch.geometry import builder as gb
 SELF_K_PARTNERS = 8
 SELF_MAX_LAYERS = 16
 SELF_COMPACT_LAYERS = 4
+# the JAX ClothSim's size switches: the CG solve past DENSE_SOLVE_MAX_N
+# vertices, the sweep past SWEEP_MIN_N (and always past KERNEL_MAX_N,
+# where int32 canonical pair ids overflow in the JAX package), sparse
+# operators past DENSE_OPS_MAX_BYTES of dense ones
+DENSE_SOLVE_MAX_N = 8000
+SWEEP_MIN_N = 10000
+KERNEL_MAX_N = 46340
+DENSE_OPS_MAX_BYTES = 300 * 1024 * 1024
 
 
 def set_full_f32_matmul() -> None:
@@ -105,6 +120,14 @@ def stage_to_device(stage: gb.AttachmentStage, dtype=torch.float32,
         spline_p0=f(stage.spline_p0), spline_yup=f(stage.spline_yup))
 
 
+def dense_ops_bytes(scene: gb.Scene) -> int:
+    """The JAX package's estimate of the dense operators' f32 bytes for one
+    stage (sim.py:283-285), the gate of the sparse operators."""
+    T2 = 2 * len(scene.triangle.area)
+    Bn = len(scene.bending.n_rest)
+    return 4 * (2 * T2 * scene.n + 2 * Bn * scene.n + 3 * scene.n * scene.n)
+
+
 class ClothSim:
     """A built scene with its forward step and episode functions (one
     instance per mesh topology, scene config, dtype and device).
@@ -112,12 +135,32 @@ class ClothSim:
     `device` defaults to "cuda" and raises when no card is present; pass
     device="cpu" to run the plain PyTorch versions of the kernels.  `prims`
     are the scene's obstacles (none by default; moved to the sim's device
-    and dtype), `spline_type` the attachment splines' parametrization."""
+    and dtype), `spline_type` the attachment splines' parametrization.
+
+    The JAX ClothSim's size switches, with its defaults and thresholds:
+    `solve_mode` ("dense" up to n = 8000, else "cg", with `cg_max_iters`
+    and `cg_rtol`), `dense_ops` / `sparse_ops` (dense while the dense
+    operators take at most 300 MB; sparse_ops=True forces the sparse ones)
+    and `self_method` ("kernel" up to n = 10000, else "sweep", with
+    `self_window` and `self_cap_pairs`; the JAX package's "pallas" and
+    "matrix" are "kernel" here and raise).  The choices are recorded as
+    `solve_mode`, `dense`, `sparse` and `self_cfg.method`.  Not ported, and
+    raising: multi-stage attachment scenes, the gather/scatter operator
+    path (dense_ops=False with sparse_ops=False), `SimFlags.adjoint_mode`
+    "gmres"; the JAX ClothSim's other arguments (eps and iteration
+    overrides, solve_fn, plateau_window, the self-collision capacity and
+    friction implementation options) are not arguments here.  The export
+    options are `optim.solver.solve_demo`'s and raise there."""
 
     def __init__(self, scene: gb.Scene, *, flags: Optional[SimFlags] = None,
                  prims: Optional[ct.PrimitiveSet] = None,
                  spline_type: SplineType = SplineType.ENDPOINT,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32,
+                 solve_mode: Optional[str] = None, cg_max_iters: int = 64,
+                 cg_rtol: float = 1e-6, dense_ops: Optional[bool] = None,
+                 sparse_ops: Optional[bool] = None,
+                 self_method: Optional[str] = None, self_window: int = 48,
+                 self_cap_pairs: Optional[int] = None):
         self.device = resolve_device(device)
         set_full_f32_matmul()
         if len(scene.stages) != 1:
@@ -148,30 +191,78 @@ class ClothSim:
         self.prims = (ct.empty_primitive_set(dtype, dev) if prims is None
                       else prims.to(dev, dtype))
         self.n_prims = self.prims.n
+
+        # global solve: the explicit dense P^{-1} up to dress scale, then
+        # matrix-free Jacobi-PCG whose per-parameter data is 1/diag(P)
+        if solve_mode is None:
+            solve_mode = "dense" if scene.n <= DENSE_SOLVE_MAX_N else "cg"
+        if solve_mode not in ("dense", "cg"):
+            raise ValueError(f"solve_mode {solve_mode!r}: 'dense' or 'cg'")
+        self.solve_mode = solve_mode
+        self.cg_max_iters, self.cg_rtol = cg_max_iters, cg_rtol
         area64 = np.asarray(scene.area, np.float64)
-        self._p_inv_fn = slv.make_host_p_inv_fn(
-            slv.dense_gram_matrices(scene)[0], area64, self.h, dtype, dev)
-        self.dense = dn.build_dense_ops(scene, self.stage_host, dtype, dev)
+        if solve_mode == "dense":
+            self._p_inv_fn = slv.make_host_p_inv_fn(
+                slv.dense_gram_matrices(scene)[0], area64, self.h, dtype,
+                dev)
+        else:
+            self._p_inv_fn = slv.make_host_p_diag_inv_fn(
+                slv.gram_diagonals(scene)[0], area64, self.h, dtype, dev)
+
+        # constraint operators: dense matmuls while they stay small, the
+        # scatter-free incidence operators past that
+        if sparse_ops:
+            dense_ops = False
+        if dense_ops is None:
+            dense_ops = dense_ops_bytes(scene) <= DENSE_OPS_MAX_BYTES
+        if sparse_ops is None:
+            sparse_ops = not dense_ops
+        if not (dense_ops or sparse_ops):
+            raise NotImplementedError(
+                "the gather/scatter operator path is not ported: keep "
+                "dense_ops or sparse_ops")
+        self.dense = self.sparse = None
+        if dense_ops:
+            self.dense = dn.build_dense_ops(scene, self.stage_host, dtype,
+                                            dev)
+        else:
+            self.sparse = spo.build_sparse_ops(scene, self.stage_host, dtype,
+                                               dev)
 
         self.self_cfg = None
         if (self.flags.contact_enabled and self.flags.self_collision_enabled
                 and scene.n > 1):
             # the reference enables self-collision for every demo
-            # (OptimizationTaskSetup.cpp:154-224); the SYMMETRIC table makes
+            # (OptimizationTaskSetup.cpp:154-224)
+            if self_method is None:
+                self_method = "sweep" if scene.n > SWEEP_MIN_N else "kernel"
+            if self_method == "kernel" and scene.n > KERNEL_MAX_N:
+                self_method = "sweep"
+            # the SYMMETRIC non-adjacency table: for the kernel it makes
             # each row's partner slots its complete contact incidence
-            allowed = ~scene.conn_table & ~np.eye(scene.n, dtype=bool)
+            allowed = ~scene.conn_table
+            np.fill_diagonal(allowed, False)
+            if self_method == "kernel":
+                allowed_t = torch.as_tensor(scd.pack_allowed(allowed),
+                                            device=dev)
+            else:
+                allowed_t = torch.as_tensor(allowed, device=dev)
+            del allowed
             budgets = sc.compact_slot_budgets(SELF_COMPACT_LAYERS)
             self.self_cfg = step_mod.SelfColConfig(
-                allowed=torch.as_tensor(scd.pack_allowed(allowed),
-                                        device=dev),
-                k_partners=SELF_K_PARTNERS, max_layers=SELF_MAX_LAYERS,
-                budgets=tuple(min(c, scene.n) for c in budgets))
+                allowed=allowed_t, k_partners=SELF_K_PARTNERS,
+                max_layers=SELF_MAX_LAYERS,
+                budgets=tuple(min(c, scene.n) for c in budgets),
+                method=self_method, window=min(self_window, scene.n - 1),
+                cap_pairs=self_cap_pairs or max(128, scene.n // 2))
 
         self.step, self.residual = step_mod.make_step(
             self.scene_dev, self.dense, self.prims, h=self.h,
             wind_config=cfg.wind_config, flags=self.flags,
             eps_forward=self.eps_forward, eps_backward=self.eps_backward,
-            self_cfg=self.self_cfg)
+            self_cfg=self.self_cfg, sparse=self.sparse,
+            solve_mode=solve_mode, cg_max_iters=cg_max_iters,
+            cg_rtol=cg_rtol)
         self.bwd_stats = self.step.bwd_stats
 
     # ------------------------------------------------------------------ params
@@ -199,8 +290,10 @@ class ClothSim:
 
     def p_inv(self, params: SimParams) -> torch.Tensor:
         """Refactorize the PD system for a parameter guess (the analogue of
-        resetSystemWithParams).  A batched SimParams shares sample 0's
-        P^{-1}: k_pertype and density must agree across the batch."""
+        resetSystemWithParams): the (n,n) P^{-1} with solve_mode "dense",
+        the (n,) Jacobi diagonal 1/diag(P) with "cg".  A batched SimParams
+        shares sample 0's: k_pertype and density must agree across the
+        batch."""
         p = params.sample(0) if params.batch_size is not None else params
         return self._p_inv_fn(p.k_pertype, p.density)
 
@@ -245,7 +338,7 @@ class ClothSim:
         frozen = torch.zeros(B, dtype=torch.bool, device=x.device)
         diag_keys = ("converged", "iters", "avg_deformation",
                      "max_deformation", "selfcol_overflow", "selfcol_pairs",
-                     "selfcol_slots", "obstacle_contacts")
+                     "selfcol_slots", "obstacle_contacts", "cg_iters")
         cols = {k: [] for k in ("x", "v", "f", "r") + diag_keys}
         for i in range(1, self.n_steps + 1):
             t = torch.tensor(float(i), dtype=self.dtype,

@@ -1,10 +1,24 @@
 """The differentiable PD step: forward local-global loop with
 self-collision friction, and the implicit adjoint.
 
-Counterpart of `diffcloth_tpu/core/step.py` `make_step` on the dense-operator
-path: `pd_forward` (:216-642), `residual` (:406-419), the K map (:683-692),
-`_gmres_cycle` (:97-140) and `step_bwd` in its default `fp` mode
-(:659-830; the experimental `gmres` mode is not ported).
+Counterpart of `diffcloth_tpu/core/step.py` `make_step`: `pd_forward`
+(:216-642), `residual` (:406-419), the K map (:683-692), `_gmres_cycle`
+(:97-140), `_pcg` and `solver_for` (:151-175, :425-436) and `step_bwd` in
+its default `fp` mode (:659-830).  Options, as the JAX package's:
+  * operators: `dense` (dense_ops.py, matmuls) or `sparse` (sparse_ops.py,
+    scatter-free incidence operators); the JAX package's plain
+    gather/scatter fallback, used only when both are None, is not ported
+    and raises;
+  * global solve `solve_mode`: "dense" (one P^{-1} matmul) or "cg"
+    (matrix-free Jacobi-PCG, `cg_max_iters`, `cg_rtol`; p_inv is then
+    1/diag(P));
+  * self-collision `SelfColConfig.method`: "kernel" (the detection kernel,
+    the JAX package's "pallas" and "matrix") or "sweep" (sort-based
+    sweep-and-prune, selfcol.py);
+  * `flags.adjoint_mode`: "fp" only; the experimental "gmres" mode is not
+    ported and raises, as do the JAX package's `solve_fn`,
+    `max_forward_iters`, `plateau_window` and the self-collision profiling
+    options, which the port's make_step does not take.
 
 Forward: velocity-based projective dynamics with dry frictional contact
 (Simulation::step, Simulation.cpp:1043-1428):
@@ -20,9 +34,11 @@ without a new best, and the best-iterate revert.  friction(f) is the
 obstacle friction (layer 0, contact.obstacle_friction) followed by the
 self-friction sweep on f + r_obstacle (step.py:349-385).  Obstacle contacts
 are detected once per step at the step's time t (plain PyTorch, as in the
-JAX package); self-collision runs the kernel pipeline once per step
-(detection kernel -> layering -> slot geometry) and the friction sweep
-kernel once per PD iteration.
+JAX package); self-collision runs its pipeline once per step (detection
+kernel, or the sweep, -> layering -> slot geometry) and the friction sweep
+kernel once per PD iteration.  With solve_mode "cg" every P^{-1} product,
+in the PD loop and in the adjoint, is a Jacobi-PCG solve, masked per
+episode as the loops are.
 
 Backward (Simulation::stepBackward, Simulation.cpp:1455-1780): implicit
 differentiation of the residual R(v_new; x_n, v_n, theta, x_fixed) =
@@ -41,7 +57,8 @@ Everything is batched over a leading dim B: where the JAX package vmaps a
 the adjoint's lambda), so an episode that is done stops changing exactly as
 a finished vmapped lane does, and a batched result equals the per-episode
 ones.  The loops test on the host whether any episode is still active only
-every CHECK_EVERY sweeps; the masked extra sweeps are no-ops.
+every CHECK_EVERY sweeps (or CG iterations); the masked extra sweeps are
+no-ops.
 """
 from __future__ import annotations
 
@@ -57,7 +74,9 @@ from diffcloth_tpu_torch.config import (GRAVITY, SimFlags, WindConfig,
 from diffcloth_tpu_torch.core import contact as ct
 from diffcloth_tpu_torch.core import dense_ops as dn
 from diffcloth_tpu_torch.core import friction_cuda as fc
+from diffcloth_tpu_torch.core import selfcol as sc
 from diffcloth_tpu_torch.core import selfcol_cuda as scd
+from diffcloth_tpu_torch.core import sparse_ops as spo
 from diffcloth_tpu_torch.core.types import SceneDev, SimParams
 
 # sweeps without a new best iterate before the plateau exit (the JAX
@@ -74,11 +93,28 @@ PARAM_FIELDS = tuple(f.name for f in dataclasses.fields(SimParams))
 
 @dataclasses.dataclass
 class SelfColConfig:
-    """Static self-collision configuration of the kernel pipeline."""
-    allowed: torch.Tensor   # (n_pad, n_pad) int8 SYMMETRIC admissibility
-    k_partners: int         # partner slots per row (detection)
+    """Static self-collision configuration.  method "kernel": `allowed` is
+    the (n_pad, n_pad) int8 symmetric admissibility table the detection
+    kernel reads and `k_partners` its partner slots per row.  method
+    "sweep": `allowed` is the (n, n) bool symmetric non-adjacency table,
+    `window` the sorted-order window and `cap_pairs` the pair capacity of a
+    step (None: max(128, n // 2)).  The JAX package's "matrix" and
+    "pallas" methods are both the kernel here (its CPU route is the
+    kernel's plain version) and raise."""
+    allowed: torch.Tensor
+    k_partners: int         # partner slots per row (detection kernel)
     max_layers: int         # layering rounds
     budgets: tuple          # per-layer friction slot budgets
+    method: str = "kernel"
+    window: int = 48
+    cap_pairs: Optional[int] = None
+
+    def __post_init__(self):
+        if self.method not in ("kernel", "sweep"):
+            raise ValueError(
+                f"self-collision method {self.method!r}: the port has "
+                f"'kernel' (the JAX package's 'pallas' and 'matrix'; on the "
+                f"CPU it runs the kernel's plain version) and 'sweep'")
 
 
 @dataclasses.dataclass
@@ -94,6 +130,7 @@ class StepAux:
     selfcol_pairs: torch.Tensor      # self-contact pairs layered this step
     selfcol_slots: torch.Tensor      # friction slots each sweep works on
     obstacle_contacts: torch.Tensor  # particles in obstacle contact
+    cg_iters: torch.Tensor           # CG iterations over the step's sweeps
 
 
 def deformation(scene: SceneDev, x):
@@ -130,6 +167,8 @@ class BackwardStats:
     lane_trips: object = 0   # their fixed-point trips
     fallback_lanes: object = 0   # of them that fell to the GMRES fallback
     slot_launches: object = 0    # active friction slots over all launches
+    cg_solves: int = 0       # CG solves over the batch (solve_mode "cg")
+    cg_iters: object = 0     # their iterations, summed over the episodes
 
     def reset(self):
         for f in dataclasses.fields(self):
@@ -187,6 +226,44 @@ def _gmres_cycle(op, b, x0, m: int):
     return x0 + torch.einsum("bm,bmn->bn", y, V[:, :m]).reshape(shape)
 
 
+def pcg(op, b, diag_inv, max_iters: int, rtol: float):
+    """Jacobi-preconditioned conjugate gradients on the SPD operator `op`
+    for each episode of the batch (step.py:151-175): b (B, n, 3), the three
+    right-hand sides of an episode solved jointly (P x I_3 is SPD on the
+    product space, so inner products run over all entries), diag_inv (n,)
+    = 1/diag(P).  An episode iterates while it is under `max_iters`
+    iterations and its |r| is above rtol |b|, as its lane of the JAX
+    package's vmapped while_loop does; a finished episode is frozen.
+    Returns (x, iterations (B,) int32)."""
+    D = diag_inv[:, None]
+    x = D * b                     # Jacobi initial guess
+    r = b - op(x)
+    z = D * r
+    p = z
+    rz = torch.sum(r * z, dim=(-2, -1))
+    stop2 = (rtol * _frob(b)) ** 2
+    it = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+    active = torch.sum(r * r, dim=(-2, -1)) > stop2
+    for k in range(max_iters):
+        if k and k % CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        Ap = op(p)
+        alpha = rz / torch.clamp(torch.sum(p * Ap, dim=(-2, -1)), min=1e-30)
+        a3 = active[:, None, None]
+        x = torch.where(a3, x + alpha[:, None, None] * p, x)
+        r_new = r - alpha[:, None, None] * Ap
+        z = D * r_new
+        rz_new = torch.sum(r_new * z, dim=(-2, -1))
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p = torch.where(a3, z + beta[:, None, None] * p, p)
+        r = torch.where(a3, r_new, r)
+        rz = torch.where(active, rz_new, rz)
+        it = it + active.to(torch.int32)
+        active = (active & (it < max_iters)
+                  & (torch.sum(r * r, dim=(-2, -1)) > stop2))
+    return x, it
+
+
 @dataclasses.dataclass
 class Frozen:
     """What a step detects once and holds fixed for its sweeps and its
@@ -233,20 +310,36 @@ class StepFn(torch.autograd.Function):
             gp.get(k) for k in PARAM_FIELDS)
 
 
-def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
-              *, h: float, wind_config: WindConfig, flags: SimFlags,
-              eps_forward: float, eps_backward: float,
-              self_cfg: Optional[SelfColConfig] = None):
+def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
+              prims: ct.PrimitiveSet, *, h: float, wind_config: WindConfig,
+              flags: SimFlags, eps_forward: float, eps_backward: float,
+              self_cfg: Optional[SelfColConfig] = None,
+              sparse: Optional[spo.SparseOps] = None,
+              solve_mode: str = "dense", cg_max_iters: int = 64,
+              cg_rtol: float = 1e-6):
     """Build the batched differentiable PD step for one attachment stage:
 
         step(x (B,n,3), v, params (batched SimParams), x_fixed (B,F,3),
-             p_inv (n,n), t (0-dim tensor), step_idx (int))
+             p_inv, t (0-dim tensor), step_idx (int))
           -> (x_new, v_new, StepAux)
 
     and the residual R(v_new, x_n, v_n, params, x_fixed, frozen, t,
     step_idx) it differentiates (`frozen`: the step's `Frozen` contacts).
-    `prims` are the scene's obstacles (an empty set for none).
-    `step.bwd_stats` counts the adjoint's work."""
+    The constraint operators are `dense` or, when it is None, `sparse`.
+    p_inv is the (n,n) P^{-1} with solve_mode "dense" and the (n,)
+    1/diag(P) with "cg".  `prims` are the scene's obstacles (an empty set
+    for none).  `step.bwd_stats` counts the adjoint's work."""
+    if flags.adjoint_mode != "fp":
+        raise NotImplementedError(
+            f"adjoint_mode {flags.adjoint_mode!r} is not ported; the port "
+            f"runs the reference's fixed point ('fp') with its GMRES "
+            f"fallback")
+    if dense is None and sparse is None:
+        raise NotImplementedError(
+            "the gather/scatter operator path is not ported: pass dense or "
+            "sparse operators")
+    if solve_mode not in ("dense", "cg"):
+        raise ValueError(f"solve_mode {solve_mode!r}: 'dense' or 'cg'")
     n = int(scene.area.shape[0])
     max_iter = flags.max_forward_iters or pd_total_iters(eps_forward)
     max_back = flags.max_backward_iters
@@ -256,6 +349,9 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
                 and self_cfg is not None)
     # friction runs in every sweep (step.py:294-297)
     has_contact = use_obstacles or use_self
+    cap_pairs = None
+    if use_self:
+        cap_pairs = self_cfg.cap_pairs or max(128, n // 2)
     stats = BackwardStats()
 
     def wind_factor(params: SimParams, t, step_idx):
@@ -292,20 +388,52 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
     def masses(params: SimParams):
         return params.density[:, None] * scene.area        # M = rho Area
 
+    # -- constraint operators: dense matmuls or scatter-free incidence
+
+    def apply_A(x):
+        """y_t = A0_t x for t in (stretch, bend, attach, spring)."""
+        if dense is not None:
+            return dn.apply_A(dense, x)
+        return spo.apply_A(sparse, x)
+
+    def projections(x_eval, x_fixed):
+        """Weightless projections at x_eval (the dense path reads them off
+        y = A x_eval, the sparse one gathers vertices)."""
+        if dense is not None:
+            y = dn.apply_A(dense, x_eval)
+            return dn.projections_from_y(dense, y[0], y[1], x_fixed,
+                                         y_sp=y[3])
+        return spo.projections(sparse, scene, x_eval, x_fixed)
+
+    def apply_At(k_pertype, d_s, d_b, d_a, d_sp):
+        if dense is not None:
+            return dn.apply_At(dense, k_pertype, d_s, d_b, d_a, d_sp)
+        return spo.apply_At(sparse, k_pertype, d_s, d_b, d_a, d_sp)
+
     def btilde_of(params, m, f_ext, v_n, x_eval, x_fixed, y_n):
         """b~ in residual form (step.py:387-404):
         h sum_t k_t A0_t^T (p0_t - A0_t x_n) + m v_n + h f_ext."""
-        y_eval = dn.apply_A(dense, x_eval)
-        p_s, p_b, p_a, p_sp = dn.projections_from_y(
-            dense, y_eval[0], y_eval[1], x_fixed, y_sp=y_eval[3])
-        At_d = dn.apply_At(dense, params.k_pertype,
-                           p_s - y_n[0], p_b - y_n[1], p_a - y_n[2],
-                           p_sp - y_n[3])
+        p_s, p_b, p_a, p_sp = projections(x_eval, x_fixed)
+        At_d = apply_At(params.k_pertype, p_s - y_n[0], p_b - y_n[1],
+                        p_a - y_n[2], p_sp - y_n[3])
         return h * At_d + m[..., None] * v_n + h * f_ext
 
     def apply_C(params, v):
         """C v = h^2 (sum_t k_t S_t) v."""
-        return h2 * dn.apply_S_pertype(dense.S, params.k_pertype, v)
+        if dense is not None:
+            return h2 * dn.apply_S_pertype(dense.S, params.k_pertype, v)
+        return h2 * spo.apply_AtA(sparse, params.k_pertype, v)
+
+    def solver_for(params, m):
+        """The global solve (p_inv, rhs) -> (P^{-1} rhs, CG iterations (B,)
+        or None) for this parameter guess (step.py:425-436): one matmul by
+        the explicit P^{-1} ("dense"), or Jacobi-PCG on P u = m u + C u
+        with p_inv = 1/diag(P) ("cg")."""
+        if solve_mode == "dense":
+            return lambda p_inv, rhs: (dn.mm(p_inv, rhs), None)
+        return lambda p_diag_inv, rhs: pcg(
+            lambda q: m[..., None] * q + apply_C(params, q), rhs,
+            p_diag_inv, cg_max_iters, cg_rtol)
 
     def sweep_ops(geom, params: SimParams):
         """The step's slot operands, validated once for all its sweeps."""
@@ -348,9 +476,17 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
         slots = torch.zeros(B, dtype=torch.int32, device=dev)
         geom = ops = None
         if use_self:
-            tables, overflow = scd.detect_tables(
-                self_cfg.allowed, scene.radii, x_n, v_iter0, h,
-                self_cfg.k_partners, self_cfg.max_layers)
+            if self_cfg.method == "sweep":
+                cs = sc.detect_self_collisions_sweep(
+                    self_cfg.allowed, scene.radii, x_n, v_iter0, h,
+                    self_cfg.window, cap_pairs)
+                cs = sc.assign_layers(cs, n, self_cfg.max_layers)
+                tables = sc.build_layer_tables(cs, n, self_cfg.max_layers)
+                overflow = cs.overflow
+            else:
+                tables, overflow = scd.detect_tables(
+                    self_cfg.allowed, scene.radii, x_n, v_iter0, h,
+                    self_cfg.k_partners, self_cfg.max_layers)
             geom = fc.build_kernel_geom(tables, scene.area, n,
                                         self_cfg.budgets, x=x_n)
             overflow = (overflow | geom.overflow
@@ -360,7 +496,9 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
             ops = sweep_ops(geom, params)
         frozen = Frozen(contact=contact, geom=geom)
 
-        y_n = dn.apply_A(dense, x_n)        # constant across PD iterations
+        y_n = apply_A(x_n)                  # constant across PD iterations
+        cg_it = torch.zeros(B, dtype=torch.int32, device=dev)
+        solve = solver_for(params, m)
 
         def one_iter(x_now, v_now):
             btilde = btilde_of(params, m, f_ext, v_n, x_now, x_fixed, y_n)
@@ -369,8 +507,8 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
                 r = friction(f, frozen, ops, params, m)
             else:
                 f = r = torch.zeros_like(x_n)
-            v_new = dn.mm(p_inv, btilde + r)
-            return x_n + h * v_new, v_new, f, r
+            v_new, cg_k = solve(p_inv, btilde + r)
+            return x_n + h * v_new, v_new, f, r, cg_k
 
         x_now, v_now = s_n, v_iter0     # the loop starts from the inertia
         #                                 target (Simulation.cpp:1154-1160)
@@ -385,7 +523,7 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
         for k in range(max_iter):
             if k and k % CHECK_EVERY == 0 and not bool(torch.any(~done)):
                 break
-            x_new, v_new, f_k, r_k = one_iter(x_now, v_now)
+            x_new, v_new, f_k, r_k, cg_k = one_iter(x_now, v_now)
             xd = _frob(x_new - x_now) / n
             better = xd < min_xd
             since_k = torch.where(better, 0, since + 1)
@@ -400,6 +538,8 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
             f = torch.where(a3, f_k, f)
             r = torch.where(a3, r_k, r)
             it = it + act.to(torch.int32)
+            if cg_k is not None:
+                cg_it = cg_it + torch.where(act, cg_k, 0)
             min_xd = torch.where(act, torch.minimum(xd, min_xd), min_xd)
             since = torch.where(act, since_k, since)
             strict = torch.where(act, strict_k, strict)
@@ -418,7 +558,8 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
         aux = StepAux(f=f, r=r, converged=done, iters=it,
                       avg_deformation=avg_def, max_deformation=max_def,
                       selfcol_overflow=overflow, selfcol_pairs=pairs,
-                      selfcol_slots=slots, obstacle_contacts=n_contacts)
+                      selfcol_slots=slots, obstacle_contacts=n_contacts,
+                      cg_iters=cg_it)
         return x_new, v_new, aux, frozen
 
     # -- the residual and the K map ------------------------------------------
@@ -435,7 +576,7 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
         f_ext = external_force(params, m, t, step_idx)
         x_new = x_n + h * v_new
         btilde = btilde_of(params, m, f_ext, v_n, x_new, x_fixed,
-                           dn.apply_A(dense, x_n))
+                           apply_A(x_n))
         Cv = apply_C(params, v_new)
         R = m[..., None] * v_new + Cv - btilde
         if has_contact:
@@ -449,7 +590,7 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
         m = masses(params)
         f_ext = external_force(params, m, t, step_idx)
         btilde = btilde_of(params, m, f_ext, v_n, x_n + h * vn, x_fixed,
-                           dn.apply_A(dense, x_n))
+                           apply_A(x_n))
         if not has_contact:
             return btilde
         return btilde + friction(btilde - apply_C(params, vn), frozen, ops,
@@ -501,13 +642,21 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
 
         m = masses(params)
 
+        solve = solver_for(params, m)
+
+        def P_inv(rhs):
+            u, cg_k = solve(p_inv, rhs)
+            if cg_k is not None:
+                stats.cg_solves += 1
+                stats.cg_iters = stats.cg_iters + cg_k.sum()
+            return u
+
         def op_pre(u):
             """P^{-1} (dR/dv)^T u, the GMRES operator."""
-            return dn.mm(p_inv, m[..., None] * u + apply_C(params, u)
-                         - vjp_k(u))
+            return P_inv(m[..., None] * u + apply_C(params, u) - vjp_k(u))
 
         # ---- the reference's fixed point (Simulation.cpp:1569-1599)
-        b_pre = dn.mm(p_inv, w)
+        b_pre = P_inv(w)
         lam = b_pre
         it = torch.ones(B, dtype=torch.int32, device=w.device)
         done = ~live
@@ -516,7 +665,7 @@ def make_step(scene: SceneDev, dense: dn.DenseOps, prims: ct.PrimitiveSet,
             act = ~(done | bad)
             if k and k % CHECK_EVERY == 0 and not bool(act.any()):
                 break
-            lam_next = dn.mm(p_inv, w + vjp_k(lam))
+            lam_next = P_inv(w + vjp_k(lam))
             delta = _frob(lam_next - lam) / nh
             bad_k = ~torch.isfinite(delta) | (
                 _frob(lam_next) > 1e8 * (w_norm + 1e-30))

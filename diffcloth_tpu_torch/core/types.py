@@ -119,6 +119,9 @@ class StepRecord:
     #                               the budget drop (port-only diagnostic)
     obstacle_contacts: torch.Tensor  # (N,) int64 particles in obstacle
     #                                  contact (port-only diagnostic)
+    cg_iters: torch.Tensor        # (N,) int32 CG iterations over the
+    #                               step's PD sweeps (0 with a dense solve;
+    #                               port-only diagnostic)
 
 
 @dataclasses.dataclass

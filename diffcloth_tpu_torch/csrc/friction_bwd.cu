@@ -39,6 +39,13 @@
 // coalesced 16-byte stores (4-byte cp.async loads and 4-byte stores for a
 // state whose rows are not 16-byte aligned).  Compiled with --fmad=false
 // so every product and sum rounds as in the plain PyTorch version.
+//
+// The global-state route (friction_bwd_global), for a cotangent too large
+// for shared memory beside the slot rows, as the forward's: the block
+// copies its sample's cotangent from g_in to g_out, and the layer chain
+// reads and adds into the slot rows' vertices of g_out in global memory,
+// with the same read, row and partner passes and __syncthreads() between
+// them; bit-equal to the plain version.
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
@@ -48,16 +55,21 @@ namespace {
 
 using friction::kThreads;
 
+// kGlobalState: the cotangent lives in g_out (global memory) instead of
+// shared memory.
+template <bool kGlobalState>
 __global__ void __launch_bounds__(kThreads)
 friction_bwd_kernel(const friction::SweepGeom g,
                     const float* __restrict__ g_in,
                     const float* __restrict__ vals_in,
-                    float* __restrict__ g_out, float* __restrict__ ck_out) {
+                    float* g_out, float* __restrict__ ck_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const friction::Smem m = friction::smem_layout(g, 14, 3, 2);
+  const friction::Smem m =
+      friction::smem_layout(g, kGlobalState ? 0 : g.n, 14, 3, 2);
   const int b = blockIdx.x, TC = g.TC, L = g.L;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  float* gs = reinterpret_cast<float*>(smem + m.state);      // (n, 3)
+  float* gs = kGlobalState ? g_out + (size_t)b * 3 * g.n    // (n, 3)
+                           : reinterpret_cast<float*>(smem + m.state);
   int* row_of = reinterpret_cast<int*>(smem + m.slots);       // staged rows
   int* part_of = row_of + TC;
   float* nrmT = reinterpret_cast<float*>(part_of + TC);       // (3, TC)
@@ -74,16 +86,30 @@ friction_bwd_kernel(const friction::SweepGeom g,
   int* ls = cnt + L;
 
   const size_t so = (size_t)b * TC;   // slot offset of this sample
-  const staging::Piece in[] = {
-      {gs, g_in + (size_t)b * 3 * g.n, 12 * g.n},
-      {row_of, g.idx_row + so, 4 * TC},
-      {part_of, g.idx_part + so, 4 * TC},
-      {nrmT, g.normalT + 3 * so, 12 * TC},
-      {kr_s, g.kred + so, 4 * TC},
-      {mr_s, g.imr + so, 4 * TC},
-      {mp_s, g.imp + so, 4 * TC},
-      {vq, vals_in + 6 * so, 24 * TC}};
-  staging::load(in, bar);
+  const float* state_in = g_in + (size_t)b * 3 * g.n;
+  if constexpr (kGlobalState) {
+    const staging::Piece in[] = {
+        {row_of, g.idx_row + so, 4 * TC},
+        {part_of, g.idx_part + so, 4 * TC},
+        {nrmT, g.normalT + 3 * so, 12 * TC},
+        {kr_s, g.kred + so, 4 * TC},
+        {mr_s, g.imr + so, 4 * TC},
+        {mp_s, g.imp + so, 4 * TC},
+        {vq, vals_in + 6 * so, 24 * TC}};
+    staging::load(in, bar);
+    friction::copy_state(gs, state_in, g.n);   // seen after the sync below
+  } else {
+    const staging::Piece in[] = {
+        {gs, state_in, 12 * g.n},
+        {row_of, g.idx_row + so, 4 * TC},
+        {part_of, g.idx_part + so, 4 * TC},
+        {nrmT, g.normalT + 3 * so, 12 * TC},
+        {kr_s, g.kred + so, 4 * TC},
+        {mr_s, g.imr + so, 4 * TC},
+        {mp_s, g.imp + so, 4 * TC},
+        {vq, vals_in + 6 * so, 24 * TC}};
+    staging::load(in, bar);
+  }
   for (int i = threadIdx.x; i <= L; i += kThreads) {
     ls[i] = g.layer_start[i];
     if (i < L) cnt[i] = g.counts[b * L + i];
@@ -139,36 +165,68 @@ friction_bwd_kernel(const friction::SweepGeom g,
     synced = false;
   }
   const size_t sc = (size_t)g.B * TC;   // ck_out's row stride
-  const staging::Piece out[] = {
-      {g_out + (size_t)b * 3 * g.n, gs, 12 * g.n},
-      {ck_out + so, ck, 4 * TC},
-      {ck_out + sc + so, ci, 4 * TC},
-      {ck_out + 2 * sc + so, cp, 4 * TC}};
-  staging::store(out);
+  if constexpr (kGlobalState) {
+    const staging::Piece out[] = {
+        {ck_out + so, ck, 4 * TC},
+        {ck_out + sc + so, ci, 4 * TC},
+        {ck_out + 2 * sc + so, cp, 4 * TC}};
+    staging::store(out);
+  } else {
+    const staging::Piece out[] = {
+        {g_out + (size_t)b * 3 * g.n, gs, 12 * g.n},
+        {ck_out + so, ck, 4 * TC},
+        {ck_out + sc + so, ci, 4 * TC},
+        {ck_out + 2 * sc + so, cp, 4 * TC}};
+    staging::store(out);
+  }
+}
+
+template <bool kGlobalState>
+int init(int max_smem) {
+  return (int)cudaFuncSetAttribute(friction_bwd_kernel<kGlobalState>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   max_smem);
+}
+
+template <bool kGlobalState>
+int launch(const friction::SweepGeom* g, const float* g_in, const float* vals,
+           float* g_out, float* ck_out, void* stream) {
+  if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1 ||
+      g_in == g_out)
+    return (int)cudaErrorInvalidValue;
+  const int smem =
+      friction::smem_layout(*g, kGlobalState ? 0 : g->n, 14, 3, 2).bytes;
+  friction_bwd_kernel<kGlobalState>
+      <<<g->B, kThreads, smem, (cudaStream_t)stream>>>(*g, g_in, vals, g_out,
+                                                         ck_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Called once when the library is loaded: lets a launch use up to
 // max_smem bytes of dynamic shared memory (above the 48 KB default).
-extern "C" int friction_bwd_init(int max_smem) {
-  return (int)cudaFuncSetAttribute(friction_bwd_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   max_smem);
+extern "C" int friction_bwd_init(int max_smem) { return init<false>(max_smem); }
+extern "C" int friction_bwd_global_init(int max_smem) {
+  return init<true>(max_smem);
 }
 
-// g: the step's slot operands; g_in / g_out (B, n, 3) f32; vals (B, 6, TC)
-// the forward's saved q and p; ck_out (3, B, TC) f32, the cotangents of
-// kred, imr and imp.  The shared memory it needs,
-// friction::smem_layout(g, 14, 3, 2), must not exceed what
+// g: the step's slot operands; g_in / g_out (B, n, 3) f32, not the same
+// buffer; vals (B, 6, TC) the forward's saved q and p; ck_out (3, B, TC)
+// f32, the cotangents of kred, imr and imp.  The shared memory it needs,
+// friction::smem_layout(g, n, 14, 3, 2), must not exceed what
 // friction_bwd_init allowed.
 extern "C" int friction_bwd(const friction::SweepGeom* g, const float* g_in,
                             const float* vals, float* g_out, float* ck_out,
                             void* stream) {
-  if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1)
-    return (int)cudaErrorInvalidValue;
-  const int smem = friction::smem_layout(*g, 14, 3, 2).bytes;
-  friction_bwd_kernel<<<g->B, kThreads, smem, (cudaStream_t)stream>>>(
-      *g, g_in, vals, g_out, ck_out);
-  return (int)cudaGetLastError();
+  return launch<false>(g, g_in, vals, g_out, ck_out, stream);
+}
+
+// The global-state route, the same arguments; its shared memory,
+// friction::smem_layout(g, 0, 14, 3, 2), holds no cotangent.
+extern "C" int friction_bwd_global(const friction::SweepGeom* g,
+                                   const float* g_in, const float* vals,
+                                   float* g_out, float* ck_out,
+                                   void* stream) {
+  return launch<true>(g, g_in, vals, g_out, ck_out, stream);
 }

@@ -1,12 +1,15 @@
 // What the forward and backward sweeps share (csrc/friction_fwd.cu,
 // csrc/friction_bwd.cu): the per-step slot operands, one sample's
-// shared-memory layout, and the per-slot dry-friction math, the
+// shared-memory layout, the copy of a sample's state for the global-state
+// route, and the per-slot dry-friction math, the
 // Signorini-Coulomb take-off / stick / slide split with mu = 0.1
 // (friction_pallas.py `_fric_cases`, `_dff_T`, `_dff_JT`), op for op as the
 // plain PyTorch versions in core/friction_cuda.py compute it: three-term
 // sums left to right, and the kernels are compiled with --fmad=false.
 #pragma once
 #include <math.h>
+
+#include "staging.cuh"
 
 namespace friction {
 
@@ -36,24 +39,40 @@ __host__ __device__ inline int align16(int bytes) {
 }
 
 // One sample's shared memory, byte offsets (core/friction_cuda.py
-// `_smem_bytes` computes the same total): the mbarrier at 0, the (n, 3)
-// state, `in_rows` staged slot rows of TC, `out_rows` slot rows built for
-// the store, `bufs` (max c_pad, 3) slot buffers, then counts (L) and
-// layer_start (L + 1).
+// `_smem_bytes` computes the same total): the mbarrier at 0, the
+// (n_state, 3) state (n_state = n on the shared-memory route, 0 on the
+// global-state route), `in_rows` staged slot rows of TC, `out_rows` slot
+// rows built for the store, `bufs` (max c_pad, 3) slot buffers, then counts
+// (L) and layer_start (L + 1).
 struct Smem {
   int state, slots, outs, bufs, ints, bytes;
 };
 
-__host__ __device__ inline Smem smem_layout(const SweepGeom& g, int in_rows,
-                                            int out_rows, int bufs) {
+__host__ __device__ inline Smem smem_layout(const SweepGeom& g, int n_state,
+                                            int in_rows, int out_rows,
+                                            int bufs) {
   Smem m;
   m.state = 16;
-  m.slots = m.state + align16(12 * g.n);
+  m.slots = m.state + align16(12 * n_state);
   m.outs = m.slots + align16(4 * g.TC * in_rows);
   m.bufs = m.outs + align16(4 * g.TC * out_rows);
   m.ints = m.bufs + align16(12 * g.max_c_pad * bufs);
   m.bytes = m.ints + 4 * (2 * g.L + 1);
   return m;
+}
+
+// The global-state route: the block copies its sample's (n, 3) state from
+// `in` to `out` (16-byte words where both rows are aligned), and the layer
+// chain then works on `out` in global memory.  The caller synchronises the
+// block before any thread reads what another copied: __syncthreads() makes
+// a block's global writes visible to all its threads.
+__device__ __forceinline__ void copy_state(float* out, const float* in,
+                                           int n) {
+  const staging::Piece p = {out, in, 12 * n};
+  if (staging::aligned16(p))
+    staging::copy_words<uint4>(p);
+  else
+    staging::copy_words<uint32_t>(p);
 }
 
 // Zero `rows` slot rows of TC at every slot past its layer's count: the

@@ -35,6 +35,17 @@
 // rows are not 16-byte aligned (n % 4 != 0) is loaded by 4-byte cp.async
 // beside the bulk copies.  Compiled with --fmad=false so every product and
 // sum rounds as in the plain PyTorch version.
+//
+// The global-state route (friction_fwd_global): a state past about
+// 15 000 vertices does not fit the 227 KB of shared memory beside the slot
+// rows (core/friction_cuda.py `sweep_operands` picks the route).  Then the
+// block copies its sample's state from fr_in to fr_out, 16-byte words by
+// every thread, and the layer chain reads and writes only the slot rows'
+// vertices of fr_out, in global memory; the slot rows, vals and the slot
+// buffer stay in shared memory.  __syncthreads() between the phases makes
+// the block's global writes visible to all its threads, a layer is still a
+// matching, so there are still no atomics, and the result is bit-equal to
+// the plain version.  Its bound is the copy: the state in and out once.
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
@@ -44,14 +55,19 @@ namespace {
 
 using friction::kThreads;
 
+// kGlobalState: the state lives in fr_out (global memory) instead of
+// shared memory.
+template <bool kGlobalState>
 __global__ void __launch_bounds__(kThreads)
 friction_kernel(const friction::SweepGeom g, const float* __restrict__ fr_in,
-                float* __restrict__ fr_out, float* __restrict__ vals_out) {
+                float* fr_out, float* __restrict__ vals_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const friction::Smem m = friction::smem_layout(g, 8, 6, 1);
+  const friction::Smem m =
+      friction::smem_layout(g, kGlobalState ? 0 : g.n, 8, 6, 1);
   const int b = blockIdx.x, TC = g.TC, L = g.L;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  float* fr = reinterpret_cast<float*>(smem + m.state);      // (n, 3)
+  float* fr = kGlobalState ? fr_out + (size_t)b * 3 * g.n   // (n, 3)
+                           : reinterpret_cast<float*>(smem + m.state);
   int* row_of = reinterpret_cast<int*>(smem + m.slots);       // staged rows
   int* part_of = row_of + TC;
   float* nrmT = reinterpret_cast<float*>(part_of + TC);       // (3, TC)
@@ -64,15 +80,28 @@ friction_kernel(const friction::SweepGeom g, const float* __restrict__ fr_in,
   int* ls = cnt + L;
 
   const size_t so = (size_t)b * TC;   // slot offset of this sample
-  const staging::Piece in[] = {
-      {fr, fr_in + (size_t)b * 3 * g.n, 12 * g.n},
-      {row_of, g.idx_row + so, 4 * TC},
-      {part_of, g.idx_part + so, 4 * TC},
-      {nrmT, g.normalT + 3 * so, 12 * TC},
-      {kr_s, g.kred + so, 4 * TC},
-      {mr_s, g.imr + so, 4 * TC},
-      {mp_s, g.imp + so, 4 * TC}};
-  staging::load(in, bar);
+  const float* state_in = fr_in + (size_t)b * 3 * g.n;
+  if constexpr (kGlobalState) {
+    const staging::Piece in[] = {
+        {row_of, g.idx_row + so, 4 * TC},
+        {part_of, g.idx_part + so, 4 * TC},
+        {nrmT, g.normalT + 3 * so, 12 * TC},
+        {kr_s, g.kred + so, 4 * TC},
+        {mr_s, g.imr + so, 4 * TC},
+        {mp_s, g.imp + so, 4 * TC}};
+    staging::load(in, bar);
+    friction::copy_state(fr, state_in, g.n);   // seen after the sync below
+  } else {
+    const staging::Piece in[] = {
+        {fr, state_in, 12 * g.n},
+        {row_of, g.idx_row + so, 4 * TC},
+        {part_of, g.idx_part + so, 4 * TC},
+        {nrmT, g.normalT + 3 * so, 12 * TC},
+        {kr_s, g.kred + so, 4 * TC},
+        {mr_s, g.imr + so, 4 * TC},
+        {mp_s, g.imp + so, 4 * TC}};
+    staging::load(in, bar);
+  }
   for (int i = threadIdx.x; i <= L; i += kThreads) {
     ls[i] = g.layer_start[i];
     if (i < L) cnt[i] = g.counts[b * L + i];
@@ -115,30 +144,61 @@ friction_kernel(const friction::SweepGeom g, const float* __restrict__ fr_in,
     }
     synced = false;
   }
-  const staging::Piece out[] = {
-      {fr_out + (size_t)b * 3 * g.n, fr, 12 * g.n},
-      {vals_out + (size_t)b * 6 * TC, vals, 24 * TC}};
-  staging::store(out);
+  if constexpr (kGlobalState) {
+    const staging::Piece out[] = {
+        {vals_out + (size_t)b * 6 * TC, vals, 24 * TC}};
+    staging::store(out);
+  } else {
+    const staging::Piece out[] = {
+        {fr_out + (size_t)b * 3 * g.n, fr, 12 * g.n},
+        {vals_out + (size_t)b * 6 * TC, vals, 24 * TC}};
+    staging::store(out);
+  }
+}
+
+template <bool kGlobalState>
+int init(int max_smem) {
+  return (int)cudaFuncSetAttribute(friction_kernel<kGlobalState>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   max_smem);
+}
+
+template <bool kGlobalState>
+int launch(const friction::SweepGeom* g, const float* fr_in, float* fr_out,
+           float* vals, void* stream) {
+  if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1 ||
+      fr_in == fr_out)
+    return (int)cudaErrorInvalidValue;
+  const int smem =
+      friction::smem_layout(*g, kGlobalState ? 0 : g->n, 8, 6, 1).bytes;
+  friction_kernel<kGlobalState>
+      <<<g->B, kThreads, smem, (cudaStream_t)stream>>>(*g, fr_in, fr_out,
+                                                         vals);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Called once when the library is loaded: lets a launch use up to
 // max_smem bytes of dynamic shared memory (above the 48 KB default).
-extern "C" int friction_fwd_init(int max_smem) {
-  return (int)cudaFuncSetAttribute(
-      friction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+extern "C" int friction_fwd_init(int max_smem) { return init<false>(max_smem); }
+extern "C" int friction_fwd_global_init(int max_smem) {
+  return init<true>(max_smem);
 }
 
-// g: the step's slot operands; fr_in / fr_out (B, n, 3) f32; vals (B, 6, TC)
-// f32.  The shared memory it needs, friction::smem_layout(g, 8, 6, 1), must
-// not exceed what friction_fwd_init allowed.
+// g: the step's slot operands; fr_in / fr_out (B, n, 3) f32, not the same
+// buffer; vals (B, 6, TC) f32.  The shared memory it needs,
+// friction::smem_layout(g, n, 8, 6, 1), must not exceed what
+// friction_fwd_init allowed.
 extern "C" int friction_fwd(const friction::SweepGeom* g, const float* fr_in,
                             float* fr_out, float* vals, void* stream) {
-  if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1)
-    return (int)cudaErrorInvalidValue;
-  const int smem = friction::smem_layout(*g, 8, 6, 1).bytes;
-  friction_kernel<<<g->B, kThreads, smem, (cudaStream_t)stream>>>(
-      *g, fr_in, fr_out, vals);
-  return (int)cudaGetLastError();
+  return launch<false>(g, fr_in, fr_out, vals, stream);
+}
+
+// The global-state route, the same arguments; its shared memory,
+// friction::smem_layout(g, 0, 8, 6, 1), holds no state.
+extern "C" int friction_fwd_global(const friction::SweepGeom* g,
+                                   const float* fr_in, float* fr_out,
+                                   float* vals, void* stream) {
+  return launch<true>(g, fr_in, fr_out, vals, stream);
 }

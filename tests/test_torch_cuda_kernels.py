@@ -17,7 +17,10 @@ for op (--fmad=false), and a layer is a matching, so each row and each
 partner receives a single add per layer, in the plain version's order; the
 cases cover states whose rows are not 16-byte aligned (n % 4 != 0, the
 kernels' plain-load path beside the bulk copies), two-layer budgets, one
-sample, and a batch without contact.  The f64 card episode is held within
+sample, and a batch without contact; the global-state route (a state past
+shared memory, n > 15 226) at n = 15 227 (rows not 16-byte aligned),
+16 384 and 20 001, and the last shared-route width.  The f64 card episode
+is held within
 1e-6 of the CPU one, the f32 friction sweep inside the f64 simulation
 being the only inexact step.
 """
@@ -30,7 +33,8 @@ import torch
 from diffcloth_tpu_torch import config as tc
 from diffcloth_tpu_torch.core import friction_cuda as fc
 from diffcloth_tpu_torch.core import selfcol_cuda as scd
-from diffcloth_tpu_torch.core.selfcol import compact_slot_budgets
+from diffcloth_tpu_torch.core.selfcol import (SelfContactTables,
+                                              compact_slot_budgets)
 from diffcloth_tpu_torch.core.sim import ClothSim
 from diffcloth_tpu_torch.geometry import builder as gb
 from diffcloth_tpu_torch.geometry import states
@@ -275,6 +279,72 @@ def test_friction_kernels_equal_plain_at_any_width(dev, case):
         assert not any(bool(t.any()) for t in (vals_k,) + bwd_k[1:])
     else:
         assert float((out_p - f).abs().max()) > 0, "friction never acted"
+
+
+def matching_tables(n, B, seed):
+    """Four layers of random matchings, each over its slot budget."""
+    rng = np.random.RandomState(seed)
+    partner = np.full((B, 16, n), -1, np.int64)
+    for b in range(B):
+        for lay, count in enumerate((400, 150, 70, 40)):
+            perm = rng.permutation(n)[:2 * count]
+            i, j = perm[:count], perm[count:]
+            partner[b, lay, i] = j
+            partner[b, lay, j] = i
+    return SelfContactTables(partner=torch.as_tensor(partner),
+                             n_layers=torch.full((B,), 4))
+
+
+GLOBAL_CASES = {
+    # n, B, every count zeroed, the route sweep_operands must pick
+    "n15226_B2_shared": (15226, 2, False, "shared"),
+    "n15227_B3_global_unaligned": (15227, 3, False, "global"),
+    "n16384_B2_global": (16384, 2, False, "global"),
+    "n20001_B1_global_no_contact": (20001, 1, True, "global"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GLOBAL_CASES))
+def test_friction_kernels_equal_plain_past_shared_memory(dev, case):
+    """Both sweeps on the route sweep_operands picks for the width, equal to
+    their plain versions exactly; the global-state route counts its
+    launches."""
+    n, B, empty, route = GLOBAL_CASES[case]
+    bud = tuple(min(c, n) for c in compact_slot_budgets(4))
+    rng = np.random.RandomState(n)
+    x = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
+    tables = matching_tables(n, B, n)
+    tables = SelfContactTables(partner=tables.partner.to(dev),
+                               n_layers=tables.n_layers.to(dev))
+    area = torch.as_tensor(rng.rand(n) + 0.2, dtype=torch.float32,
+                           device=dev)
+    kg = fc.build_kernel_geom(tables, area, n, bud, x=x)
+    if empty:
+        kg = dataclasses.replace(kg, counts=torch.zeros_like(kg.counts))
+    masses = fc.slot_masses(kg, torch.full((B,), 0.3, device=dev))
+    f = torch.as_tensor(rng.randn(B, n, 3) * 0.1, dtype=torch.float32,
+                        device=dev)
+    g = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
+    ops = fc.sweep_operands(kg, masses, bud, n)
+    assert ops.route == route
+    before = fc.friction_sweep.global_launches, \
+        fc.friction_sweep_bwd.global_launches
+    out_k, vals_k = fc.friction_sweep(f, ops)
+    bwd_k = fc.friction_sweep_bwd(g, vals_k, ops)
+    step = int(route == "global")
+    assert (fc.friction_sweep.global_launches,
+            fc.friction_sweep_bwd.global_launches) == (before[0] + step,
+                                                       before[1] + step)
+    out_p, vals_p = fc.friction_sweep_plain(f, kg, *masses, bud)
+    bwd_p = fc.friction_sweep_bwd_plain(g, kg, *masses, vals_p, bud)
+    torch.cuda.synchronize()
+    for a, b in zip((out_k, vals_k) + bwd_k, (out_p, vals_p) + bwd_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if empty:
+        assert torch.equal(out_k, f) and torch.equal(bwd_k[0], g)
+    else:
+        assert float((out_p - f).abs().max()) > 0, "friction never acted"
+        assert float((bwd_p[0] - g).abs().max()) > 0
 
 
 def test_friction_sweep_autograd_on_card(dev):

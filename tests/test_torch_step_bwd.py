@@ -122,3 +122,15 @@ def test_step_vjp_matches_jax(step_pair, scale):
         np.testing.assert_array_equal(b[1], np.zeros_like(a), err_msg=name)
     for name in ("x", "v", "k_pertype", "density", "wind", "x_fixed"):
         assert np.abs(np.asarray(ref[names.index(name)])).max() > 0, name
+
+
+@pytest.mark.parametrize("mode", ["gmres", "no_such_mode"])
+def test_unported_adjoint_mode_raises(mode):
+    """`SimFlags.adjoint_mode` other than the reference's fixed point
+    ("fp") is not ported: building the step refuses it instead of running
+    "fp" in its place (the JAX package runs its GMRES solver for "gmres",
+    diffcloth_tpu/core/step.py:704)."""
+    scene = tgb.build_scene(scene_cfg(tc))
+    flags = tc.SimFlags(wind_enabled=True, adjoint_mode=mode)
+    with pytest.raises(NotImplementedError, match="adjoint_mode"):
+        TorchSim(scene, device="cpu", dtype=torch.float64, flags=flags)

@@ -15,6 +15,7 @@ import torch
 
 from diffcloth_tpu_torch.core import friction_cuda as fc
 from diffcloth_tpu_torch.core import selfcol_cuda as scd
+from diffcloth_tpu_torch.core.selfcol import SelfContactTables
 
 N, B = 130, 3
 BUDGETS = (128, 64)     # TC = 256, two layers
@@ -105,8 +106,26 @@ BAD_OPERANDS = {
     "masses_of_another_batch": lambda g, m: (
         g, tuple(t[:2].contiguous() for t in m), BUDGETS, N),
     "budgets_of_another_TC": lambda g, m: (g, m, (128, 64, 64), N),
-    "state_beyond_shared_memory": lambda g, m: (g, m, BUDGETS, 20000),
+    "state_beyond_shared_memory": lambda g, m: _slots_filling_smem(20000),
 }
+
+
+def _slots_filling_smem(n):
+    """A state of n = 20000 alone now takes the global-state route
+    (test_sweep_operands_take_the_global_route_past_shared_memory); what
+    stays refused is a state
+    beyond shared memory whose slot rows alone exceed it too (one layer of
+    4224 slots: 14 staged rows of it take 236 544 bytes)."""
+    budgets = (4224,)
+    TC = 4224
+    geom = fc.KernelGeom(
+        idx_row=torch.full((B, TC), -1, dtype=torch.int32),
+        idx_part=torch.full((B, TC), -1, dtype=torch.int32),
+        normalT=torch.zeros((B, 3, TC)), area_row=torch.zeros((B, TC)),
+        area_part=torch.zeros((B, TC)),
+        counts=torch.zeros((B, 1), dtype=torch.int32),
+        overflow=torch.zeros(B, dtype=torch.bool))
+    return geom, fc.slot_masses(geom, torch.full((B,), 0.3)), budgets, n
 
 
 @pytest.mark.parametrize("case", sorted(BAD_OPERANDS))
@@ -137,3 +156,45 @@ def test_wrappers_reject_a_bad_state_per_call(step, case):
     vals = torch.zeros(ops.vals_shape)
     with pytest.raises(ValueError):
         BAD_CALLS[case](f, vals, ops)
+
+
+def test_sweep_operands_take_the_global_route_past_shared_memory():
+    """At the large-mesh scene's n = 16 384 the (n, 3) state does not fit
+    the backward block's shared memory beside its slot rows: the operands
+    pick the global-state route instead of raising, and the wrappers still
+    run the plain versions on CPU tensors.  The route changes where the
+    largest n with the state in shared memory stops."""
+    budgets = (256, 128, 64, 64)
+    specs, TC = fc.layer_specs(budgets)
+    last_shared = max(k for k in range(1, 20000)
+                      if fc._smem_bytes(k, TC, 256, 4, *fc.BWD_SMEM_ROWS)
+                      <= fc.SMEM_LIMIT)
+    assert 15000 < last_shared < 16384
+    rng = np.random.RandomState(14)
+    for n, route in ((16384, "global"), (last_shared + 1, "global"),
+                     (last_shared, "shared"), (1024, "shared")):
+        nb = 2
+        partner = torch.full((nb, 16, n), -1, dtype=torch.int64)
+        rows = torch.arange(300)
+        partner[:, 0, rows] = rows + n // 2      # 300 pairs in layer 0:
+        partner[:, 0, rows + n // 2] = rows      # 600 rows, over budget
+        tables = SelfContactTables(
+            partner=partner, n_layers=torch.ones(nb, dtype=torch.int64))
+        x = torch.as_tensor(rng.randn(nb, n, 3), dtype=torch.float32)
+        geom = fc.build_kernel_geom(tables, torch.ones(n), n, budgets, x=x)
+        masses = fc.slot_masses(geom, torch.full((nb,), 0.3))
+        ops = fc.sweep_operands(geom, masses, budgets, n)
+        assert ops.route == route and ops.state_shape == (nb, n, 3)
+        assert bool(geom.overflow.all()) and int(geom.counts[0, 0]) == 256
+        if n != 16384:
+            continue
+        f = torch.as_tensor(rng.randn(nb, n, 3), dtype=torch.float32)
+        out, vals = fc.friction_sweep(f, ops)
+        out_p, vals_p = fc.friction_sweep_plain(f, geom, *masses, budgets)
+        assert torch.equal(out, out_p) and torch.equal(vals, vals_p)
+        assert float((out - f).abs().max()) > 0, "friction never acted"
+        g = torch.as_tensor(rng.randn(nb, n, 3), dtype=torch.float32)
+        for a, b in zip(fc.friction_sweep_bwd(g, vals, ops),
+                        fc.friction_sweep_bwd_plain(g, geom, *masses, vals,
+                                                    budgets)):
+            assert torch.equal(a, b)
