@@ -22,7 +22,7 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      the floor of its unfused f32 instructions.
   3. forward path: `ClothSim(...).rollout` of a batch of 32 perturbed-wind
      episodes of the flagship stand-in (half of them starting folded half
-     over half) for the full 250 steps on the card.  Launch counters are
+     over half) for 150 of its 250 steps on the card.  Launch counters are
      zeroed just before and read just after: detection runs once per step,
      friction once per PD sweep.
   4. profile: the first 10 steps of the same batch under torch.profiler
@@ -31,7 +31,7 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      episode through the plain versions on the CPU.
   6. gradient path: one batched value-and-grad through
      `OptimizeHelper.batched_loss_and_grad` (GradMask(f_wind=True)) of the
-     same 32 episodes, 250 steps, MATCH_TRAJECTORY against the base wind's
+     same 32 episodes, 150 steps, MATCH_TRAJECTORY against the base wind's
      rollout.  Counters zeroed just before and read just after: the
      backward friction kernel launches once per adjoint trip, GMRES matvec
      and residual VJP; the forward one once per PD sweep of the forward
@@ -42,13 +42,13 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
   7. gradient profile: a 10-step value-and-grad of the batch under
      torch.profiler.
   8. trainer: `solve_demo("wind", seed=1, population=4, maxiter=1)` on the
-     card, the demo cut to 60 of its 200 steps, the loss per iteration;
+     card, the demo cut to 40 of its 200 steps, the loss per iteration;
      the final loss must be below the initial one.
   9. gradient reference: the f64 value-and-grad of a small folded episode
      batch on the card against the same call on the CPU.
  10. sphere (the obstacle path): `build_task("sphere")` on the card at full
-     width (25 x 25, n = 625, 350 steps, h = 1/180, a sphere of radius 2,
-     self-collision on), then
+     width (25 x 25, n = 625, h = 1/180, a sphere of radius 2,
+     self-collision on), cut to 250 of its 350 steps, then
      a. forward: a batched rollout of 16 friction coefficients,
         mu = linspace(0.05, 0.9); counters zeroed just before and read just
         after (detection once per step, the forward sweep once per PD
@@ -64,21 +64,21 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         against the demo's ground truth (mu = 0.3); finite, the loss
         smallest at the candidate nearest 0.3, the backward sweep once per
         adjoint trip, GMRES matvec and residual VJP;
-     c. profile: phases 4 and 7 on 20 steps of the batch, and the
+     c. profile: phases 4 and 7 on 10 steps of the batch, and the
         obstacle detection and obstacle friction's device launches per
         call;
      d. reference: the scene cut to 60 steps (the cloth on the sphere),
         B = 2, f64, card against CPU (episode within 1e-6; every dL/dmu
         above 1e-6 in size, and within 1e-6 of the largest entry);
-     e. fit: `solve_demo("sphere", seed=1, population=4, maxiter=1)` must
-        lower the best loss.
+     e. fit: `solve_demo("sphere", seed=1, population=4, maxiter=1)`, the
+        demo cut to 200 of its 350 steps, must lower the best loss.
  11. large mesh: the flagship stand-in's physics on a 128 x 128 grid
      (n = 16 384, built with dataclasses.replace), B = 8 perturbed winds,
      half the batch folded half over half (64 rows).  ClothSim's size
      switches must pick the CG solve, the sparse operators and the sweep
      detection, and the friction sweeps their global-state route (the
      state does not fit shared memory).
-     a. forward: 10 steps; converged 1.0, PD steps/s, CG iterations per
+     a. forward: 5 steps; converged 1.0, PD steps/s, CG iterations per
         solve, self-contact pairs and overflow steps; the detection kernel
         never launches, the forward sweep once per PD sweep, all on the
         global-state route;
@@ -93,18 +93,60 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         VJP, on the global-state route;
      c. profile: phase 4 on 1 step of the batch;
      d. reference, f64, card against CPU within 1e-6: an episode of a
-        64 x 64 grid (sparse operators, dense P^{-1}, detection kernel),
-        B = 2, 2 steps; and the 128 x 128 scene's modules at its folded and
+        48 x 48 grid (sparse operators, dense P^{-1}, detection kernel),
+        B = 2, 1 step; and the 128 x 128 scene's modules at its folded and
         flat states (the sweep pipeline exactly, the sparse operators, one
         CG solve at the path's caps; an episode at this size ends by a
         plateau exit that rounding decides, see phase_large_parts).
 
+ 12. dress: `build_task("dress")` on the dress stand-in
+     (registry.dress_grid_standin: the DRESS_V7K_DRAPE physics and twirl,
+     125 steps at h = 1/120, on an 84 x 84 grid, n = 7056, 31 clips);
+     ClothSim must pick the dense P^{-1}, the sparse operators and the
+     detection kernel (n_pad = 7168), and the sweeps their shared-memory
+     route.
+     a'. kernels: phase 2's checks at these shapes (B = 1, the folded
+        state);
+     b. forward: the f32 episode, B = 1, the host P^{-1} timed alone;
+        PD steps/s, sweeps per step, self-contact steps and overflow,
+        launches checked; then a 10-step profile without the P^{-1};
+     c. gradient: the value-and-grad of the dress loss over its mask
+        (density, k_bend), trips per step and GMRES fallbacks;
+     d. fit: solve_demo("dress"), 12 steps, 2 iterations, with export_dir,
+        checkpoint_dir and export_iters; resumed from its checkpoint to 3
+        iterations; the exported final episode re-imported, equal to the
+        rollout's records to the files' 8 decimals;
+     e. reference: 1 step in f64 from the folded state, card against CPU
+        (episode within 1e-6, gradients within 1e-6 of each class's
+        largest entry).
+ 13. multistage: the flagship stand-in with two attachment stages (the
+     corners until mid-episode, then the top row's middle), B = 1, 30
+     steps: the f32 forward (the clips switch) and value-and-grad with
+     launch checks, then f64 card against CPU over 4 steps from the flat
+     state (bounded as 12e).
+ 14. ladder: solve_demo_tau_ladder("sock") on the sock stand-in (a 32 x 32
+     grid, the FOOT primitives, 10 steps), population 4, two rungs of two
+     iterations.
+ 15. obstacles: the slope stand-in on its plane, a grid dropped on the
+     FOOT capsules, one dropped into the Y0PLANE bowl, and the sphere
+     scene's corners on a CORNERS_2_WEARHAT trajectory under
+     ENDPOINT_AND_TANGENTS: contact in most of 30 f32 steps, then f64 card
+     against CPU over 6 steps (bounded as 12e).
+ 16. precision: the f32 value-and-grad against the f64 one and f64
+     central differences (one entry per parameter class), on the flagship
+     stand-in (5 steps) and the sphere path (20 steps); reported, not
+     bounded.
+
+`--only PATH,...` runs some of the paths while iterating (flagship:
+phases 2-9, sphere, large, dress, multistage, ladder, obstacles,
+precision); the acceptance run takes no arguments.
+
 Prints one JSON line `{"kernels": [...]}` (each kernel's launches counted
 on the path that runs it: the forward path for detection and the forward
 sweep, the gradient path for the backward sweep, phase 11 for the sweeps'
-global-state route, whose entries carry "state": "global"), the
-nvidia-smi line, and last `{"ok": true, "device": {...}}`.  Needs one
-card; imports nothing of JAX.
+global-state route, whose entries carry "state": "global", phase 12 for
+the dress stand-in's, named with "_dress"), the nvidia-smi line, and last
+`{"ok": true, "device": {...}}`.  Needs one card; imports nothing of JAX.
 """
 import argparse
 import contextlib
@@ -141,14 +183,19 @@ FRICTION_OPS_PER_SLOT = 45
 # scales (12), the three slot cotangents (16)
 FRICTION_BWD_OPS_PER_SLOT = 114
 # episodes of the main path's batch (perturbed winds, half starting folded)
+# and their depth (of the scene's 250 steps)
 BATCH = 32
+FLAGSHIP_STEPS = 150
 # the flagship's base wind; the batch's winds are perturbations of it
 BASE_WIND = [0.04, 0.004, 0.04]
 # episodes of the sphere path's batch: friction coefficients
-# linspace(0.05, 0.9)
+# linspace(0.05, 0.9), and their depth (of the demo's 350 steps)
 SPHERE_BATCH = 16
-# steps of the wind demo's episodes in the trainer phase (of its 200)
-TRAINER_STEPS = 60
+SPHERE_STEPS = 250
+# steps of the wind demo's episodes in the trainer phase (of its 200), and
+# of the sphere demo's in its fit (of its 350)
+TRAINER_STEPS = 30
+SPHERE_FIT_STEPS = 200
 # the large-mesh scene (phase 11): a LARGE_GRID x LARGE_GRID cloth of the
 # flagship's physics, B = LARGE_BATCH; the depth of its forward episode and
 # value-and-grad, and of its profiled window (a PD sweep there launches
@@ -156,13 +203,33 @@ TRAINER_STEPS = 60
 # costs seconds of host dispatch)
 LARGE_GRID = 128
 LARGE_BATCH = 8
-LARGE_STEPS = 10
+LARGE_STEPS = 5
 LARGE_PROFILE_STEPS = 1
 # phase 11d: the dress-scale grid (sparse operators, dense P^{-1}, the
 # detection kernel) and the depth of its f64 episode, run on the card and
 # on the CPU
-LARGE_REF_GRID = 64
-LARGE_REF_STEPS = 2
+LARGE_REF_GRID = 48
+LARGE_REF_STEPS = 1
+# phase 12: the dress stand-in's grid (84 x 84 = 7056 vertices, the size of
+# the reference's 7k-vertex dress); the depths of its profiled window, of
+# its fit (solve_demo, of its 125 steps) and of its f64 card-vs-CPU check
+DRESS_GRID = 84
+DRESS_PROFILE_STEPS = 10
+DRESS_FIT_STEPS = 12
+DRESS_REF_STEPS = 1
+# the adjoint tolerance of the card-against-CPU f64 references (phase 9's)
+REF_ADJOINT_EPS = 1e-8
+# phase 13: the two-stage scene's f32 depth and its f64 reference's
+MULTI_STEPS = 30
+MULTI_REF_STEPS = 4
+# phase 14: the sock stand-in's depth in the tau ladder (of its 400 steps)
+LADDER_STEPS = 10
+# phase 15: the obstacle scenes' f32 depth and their f64 reference's
+OBSTACLE_STEPS = 30
+OBSTACLE_REF_STEPS = 6
+# phase 16: the depths of the f32-against-f64 gradients
+PRECISION_STEPS = 5
+SPHERE_PRECISION_STEPS = 20
 # the forward path's hand-written kernels: (name, symbol substring)
 FORWARD_KERNELS = (("selfcol_detect", "detect_kernel"),
                    ("friction_fwd", "friction_kernel"))
@@ -321,14 +388,15 @@ def initial_states(sim, B):
 
 def kernel_states(sim, x0, rng):
     """The kernel checks' (B, n, 3) numpy positions and velocities: x0 with
-    noise, and in sample 1 overflow rows, up to 20 far-apart vertices
-    stacked on one point (every 50th from 25: 20 with 19 partners each at
-    n = 1024, 12 with 11 at n = 625; K = 8), 10 of them in the first
-    512-column segment."""
+    noise, and in sample 1 (sample 0 of a batch of one) overflow rows, up
+    to 20 far-apart vertices stacked on one point (every 50th from 25: 20
+    with 19 partners each at n = 1024, 12 with 11 at n = 625; K = 8), 10 of
+    them in the first 512-column segment."""
     B, n = x0.shape[0], sim.n
     x = x0 + rng.randn(B, n, 3) * 0.01
     pile = np.arange(25, n, 50)[:20]
-    x[1, pile] = x[1, pile[0]]
+    b = min(1, B - 1)
+    x[b, pile] = x[b, pile[0]]
     return x, rng.randn(B, n, 3) * 0.5
 
 
@@ -351,12 +419,13 @@ def lattice_geom(B, n, n_pad, h, dev):
                           f32(np.full(n, 0.3)), h, n_pad)
 
 
-def phase_kernels(tag, sim, x0, rng, mu=None):
+def phase_kernels(tag, sim, x0, rng, mu=None, suffix=""):
     """Each kernel against its plain version at a path's shapes: B = the
     batch of x0 ((B, n, 3) numpy, the states `kernel_states` perturbs), n
     and the budgets of `sim`.  On a path with obstacles (mu: the batch's
     (B, P) friction coefficients) the sweeps run on f plus the obstacle
-    friction of the states' contacts, their r_init on that path."""
+    friction of the states' contacts, their r_init on that path.  Returns
+    the JSON line's entries, their names ending in `suffix`."""
     import torch
     from diffcloth_tpu_torch.core import contact as ct
     from diffcloth_tpu_torch.core import friction_cuda as fc
@@ -450,18 +519,18 @@ def phase_kernels(tag, sim, x0, rng, mu=None):
         f"bound {det_bound:.5f} ({det_by}), floor of unfused f32 "
         f"instructions {det_floor:.5f}")
     return [
-        dict(name="selfcol_detect", route="cuda",
+        dict(name="selfcol_detect" + suffix, route="cuda",
              source="diffcloth_tpu_torch/csrc/selfcol_detect.cu",
              replaces="diffcloth_tpu/core/selfcol_pallas.py:53",
              launches=0, max_abs_err=det_err, ms=det_ms,
              plain_ms=det_plain_ms,
              bound_ms=det_bound, bound_by=det_by, library_ms=None),
-    ] + sweep_entries(sweeps, bounds, "")
+    ] + sweep_entries(sweeps, bounds, suffix)
 
 
-def sweep_entries(sweeps, bounds, suffix):
+def sweep_entries(sweeps, bounds, suffix, state="shared"):
     """The JSON line's entries of the two sweeps (names + suffix), from
-    check_sweeps' times at full budget."""
+    check_sweeps' times at full budget, on the operands' `state` route."""
     out = []
     for name, key, line in (("friction_fwd", "fwd", 255),
                             ("friction_bwd", "bwd", 309)):
@@ -472,8 +541,7 @@ def sweep_entries(sweeps, bounds, suffix):
             source=f"diffcloth_tpu_torch/csrc/{name}.cu",
             replaces=f"diffcloth_tpu/core/friction_pallas.py:{line}",
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None,
-            state="global" if suffix else "shared"))
+            bound_ms=bound, bound_by=by, library_ms=None, state=state))
     return out
 
 
@@ -650,21 +718,28 @@ def phase_main_path(sim, B, card):
     return launches
 
 
-def phase_profile(tag, sim, params, card, top=8, kernels=FORWARD_KERNELS):
+def phase_profile(tag, sim, params, card, top=8, kernels=FORWARD_KERNELS,
+                  prefactor=False):
     """Where the time of a forward path goes: the rollout of `params` (the
     path's batch, its first few steps) under torch.profiler, after the
     path's own run, so nothing is cold.  Prints the device-busy share of
     the window, device time and launches per PD sweep (the forward sweep's
     launches) and the operators with the most device time; returns the
     records.  The profiler traces the device alone (host operators are not
-    recorded, which cost more to process than the window takes to run)."""
+    recorded, which cost more to process than the window takes to run).
+    prefactor=True leaves the host P^{-1} and its upload out of the window
+    (the episode's `simulate` alone)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    run = lambda: sim.rollout(params)  # noqa: E731
+    if prefactor:
+        p_inv, xfs = sim.p_inv(params), sim.x_fixed_seq(params)
+        run = lambda: sim.simulate(params, p_inv, xfs)  # noqa: E731
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        recs = sim.rollout(params)
+        recs = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     sweeps = int(pd_sweeps(recs.steps.iters.cpu().numpy(), sim).sum())
@@ -933,15 +1008,16 @@ def phase_gradient_reference(steps):
 
 
 @contextlib.contextmanager
-def demo_steps(name, steps):
-    """Inside the block, the registry's demo `name` runs `steps` steps
-    (None: as registered)."""
+def demo_steps(name, steps, scene=None):
+    """Inside the block, the registry's demo `name` runs `scene` (None: its
+    own) for `steps` steps (None: as the scene says)."""
     import dataclasses
     from diffcloth_tpu_torch.tasks import registry
     task = registry.DEMOS[name]
+    scene = scene or task.scene
     if steps is not None:
-        registry.DEMOS[name] = dataclasses.replace(
-            task, scene=dataclasses.replace(task.scene, step_num=steps))
+        scene = dataclasses.replace(scene, step_num=steps)
+    registry.DEMOS[name] = dataclasses.replace(task, scene=scene)
     try:
         yield
     finally:
@@ -1242,7 +1318,8 @@ def phase_sphere_fit(card, steps=None, device=None):
 def run_sphere(card, timed):
     """Phase 10, the sphere path."""
     with timed("sphere forward"):
-        task, helper, X, sweeps = phase_sphere_forward(card, SPHERE_BATCH)
+        task, helper, X, sweeps = phase_sphere_forward(card, SPHERE_BATCH,
+                                                       SPHERE_STEPS)
     with timed("sphere kernels"):
         phase_kernels("sphere-kernels", task.sim,
                       initial_states(task.sim, SPHERE_BATCH),
@@ -1251,11 +1328,11 @@ def run_sphere(card, timed):
         phase_sphere_gradient(task, helper, X, sweeps, card)
     del task, helper
     with timed("sphere profile"):
-        phase_sphere_profile(SPHERE_BATCH, 20, card)
+        phase_sphere_profile(SPHERE_BATCH, 10, card)
     with timed("sphere reference"):
         phase_sphere_reference(60)
     with timed("sphere fit"):
-        phase_sphere_fit(card)
+        phase_sphere_fit(card, SPHERE_FIT_STEPS)
 
 
 def large_mesh(dtype, device, steps, grid=LARGE_GRID):
@@ -1384,7 +1461,7 @@ def phase_large_kernels(sim, B, rng):
     sweeps, bounds, _ = check_sweeps("large-kernels", kg,
                                      fc.slot_masses(kg, density), f, g, n,
                                      cfg, route="global")
-    return sweep_entries(sweeps, bounds, "_global")
+    return sweep_entries(sweeps, bounds, "_global", "global")
 
 
 def phase_large_gradient(sim, B, card, fwd_sweeps):
@@ -1584,11 +1661,683 @@ def run_large_mesh(card, timed):
     return entries
 
 
+def dress_task(steps=None, dtype=None, device=None, **changes):
+    """build_task("dress") on the dress stand-in (registry.
+    dress_grid_standin: the DRESS_V7K_DRAPE physics and twirl on a
+    DRESS_GRID x DRESS_GRID grid, 31 clips), cut to `steps` steps;
+    `changes` replace fields of its SceneConfig."""
+    import dataclasses
+    import torch
+    from diffcloth_tpu_torch.tasks.registry import dress_grid_standin
+    from diffcloth_tpu_torch.tasks.setup import build_task
+    scene = dataclasses.replace(dress_grid_standin(DRESS_GRID), **changes)
+    with demo_steps("dress", steps, scene):
+        return build_task("dress", dtype=dtype or torch.float32,
+                          device=device)
+
+
+def check_launches(tag, launches, n_steps, fwd_sweeps, bwd=None):
+    """Detection once per step, the forward sweep once per PD sweep of the
+    forward (`fwd_sweeps`) plus, on a gradient path (bwd: its
+    BackwardStats summary), two per residual VJP, and the backward sweep
+    once per adjoint trip, GMRES matvec and residual VJP."""
+    want_fwd = fwd_sweeps + (2 * bwd["residual_vjps"] if bwd else 0)
+    if launches["selfcol_detect"] != n_steps:
+        raise AssertionError(f"[{tag}] detection launched {launches}, not "
+                             f"once per step ({n_steps})")
+    if launches["friction_fwd"] != want_fwd:
+        raise AssertionError(f"[{tag}] friction_fwd launched {launches}, not "
+                             f"{want_fwd} (the forward's PD sweeps"
+                             + (" plus two per residual VJP)" if bwd else ")"))
+    if bwd and launches["friction_bwd"] != bwd["launches"]:
+        raise AssertionError(f"[{tag}] friction_bwd launched {launches}, not "
+                             f"once per adjoint trip, GMRES matvec and "
+                             f"residual VJP ({bwd['launches']:.0f})")
+
+
+def phase_dress_forward(task, card):
+    """12b: the dress stand-in's forward episode (B = 1, f32) through
+    `simulate`, the host P^{-1} timed on its own first.  Returns (the
+    counters, the forward sweep's launches)."""
+    import torch
+    sim = task.sim
+    if large_modes(sim) != ("dense", "sparse", "kernel"):
+        raise AssertionError(f"the dress stand-in took {large_modes(sim)}, "
+                             f"not the dense P^-1, sparse operators and the "
+                             f"detection kernel")
+    params = task.param_base.expand(1)
+    t0 = time.perf_counter()
+    p_inv = sim.p_inv(params)
+    torch.cuda.synchronize()
+    inv_s = time.perf_counter() - t0
+    xfs = sim.x_fixed_seq(params)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    recs = sim.simulate(params, p_inv, xfs)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counters()
+    st = recs.steps
+    N = sim.n_steps
+    if tuple(st.x.shape) != (1, N, sim.n, 3):
+        raise AssertionError(f"trajectory shape {tuple(st.x.shape)}")
+    if not (bool(torch.isfinite(st.x).all())
+            and bool(torch.isfinite(st.v).all())):
+        raise AssertionError("non-finite trajectory")
+    iters = st.iters.cpu().numpy()
+    sweeps = int(pd_sweeps(iters, sim).sum())
+    check_launches("dress", launches, N, sweeps)
+    pairs = st.selfcol_pairs.cpu().numpy()[0]
+    twist = float((st.x_fixed[0, -1] - st.x_fixed[0, 0]).norm(dim=-1).max())
+    log(f"[dress] n = {sim.n} ({DRESS_GRID} x {DRESS_GRID}), "
+        f"{len(sim.stage_host.particle_idx)} clips, {N} steps at h = "
+        f"{sim.h:.6f}; modes {large_modes(sim)} (solve, operators, "
+        f"self-collision), n_pad {sim.self_cfg.allowed.shape[0]}, "
+        f"admissibility table {sim.self_cfg.allowed.numel() / 1e6:.1f} MB; "
+        f"the clips moved up to {twist:.3f} by the twirl")
+    log(f"[dress] forward {N} steps x B=1 on {card}: {elapsed:.2f} s, "
+        f"{N / elapsed:.2f} PD steps/s, converged "
+        f"{float(st.converged.float().mean()):.4f}, "
+        f"{sweeps / N:.2f} PD sweeps per step, "
+        f"{elapsed * 1e3 / sweeps:.3f} ms wall per PD sweep; host P^-1 "
+        f"(f64 Cholesky inverse of {sim.n} x {sim.n}, to the card) "
+        f"{inv_s:.2f} s per evaluation")
+    log(f"[dress] self-contact in {int((pairs > 0).sum())} of {N} steps "
+        f"(pairs per step mean {pairs.mean():.1f}, max {int(pairs.max())}), "
+        f"overflow in {int(st.selfcol_overflow.sum())} steps; launches "
+        f"{launches}")
+    return launches, sweeps
+
+
+def phase_dress_gradient(task, card, fwd_sweeps):
+    """12c: the dress loss's value-and-grad over the dress mask (density,
+    k_bend) through the optimizer's objective at the scene's parameters.
+    Returns the counters."""
+    import torch
+    from diffcloth_tpu_torch.optim.helper import OptimizeHelper
+    sim = task.sim
+    helper = OptimizeHelper(sim, task.mask, task.loss_fn(),
+                            param_base=task.param_base)
+    x = helper.params_to_vec(task.param_base)
+    torch.cuda.synchronize()
+    zero_counters()
+    sim.bwd_stats.reset()
+    t0 = time.perf_counter()
+    L, G = helper.loss_and_grad(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    st = sim.bwd_stats.summary()
+    N = sim.n_steps
+    if not (np.isfinite(L) and np.isfinite(G).all() and np.abs(G).max() > 0):
+        raise AssertionError(f"dress loss {L}, gradient {G}")
+    check_launches("dress-gradient", launches, N, fwd_sweeps, st)
+    split = helper.last_split
+    log(f"[dress-gradient] {N} steps x B=1 on {card}: {wall:.2f} s "
+        f"({N / wall:.2f} episode-gradient steps/s; host P^-1, forward "
+        f"{split['forward_s']:.2f} s, backward {split['backward_s']:.2f} s); "
+        f"loss {L:.6e}, dL/d(density, k_bend) "
+        f"{np.array2string(G, precision=4)}")
+    log(f"[dress-gradient] adjoint: "
+        f"{st['lane_trips'] / max(st['lane_steps'], 1):.2f} trips per step, "
+        f"{st['fallback_lanes']:.0f} of {st['lane_steps']:.0f} steps fell "
+        f"to GMRES ({st['gmres_matvecs']:.0f} matvecs), "
+        f"{st['residual_vjps']:.0f} residual VJPs; launches {launches}")
+    return launches
+
+
+def phase_dress_fit(card):
+    """12d: solve_demo("dress") on the stand-in cut to DRESS_FIT_STEPS
+    steps, 2 iterations, with export_dir, checkpoint_dir and export_iters;
+    a run resumed from its checkpoint to 3 iterations; and the exported
+    final episode re-imported, equal to the records of the same rollout
+    (to the files' 8 decimals)."""
+    import tempfile
+    import torch
+    from diffcloth_tpu_torch.io import export as ioexp
+    from diffcloth_tpu_torch.optim.solver import solve_demo
+    from diffcloth_tpu_torch.tasks.registry import dress_grid_standin
+    from diffcloth_tpu_torch.utils import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            demo_steps("dress", DRESS_FIT_STEPS,
+                       dress_grid_standin(DRESS_GRID)):
+        out, root = os.path.join(tmp, "fit"), os.path.join(tmp, "ckpt")
+        res = solve_demo("dress", maxiter=2, export_dir=out,
+                         checkpoint_dir=root, export_iters=True)
+        r = res.result
+        if not (np.isfinite(r.loss) and r.loss <= r.loss_history[0]):
+            raise AssertionError(f"the dress fit: {r.loss_history}")
+        if ckpt.latest_step(root) != r.n_iters or r.n_iters == 0:
+            raise AssertionError(f"checkpoints {os.listdir(root)} after "
+                                 f"{r.n_iters} iterations")
+        iters = sorted(f for f in os.listdir(out) if f.startswith("iter"))
+        if len(iters) != r.n_iters:
+            raise AssertionError(f"exported iterates {iters}")
+        log(f"[dress-fit] solve_demo('dress'), {res.task.sim.n_steps} steps "
+            f"on {card}: loss {r.loss_history[0]:.6e} -> {r.loss:.6e}, "
+            f"{r.n_iters} iterations, {r.n_evals} evaluations, "
+            f"{res.wallclock_s:.1f} s; x {np.array2string(r.x, precision=5)};"
+            f" exported {sorted(os.listdir(out))}, checkpoints "
+            f"{sorted(os.listdir(root))}")
+        t0 = time.perf_counter()
+        res2 = solve_demo("dress", maxiter=3, checkpoint_dir=root,
+                          resume=True)
+        r2 = res2.result
+        if r2.loss_history[:len(r.loss_history)] != r.loss_history or \
+                not r2.loss <= r.loss:
+            raise AssertionError(f"the resumed fit did not continue the "
+                                 f"first: {r.loss_history} then "
+                                 f"{r2.loss_history}")
+        log(f"[dress-fit] resumed from ckpt_{r.n_iters:08d} to "
+            f"{r2.n_iters} iterations: loss {r.loss:.6e} -> {r2.loss:.6e}, "
+            f"{r2.n_evals - r.n_evals} more evaluations, "
+            f"{time.perf_counter() - t0:.1f} s")
+        xs, tris, info = ioexp.import_episode(os.path.join(out, "final"))
+        recs = res.task.sim.rollout_chunked(res.helper.vec_to_params(r.x))
+        want = recs.full_x().cpu().numpy()
+        err = float(np.abs(xs - want).max())
+        if xs.shape != want.shape or err > 1e-8 or not np.array_equal(
+                tris, res.task.sim.scene_host.tris):
+            raise AssertionError(f"import_episode: shape {xs.shape} vs "
+                                 f"{want.shape}, max |dx| {err}")
+        log(f"[dress-fit] import_episode(final): {xs.shape[0]} frames equal "
+            f"to the rollout's records within {err:.1e} (the files' 8 "
+            f"decimals); {info['episode_report']}")
+        del res, res2
+        torch.cuda.empty_cache()
+
+
+def grads_rel(g_ref, g):
+    """Per parameter class: max |g - g_ref| over the class's largest entry
+    of g_ref (classes that are zero in both are left out)."""
+    out = {}
+    for k, a in g_ref.items():
+        if a.numel() == 0:
+            continue
+        scale = float(a.abs().max())
+        diff = float((g[k] - a).abs().max())
+        if scale > 0 or diff > 0:
+            out[k] = diff / max(scale, 1e-300)
+    return out
+
+
+def phase_card_vs_cpu(tag, make, tol=1e-6):
+    """f64 on the card against the CPU (the CPU path is held to the JAX
+    package by the tests): make(device) -> (sim, single params, loss_fn),
+    its scene's adjoint run to REF_ADJOINT_EPS (as phase 9's), so that the
+    two devices' fixed points stop at the same trip; the episode within
+    `tol`, iterations within one sweep, the loss to 1e-9 and each gradient
+    class within `tol` of its largest entry."""
+    import torch
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sim, p, loss_fn = make(dev)
+        t0 = time.perf_counter()
+        st = sim.rollout(p).steps
+        L, g = sim.episode_value_and_grad(loss_fn)(p)
+        out[dev] = (st, L.cpu(), {k: v.cpu() for k, v in g.items()})
+        log(f"[{tag}] f64 episode and value-and-grad on {dev}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    (sg, Lg, gg), (sc, Lc, gc) = out["cuda"], out["cpu"]
+    err = float((sg.x.cpu() - sc.x).abs().max())
+    d_it = int((sg.iters.cpu() - sc.iters).abs().max())
+    rel = grads_rel(gc, gg)
+    if (err > tol or d_it > 1 or max(rel.values()) > tol
+            or not torch.allclose(Lg, Lc, rtol=1e-9, atol=0)
+            or not torch.equal(sg.obstacle_contacts.cpu(),
+                               sc.obstacle_contacts)):
+        raise AssertionError(f"[{tag}] card vs CPU: max |dx| {err}, iters "
+                             f"within {d_it}, loss {Lg} vs {Lc}, gradient "
+                             f"{rel}")
+    log(f"[{tag}] f64 card vs CPU: max |dx| {err:.3e} (tolerance {tol}), "
+        f"iters within {d_it}, obstacle contacts equal "
+        f"({int(sc.obstacle_contacts.sum())} particle-steps), self-contact "
+        f"pairs {int(sc.selfcol_pairs.sum())}; loss {float(Lg):.10e}; "
+        f"gradient max error / largest entry per class (tolerance {tol}): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+    return sc
+
+
+def phase_dress_reference():
+    """12e: the dress stand-in in f64, DRESS_REF_STEPS steps, started folded
+    half over half (so that friction acts), on the card against the CPU:
+    the episode and the dress loss's gradient."""
+    import torch
+
+    def make(dev):
+        task = dress_task(DRESS_REF_STEPS, torch.float64, dev,
+                          backward_convergence_thresh=REF_ADJOINT_EPS)
+        sim = task.sim
+        if large_modes(sim) != ("dense", "sparse", "kernel"):
+            raise AssertionError(f"{dev}: {large_modes(sim)}")
+        x0 = torch.as_tensor(initial_states(sim, 1)[0], dtype=torch.float64,
+                             device=sim.device)
+        return sim, task.param_base.replace(x0=x0), task.loss_fn()
+
+    sc = phase_card_vs_cpu("dress-reference", make)
+    if int(sc.selfcol_pairs.sum()) == 0:
+        raise AssertionError("the dress reference has no self-contact")
+
+
+def run_dress(card, timed):
+    """Phase 12, the dress stand-in (n = 7056).  Returns the JSON line's
+    entries of the three kernels at its shapes, their launches counted on
+    its forward (detection, forward sweep) and gradient (backward sweep)."""
+    import torch
+    with timed("dress build"):
+        t0 = time.perf_counter()
+        task = dress_task()
+        torch.cuda.synchronize()
+        log(f"[dress] build_task('dress') on the stand-in: "
+            f"{time.perf_counter() - t0:.1f} s")
+    with timed("dress kernels"):
+        entries = phase_kernels("dress-kernels", task.sim,
+                                initial_states(task.sim, 1),
+                                np.random.RandomState(4), suffix="_dress")
+    with timed("dress forward"):
+        fwd, sweeps = phase_dress_forward(task, card)
+    with timed("dress profile"):
+        prof = dress_task(DRESS_PROFILE_STEPS)
+        phase_profile("dress-profile", prof.sim, prof.param_base.expand(1),
+                      card, prefactor=True)
+        del prof
+    with timed("dress gradient"):
+        bwd = phase_dress_gradient(task, card, sweeps)
+    del task
+    torch.cuda.empty_cache()
+    with timed("dress fit"):
+        phase_dress_fit(card)
+    with timed("dress reference"):
+        phase_dress_reference()
+    for e in entries:
+        key = e["name"][:-len("_dress")]
+        e["launches"] = (bwd if key == "friction_bwd" else fwd)[key]
+    return entries
+
+
+def multistage_sim(dtype, device, steps, **changes):
+    """The flagship stand-in with two attachment stages: its corners (0, 31)
+    clipped until mid-episode, then the top row's middle (15, 16);
+    `changes` replace fields of its SceneConfig."""
+    import dataclasses
+    from diffcloth_tpu_torch.config import AttachmentConfig
+    from diffcloth_tpu_torch.core.sim import ClothSim
+    from diffcloth_tpu_torch.geometry import builder as gb
+    from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
+    cfg = dataclasses.replace(
+        TSHIRT_GRID_STANDIN, step_num=steps,
+        attachment_points=AttachmentConfig.CUSTOM_ARRAY,
+        custom_attachment_vertex_idx=((0.0, (0, 31)), (0.5, (15, 16))),
+        **changes)
+    return ClothSim(gb.build_scene(cfg), device=device, dtype=dtype)
+
+
+def squared_positions(recs):
+    """A loss of every frame: the sum of the squared positions of one
+    episode (the card-against-CPU gradients' loss)."""
+    return (recs.steps.x ** 2).sum()
+
+
+def folded_params(sim):
+    """The flagship's base wind, the episode starting folded."""
+    import torch
+    t = lambda a: torch.as_tensor(a, dtype=sim.dtype,  # noqa: E731
+                                  device=sim.device)
+    return sim.default_params().replace(
+        wind=t(BASE_WIND), wind_freq=t(10.0), wind_phase=t(0.5),
+        x0=t(initial_states(sim, 1)[0]))
+
+
+def phase_multistage(card):
+    """Phase 13: a two-stage scene at the flagship's width (32 x 32,
+    self-collision on, B = 1), the stages switching mid-episode: the f32
+    forward and value-and-grad on the card, then f64 card against CPU."""
+    import torch
+    from diffcloth_tpu_torch import losses
+    from diffcloth_tpu_torch.config import LossType
+    from diffcloth_tpu_torch.optim.helper import GradMask, OptimizeHelper
+
+    sim = multistage_sim(torch.float32, "cuda", MULTI_STEPS)
+    if sim.n_stages != 2 or sim.segments[1][1] != MULTI_STEPS // 2:
+        raise AssertionError(f"segments {sim.segments}")
+    params = folded_params(sim)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    recs = sim.rollout(params)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counters()
+    st = recs.steps
+    N = sim.n_steps
+    if not bool(torch.isfinite(st.x).all()):
+        raise AssertionError("non-finite multi-stage trajectory")
+    sweeps = int(pd_sweeps(st.iters.cpu().numpy()[None], sim).sum())
+    check_launches("multistage", launches, N, sweeps)
+    x, xf = st.x.cpu(), st.x_fixed.cpu()
+    rest = torch.as_tensor(sim.scene_host.x_rest, dtype=x.dtype)
+    last0 = sim.segments[0][2] - 2     # the record of stage 0's last frame
+    held0 = float((x[last0, [0, 31]] - xf[last0, :2]).norm(dim=-1).max())
+    held1 = float((x[-1, [15, 16]] - xf[-1, :2]).norm(dim=-1).max())
+    freed = float((x[-1, [0, 31]] - rest[[0, 31]]).norm(dim=-1).min())
+    if not (held0 < 0.05 and held1 < 0.05
+            and freed > 10 * max(held0, held1)):
+        raise AssertionError(f"the stages did not switch: stage-0 clips "
+                             f"{held0} from their targets before the switch, "
+                             f"stage-1 clips {held1} at the end, the corners "
+                             f"{freed} from rest")
+    pairs = st.selfcol_pairs.cpu().numpy()
+    log(f"[multistage] 32 x 32, segments {sim.segments}: forward {N} steps "
+        f"x B=1 on {card}: {elapsed:.2f} s ({N / elapsed:.1f} PD steps/s), "
+        f"converged {float(st.converged.float().mean()):.4f}, "
+        f"{sweeps / N:.2f} sweeps per step; corners held to {held0:.2e} "
+        f"before the switch, the middle clips to {held1:.2e} after it, the "
+        f"corners then {freed:.3f} from rest; self-contact in "
+        f"{int((pairs > 0).sum())} steps; launches {launches}")
+    target = sim.rollout_chunked(params.replace(
+        wind=params.wind * 0.5)).full_x()
+    loss_fn = losses.make_loss_fn(LossType.MATCH_TRAJECTORY,
+                                  losses.LossInfo(target_x=target))
+    helper = OptimizeHelper(sim, GradMask(f_wind=True), loss_fn,
+                            param_base=params)
+    torch.cuda.synchronize()
+    zero_counters()
+    sim.bwd_stats.reset()
+    t0 = time.perf_counter()
+    L, G = helper.loss_and_grad(helper.params_to_vec(params))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    bst = sim.bwd_stats.summary()
+    if not (np.isfinite(L) and np.isfinite(G).all() and np.abs(G).max() > 0):
+        raise AssertionError(f"multi-stage loss {L}, gradient {G}")
+    check_launches("multistage-gradient", launches, N, sweeps, bst)
+    log(f"[multistage] value-and-grad of GradMask(f_wind=True) on {card}: "
+        f"{wall:.2f} s, loss {L:.6e}, gradient "
+        f"{np.array2string(G, precision=4)}; "
+        f"{bst['lane_trips'] / max(bst['lane_steps'], 1):.2f} trips per step, "
+        f"{bst['fallback_lanes']:.0f} GMRES fallbacks; launches {launches}")
+
+    def make(dev):
+        # from the flat rest shape: the stage switch alone, without the
+        # self-contact whose f32 sweep inside f64 rounds a few slots apart
+        # on the two devices
+        s = multistage_sim(torch.float64, dev, MULTI_REF_STEPS,
+                           backward_convergence_thresh=REF_ADJOINT_EPS)
+        p = folded_params(s)
+        return s, p.replace(x0=s.scene_dev.x_rest.clone(), wind=torch.tensor(
+            [0.5, 0.05, 0.5], dtype=torch.float64,
+            device=s.device)), squared_positions
+
+    phase_card_vs_cpu("multistage-reference", make)
+
+
+def sock_standin():
+    """The sock scene (FOOT primitives, CORNERS_2_WEARSOCK under
+    ENDPOINT_AND_TANGENTS, the keypoint loss) with its mesh replaced by a
+    32 x 32 grid (its keypoint indices reach 995), as the tests build it."""
+    import dataclasses
+    from diffcloth_tpu_torch.tasks.registry import SOCK_SCENE
+    return dataclasses.replace(SOCK_SCENE, fabric=dataclasses.replace(
+        SOCK_SCENE.fabric, is_model=False, custom_init_pos=False,
+        init_pos_file="", grid_num_x=32, grid_num_y=32))
+
+
+def phase_ladder(card):
+    """Phase 14: solve_demo_tau_ladder("sock") on the sock stand-in cut to
+    LADDER_STEPS steps, population 4, two rungs (tau 0.5, then the hard
+    max) of two iterations each, on the card."""
+    from diffcloth_tpu_torch.optim.solver import solve_demo_tau_ladder
+
+    def report(r, tau, k, X, F):
+        log(f"[ladder] rung {r} (tau {tau:g}) iteration {k}: losses "
+            f"{np.array2string(F, precision=5)}")
+
+    with demo_steps("sock", LADDER_STEPS, sock_standin()):
+        res = solve_demo_tau_ladder("sock", taus=(0.5, 0.0),
+                                    maxiter_per_rung=2, final_maxiter=2,
+                                    population=4, callback=report)
+    rungs = res.rungs
+    hard = [r["hard_max_loss"] for r in rungs]
+    if len(rungs) != 2 or not np.isfinite(hard).all() or not np.isfinite(
+            res.result.x).all():
+        raise AssertionError(f"the ladder's rungs {rungs}")
+    sim = res.task.sim
+    log(f"[ladder] sock stand-in (n = {sim.n}, {sim.n_prims} primitives, "
+        f"{sim.n_steps} steps, {sim.spline_type.name}) on {card}: rungs "
+        + "; ".join(f"tau {r['tau']:g}: smoothed {r['smoothed_loss']:.5f}, "
+                    f"hard max {r['hard_max_loss']:.5f} (winner "
+                    f"{r['winner']}, {r['n_batched_evals']} batched evals)"
+                    for r in rungs)
+        + f"; {res.wallclock_s:.1f} s")
+
+
+def obstacle_scenes():
+    """Check 3's asset-free scenes, each (name, builder(dtype, device,
+    steps) -> (sim, single params)): the slope stand-in's grid resting on
+    its SLOPE_SIMPLIFIED plane; a 25 x 25 grid dropped onto the FOOT
+    primitives (over the leg capsule's top); a 0.6 x 0.6 grid dropped
+    into the Y0PLANE bowl; and the sphere scene's grid with its corners
+    clipped on a CORNERS_2_WEARHAT trajectory under ENDPOINT_AND_TANGENTS
+    (its tangents perturbed, numpy seed 0) lying on the sphere.  mu 0.3 on
+    every primitive, so that friction acts."""
+    import dataclasses
+    import torch
+    from diffcloth_tpu_torch import config as tc
+    from diffcloth_tpu_torch.core.sim import ClothSim
+    from diffcloth_tpu_torch.geometry import builder as gb
+    from diffcloth_tpu_torch.tasks import registry as reg
+    from diffcloth_tpu_torch.tasks import setup as ts
+
+    def sim_of(cfg, dtype, device, steps, spline_type=tc.SplineType.ENDPOINT):
+        cfg = dataclasses.replace(cfg, step_num=steps)
+        if dtype == torch.float64:      # the card-against-CPU references
+            cfg = dataclasses.replace(
+                cfg, backward_convergence_thresh=REF_ADJOINT_EPS)
+        scene = gb.build_scene(cfg)
+        prims, entries = ts._make_primitives(scene, dtype, device)
+        sim = ClothSim(scene, prims=prims, device=device, dtype=dtype,
+                       spline_type=spline_type)
+        p = sim.default_params()
+        return sim, p.replace(mu=torch.full_like(p.mu, 0.3)), entries
+
+    def grid(pc, dim, g):
+        return tc.SceneConfig(
+            fabric=tc.FabricConfig(cloth_dim_x=dim, cloth_dim_y=dim,
+                                   k_stiff_stretching=150,
+                                   k_stiff_bending=1e-5, grid_num_x=g,
+                                   grid_num_y=g, density=0.3),
+            orientation=tc.Orientation.DOWN, primitive_config=pc,
+            sock_leg_orientation=(0.3, 1.0, 0.2), time_step=1.0 / 180.0,
+            name="grid")
+
+    def slope(dtype, device, steps):
+        cfg = reg.SLOPE_SCENE
+        cfg = dataclasses.replace(cfg, fabric=dataclasses.replace(
+            cfg.fabric, custom_init_pos=False, init_pos_file=""))
+        return sim_of(cfg, dtype, device, steps)[:2]
+
+    def foot(dtype, device, steps):
+        sim, p, ent = sim_of(grid(tc.PrimitiveConfig.FOOT, 4.5, 25), dtype,
+                             device, steps)
+        leg = ent[2]
+        top = leg["center"] + leg["rot"] @ np.array([0, leg["length"], 0])
+        shift = top + np.array([0.0, leg["radius"] + 0.15, 0.0])
+        return sim, p.replace(x0=p.x0 + torch.as_tensor(shift).to(p.x0))
+
+    def bowl(dtype, device, steps):
+        sim, p, _ = sim_of(grid(tc.PrimitiveConfig.Y0PLANE, 0.6, 10), dtype,
+                           device, steps)
+        return sim, p.replace(x0=p.x0 + torch.tensor(
+            [0.0, 0.25, 0.0]).to(p.x0))
+
+    def hat_trajectory(dtype, device, steps):
+        cfg = dataclasses.replace(
+            reg.ROTATING_SPHERE_SCENE,
+            attachment_points=tc.AttachmentConfig.LEFT_RIGHT_CORNERS_2,
+            trajectory=tc.TrajectoryConfig.CORNERS_2_WEARHAT)
+        sim, p, _ = sim_of(cfg, dtype, device, steps,
+                           tc.SplineType.ENDPOINT_AND_TANGENTS)
+        kick = np.random.RandomState(0).randn(*p.spline.shape)
+        kick[:, :3] = 0.0            # the endpoints stay, the tangents move
+        return sim, p.replace(spline=p.spline + torch.as_tensor(kick).to(
+            p.spline))
+
+    return (("slope", slope), ("foot", foot), ("bowl", bowl),
+            ("hat-trajectory", hat_trajectory))
+
+
+def phase_obstacles(card):
+    """Phase 15 (ROADMAP check 3): the plane, capsule and bowl primitives
+    and ENDPOINT_AND_TANGENTS on the card.  Each scene's f32 episode of
+    OBSTACLE_STEPS steps must touch its obstacle in most steps, with the
+    kernels' launches as on every path; then f64 card against CPU over
+    OBSTACLE_REF_STEPS steps, the episode and the gradient of the last
+    frame's squared positions."""
+    import torch
+    for name, make in obstacle_scenes():
+        sim, p = make(torch.float32, "cuda", OBSTACLE_STEPS)
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        st = sim.rollout(p.expand(1)).steps
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_counters()
+        N = sim.n_steps
+        if not bool(torch.isfinite(st.x).all()):
+            raise AssertionError(f"[{name}] non-finite trajectory")
+        check_launches(name, launches, N,
+                       int(pd_sweeps(st.iters.cpu().numpy(), sim).sum()))
+        contact = st.obstacle_contacts.cpu().numpy()[0]
+        share = float((contact > 0).mean())
+        if share <= 0.5:
+            raise AssertionError(f"[{name}] obstacle contact in only "
+                                 f"{100 * share:.1f} % of the steps")
+        kinds = sorted(set(int(k) for k in sim.prims.kind))
+        log(f"[obstacles] {name}: n = {sim.n}, primitive kinds {kinds}, "
+            f"spline {sim.spline_type.name}; {N} steps on {card} in "
+            f"{elapsed:.2f} s, converged "
+            f"{float(st.converged.float().mean()):.4f}, obstacle contact in "
+            f"{100 * share:.1f} % of the steps (max {int(contact.max())} "
+            f"particles), self-contact pairs "
+            f"{int(st.selfcol_pairs.sum())}; launches {launches}")
+        phase_card_vs_cpu(
+            f"obstacles-{name}",
+            lambda dev, make=make: make(torch.float64, dev,
+                                        OBSTACLE_REF_STEPS)
+            + (squared_positions,))
+
+
+def precision_report(tag, g32, g64, fd):
+    """The f32 gradient against the f64 one, and the f64 one against f64
+    central differences: cosines and per-class relative errors."""
+    def cos(a, b):
+        return float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b),
+                                 1e-300))
+    rel32 = np.abs(g32 - g64) / np.maximum(np.abs(g64), 1e-300)
+    relfd = np.abs(fd - g64) / np.maximum(np.abs(fd), 1e-300)
+    log(f"[{tag}] f32 gradient {np.array2string(g32, precision=6)}; f64 "
+        f"{np.array2string(g64, precision=6)}; f64 central differences "
+        f"{np.array2string(fd, precision=6)}")
+    log(f"[{tag}] cosine(f32, f64) {cos(g32, g64):.8f}, cosine(f64, FD) "
+        f"{cos(g64, fd):.8f}; per-entry |f32 - f64| / |f64| "
+        f"{np.array2string(rel32, precision=2)}; |f64 - FD| / |FD| "
+        f"{np.array2string(relfd, precision=2)}")
+
+
+def phase_precision(card):
+    """Phase 16 (ROADMAP check 2): the card's f32 value-and-grad against its
+    f64 one, beside f64 central differences (forward tolerance 1e-9) of one
+    entry per parameter class, on the flagship stand-in cut to
+    PRECISION_STEPS steps (the folded start,
+    B = 1, GradMask(f_wind=True, density, k_stretch, k_bend) against the
+    base wind's rollout, evaluated at 0.7 of that wind and 1.2 of its
+    k_stretch) and on the sphere path (mu at 0.5, SPHERE_PRECISION_STEPS
+    steps).  No bound: the numbers go to PERF.md."""
+    import torch
+    from diffcloth_tpu_torch import losses
+    from diffcloth_tpu_torch.config import LossType
+    from diffcloth_tpu_torch.optim.helper import GradMask, OptimizeHelper
+    from diffcloth_tpu_torch.tasks.setup import build_task
+
+    def gradients(helpers, x, probe):
+        """The f32 and f64 gradients at the scene's tolerances, and central
+        differences of the f64 episode at the tight ones (step 1e-6 of
+        max(|x|, 1)) at the entries `probe`, one per parameter class."""
+        g32, g64 = (h.loss_and_grad(x)[1][probe] for h in helpers[:2])
+        fd = np.zeros(len(probe))
+        for k, i in enumerate(probe):
+            d = 1e-6 * max(abs(x[i]), 1.0)
+            up, dn = x.copy(), x.copy()
+            up[i] += d
+            dn[i] -= d
+            fd[k] = (helpers[2].loss(up) - helpers[2].loss(dn)) / (2 * d)
+        return g32, g64, fd
+
+    import dataclasses
+    from diffcloth_tpu_torch.core.sim import ClothSim
+    from diffcloth_tpu_torch.geometry import builder as gb
+    from diffcloth_tpu_torch.tasks.registry import (ROTATING_SPHERE_SCENE,
+                                                    TSHIRT_GRID_STANDIN)
+
+    def tight(cfg):
+        """The scene with the FD check's forward tolerance
+        (Simulation.cpp:3648)."""
+        return dataclasses.replace(cfg, forward_convergence_thresh=1e-9)
+
+    mask = GradMask(f_wind=True, density=True,
+                    k_pertype=(False, False, True, True))
+    base = dataclasses.replace(TSHIRT_GRID_STANDIN, step_num=PRECISION_STEPS)
+    target = None
+    helpers = []
+    for dtype, cfg in ((torch.float32, base), (torch.float64, base),
+                       (torch.float64, tight(base))):
+        sim = ClothSim(gb.build_scene(cfg), device="cuda", dtype=dtype)
+        p = folded_params(sim)
+        if target is None:
+            target = sim.rollout(p).full_x().to(torch.float64)
+        loss_fn = losses.make_loss_fn(
+            LossType.MATCH_TRAJECTORY,
+            losses.LossInfo(target_x=target.to(dtype)))
+        helpers.append(OptimizeHelper(sim, mask, loss_fn, param_base=p))
+    x = helpers[1].params_to_vec(helpers[1].base)
+    x[:3] *= 0.7
+    x[5] *= 1.2                     # k_stretch off the target's
+    precision_report(f"precision-flagship ({PRECISION_STEPS} steps; wind "
+                     f"x, freq, phase, k_stretch, k_bend, density)",
+                     *gradients(helpers, x, [0, 3, 4, 5, 6, 7]))
+    helpers = []
+    for dtype, cfg in ((torch.float32, ROTATING_SPHERE_SCENE),
+                       (torch.float64, ROTATING_SPHERE_SCENE),
+                       (torch.float64, tight(ROTATING_SPHERE_SCENE))):
+        with demo_steps("sphere", SPHERE_PRECISION_STEPS, cfg):
+            task = build_task("sphere", dtype=dtype)
+        helpers.append(OptimizeHelper(task.sim, task.mask, task.loss_fn(),
+                                      param_base=task.param_base))
+    precision_report(f"precision-sphere ({SPHERE_PRECISION_STEPS} steps; "
+                     f"mu at 0.5)", *gradients(helpers, np.array([0.5]), [0]))
+
+
+PATHS = ("flagship", "sphere", "large", "dress", "multistage", "ladder",
+         "obstacles", "precision")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--steps", type=int, default=None,
-                    help="episode length (default: the scene's 250)")
+    ap.add_argument("--steps", type=int, default=FLAGSHIP_STEPS,
+                    help="the flagship's episode length (default "
+                         f"{FLAGSHIP_STEPS} of its 250)")
+    ap.add_argument("--only", default=",".join(PATHS),
+                    help="comma-separated paths to run while iterating "
+                         f"(default, the acceptance run: all of "
+                         f"{','.join(PATHS)})")
     args = ap.parse_args()
+    only = args.only.split(",")
+    if not set(only) <= set(PATHS):
+        ap.error(f"--only: {sorted(set(only) - set(PATHS))} not in {PATHS}")
 
     import torch
     if not torch.cuda.is_available():
@@ -1610,34 +2359,55 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
 
     timed = Timer()
-    rng = np.random.RandomState(0)
-    sim = flagship(torch.float32, "cuda", args.steps)
-    with timed("kernels"):
-        kernels = phase_kernels("kernels", sim, initial_states(sim, BATCH),
-                                rng)
-    with timed("forward path"):
-        launches = phase_main_path(sim, BATCH, card)
-    # the profiled window: the first 10 steps of the same batch
-    prof_sim = flagship(torch.float32, "cuda", 10)
-    prof_params = episode_params(prof_sim, BATCH)
-    with timed("forward profile"):
-        phase_profile("profile", prof_sim, prof_params, card)
-    with timed("forward reference"):
-        phase_reference(10)
-    with timed("gradient path"):
-        launches["friction_bwd"] = phase_gradient(
-            sim, BATCH, card, launches["friction_fwd"])["friction_bwd"]
-    with timed("gradient profile"):
-        phase_profile_gradient("profile-grad", prof_sim, prof_params,
-                               base_wind_target(prof_sim, prof_params), card)
-    with timed("trainer"):
-        phase_trainer(card)
-    with timed("gradient reference"):
-        phase_gradient_reference(10)
-    run_sphere(card, timed)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    kernels += run_large_mesh(card, timed)
+    kernels = []
+    if "flagship" in only:
+        rng = np.random.RandomState(0)
+        sim = flagship(torch.float32, "cuda", args.steps)
+        with timed("kernels"):
+            kernels = phase_kernels("kernels", sim,
+                                    initial_states(sim, BATCH), rng)
+        with timed("forward path"):
+            launches = phase_main_path(sim, BATCH, card)
+        # the profiled window: the first 10 steps of the same batch
+        prof_sim = flagship(torch.float32, "cuda", 10)
+        prof_params = episode_params(prof_sim, BATCH)
+        with timed("forward profile"):
+            phase_profile("profile", prof_sim, prof_params, card)
+        with timed("forward reference"):
+            phase_reference(10)
+        with timed("gradient path"):
+            launches["friction_bwd"] = phase_gradient(
+                sim, BATCH, card, launches["friction_fwd"])["friction_bwd"]
+        with timed("gradient profile"):
+            phase_profile_gradient("profile-grad", prof_sim, prof_params,
+                                   base_wind_target(prof_sim, prof_params),
+                                   card)
+        del sim, prof_sim
+        with timed("trainer"):
+            phase_trainer(card)
+        with timed("gradient reference"):
+            phase_gradient_reference(10)
+        for k in kernels:
+            k["launches"] = launches[k["name"]]
+    if "sphere" in only:
+        run_sphere(card, timed)
+    if "large" in only:
+        kernels += run_large_mesh(card, timed)
+    if "dress" in only:
+        kernels += run_dress(card, timed)
+    if "multistage" in only:
+        with timed("multistage"):
+            phase_multistage(card)
+    if "ladder" in only:
+        with timed("ladder"):
+            phase_ladder(card)
+    if "obstacles" in only:
+        with timed("obstacles"):
+            phase_obstacles(card)
+    if "precision" in only:
+        with timed("precision"):
+            phase_precision(card)
+    torch.cuda.empty_cache()
     log(f"[time] all phases {timed.total:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,17 +1,25 @@
 """Episode runner: device scene assembly, attachment trajectories, the
 rollout and its gradient, single or batched.
 
-Counterpart of `diffcloth_tpu/core/sim.py` for single-stage scenes, with
-or without obstacles:
+Counterpart of `diffcloth_tpu/core/sim.py`, with or without obstacles,
+with one attachment stage or several:
 `scene_to_device`, `stage_to_device`, `ClothSim.default_params`, `p_inv`,
-`x_fixed_seq`, `simulate` / `rollout` with the explosion freeze,
-`rollout_chunked`, `episode_loss` and `episode_value_and_grad`.  The JAX
-`lax.scan` over steps is a Python loop; `vmap` over a population of
-episodes is a leading batch dim on the `SimParams` (one shared P^{-1}, as
-the JAX package's batched paths share it).  Eager PyTorch runs no device
-program longer than one kernel, so the JAX package's `_chunked` variants
-(bounded device executions of `chunk` steps) fold into these single
-functions.
+`x_fixed_seq` (the splines and the dress twirl), `simulate` / `rollout`
+with the explosion freeze, `rollout_chunked`, `episode_loss` and
+`episode_value_and_grad`.  The JAX `lax.scan` over steps is a Python loop;
+`vmap` over a population of episodes is a leading batch dim on the
+`SimParams` (one shared P^{-1}, as the JAX package's batched paths share
+it).  Eager PyTorch runs no device program longer than one kernel, so the
+JAX package's `_chunked` variants (bounded device executions of `chunk`
+steps) fold into these single functions.
+
+A scene of several attachment stages (reference: one `sysMat` per stage,
+switched by frame, Simulation.h:361-405, Simulation.cpp:1053-1068) gets
+one step, operator set and P^{-1} per stage, as the JAX ClothSim does
+(sim.py:152-201, 281-318); the loop picks the stage of each frame and the
+adjoint follows through autograd across the switch.  Like the JAX
+package's batched routes, which have no multi-stage form, a batched
+episode of such a scene raises.
 
 `ClothSim` picks its algorithms by mesh size at the JAX package's
 thresholds (sim.py:183-300): the dense P^{-1} up to n = 8000 and
@@ -144,13 +152,14 @@ class ClothSim:
     and `self_method` ("kernel" up to n = 10000, else "sweep", with
     `self_window` and `self_cap_pairs`; the JAX package's "pallas" and
     "matrix" are "kernel" here and raise).  The choices are recorded as
-    `solve_mode`, `dense`, `sparse` and `self_cfg.method`.  Not ported, and
-    raising: multi-stage attachment scenes, the gather/scatter operator
-    path (dense_ops=False with sparse_ops=False), `SimFlags.adjoint_mode`
-    "gmres"; the JAX ClothSim's other arguments (eps and iteration
-    overrides, solve_fn, plateau_window, the self-collision capacity and
-    friction implementation options) are not arguments here.  The export
-    options are `optim.solver.solve_demo`'s and raise there."""
+    `solve_mode`, `dense`, `sparse` and `self_cfg.method`; with several
+    attachment stages `dense` / `sparse` / `step` are stage 0's and
+    `dense_list` / `sparse_list` / `steps` hold every stage's.  Not ported,
+    and raising: the gather/scatter operator path (dense_ops=False with
+    sparse_ops=False), `SimFlags.adjoint_mode` "gmres"; the JAX ClothSim's
+    other arguments (eps and iteration overrides, solve_fn,
+    plateau_window, the self-collision capacity and friction
+    implementation options) are not arguments here."""
 
     def __init__(self, scene: gb.Scene, *, flags: Optional[SimFlags] = None,
                  prims: Optional[ct.PrimitiveSet] = None,
@@ -163,9 +172,6 @@ class ClothSim:
                  self_cap_pairs: Optional[int] = None):
         self.device = resolve_device(device)
         set_full_f32_matmul()
-        if len(scene.stages) != 1:
-            raise NotImplementedError(
-                "multi-stage attachment scenes are not ported yet")
         cfg = scene.cfg
         self.scene_host = scene
         self.cfg = cfg
@@ -186,8 +192,30 @@ class ClothSim:
 
         dev = self.device
         self.scene_dev = scene_to_device(scene, dtype, dev)
-        self.stage_host = scene.stages[0]
-        self.stage_dev = stage_to_device(self.stage_host, dtype, dev)
+        self.stages_host = list(scene.stages)
+        self.stage_devs = [stage_to_device(st, dtype, dev)
+                           for st in self.stages_host]
+        self.stage_host, self.stage_dev = self.stages_host[0], \
+            self.stage_devs[0]
+        self.n_stages = len(self.stages_host)
+        self.max_fixed = max(len(st.particle_idx) for st in self.stages_host)
+        # frames k in 1..N run stage s on [lo, hi): stage i is active from
+        # its start_frame on, the last one wins (Simulation.cpp:1053-1056;
+        # JAX sim.py:166-179)
+        starts = [st.start_frame for st in self.stages_host]
+        if starts != sorted(starts):
+            raise ValueError("attachment stages must be ordered by "
+                             "start_frame")
+        self.segments = []
+        for st in range(self.n_stages):
+            lo = max(starts[st], 1)
+            hi = (starts[st + 1] if st + 1 < self.n_stages
+                  else cfg.step_num + 1)
+            hi = max(min(hi, cfg.step_num + 1), lo)
+            if hi > lo:
+                self.segments.append((st, lo, hi))
+        self._stage_of_frame = [st for st, lo, hi in self.segments
+                                for _ in range(lo, hi)]
         self.prims = (ct.empty_primitive_set(dtype, dev) if prims is None
                       else prims.to(dev, dtype))
         self.n_prims = self.prims.n
@@ -201,33 +229,38 @@ class ClothSim:
         self.solve_mode = solve_mode
         self.cg_max_iters, self.cg_rtol = cg_max_iters, cg_rtol
         area64 = np.asarray(scene.area, np.float64)
+        # one prefactorization per stage (Simulation.cpp:2969-3059)
         if solve_mode == "dense":
-            self._p_inv_fn = slv.make_host_p_inv_fn(
-                slv.dense_gram_matrices(scene)[0], area64, self.h, dtype,
-                dev)
+            self._p_inv_fns = [
+                slv.make_host_p_inv_fn(g, area64, self.h, dtype, dev)
+                for g in slv.dense_gram_matrices(scene)]
         else:
-            self._p_inv_fn = slv.make_host_p_diag_inv_fn(
-                slv.gram_diagonals(scene)[0], area64, self.h, dtype, dev)
+            self._p_inv_fns = [
+                slv.make_host_p_diag_inv_fn(d, area64, self.h, dtype, dev)
+                for d in slv.gram_diagonals(scene)]
 
         # constraint operators: dense matmuls while they stay small, the
         # scatter-free incidence operators past that
         if sparse_ops:
             dense_ops = False
         if dense_ops is None:
-            dense_ops = dense_ops_bytes(scene) <= DENSE_OPS_MAX_BYTES
+            dense_ops = (dense_ops_bytes(scene) * self.n_stages
+                         <= DENSE_OPS_MAX_BYTES)
         if sparse_ops is None:
             sparse_ops = not dense_ops
         if not (dense_ops or sparse_ops):
             raise NotImplementedError(
                 "the gather/scatter operator path is not ported: keep "
                 "dense_ops or sparse_ops")
-        self.dense = self.sparse = None
+        self.dense_list = [None] * self.n_stages
+        self.sparse_list = [None] * self.n_stages
         if dense_ops:
-            self.dense = dn.build_dense_ops(scene, self.stage_host, dtype,
-                                            dev)
+            self.dense_list = [dn.build_dense_ops(scene, st, dtype, dev)
+                               for st in self.stages_host]
         else:
-            self.sparse = spo.build_sparse_ops(scene, self.stage_host, dtype,
-                                               dev)
+            self.sparse_list = [spo.build_sparse_ops(scene, st, dtype, dev)
+                                for st in self.stages_host]
+        self.dense, self.sparse = self.dense_list[0], self.sparse_list[0]
 
         self.self_cfg = None
         if (self.flags.contact_enabled and self.flags.self_collision_enabled
@@ -256,14 +289,21 @@ class ClothSim:
                 method=self_method, window=min(self_window, scene.n - 1),
                 cap_pairs=self_cap_pairs or max(128, scene.n // 2))
 
-        self.step, self.residual = step_mod.make_step(
-            self.scene_dev, self.dense, self.prims, h=self.h,
-            wind_config=cfg.wind_config, flags=self.flags,
-            eps_forward=self.eps_forward, eps_backward=self.eps_backward,
-            self_cfg=self.self_cfg, sparse=self.sparse,
-            solve_mode=solve_mode, cg_max_iters=cg_max_iters,
-            cg_rtol=cg_rtol)
-        self.bwd_stats = self.step.bwd_stats
+        # one step per stage; the stages count their adjoint's work together
+        self.bwd_stats = step_mod.BackwardStats()
+        self.steps, self.residuals = [], []
+        for dn_s, sp_s in zip(self.dense_list, self.sparse_list):
+            st, res = step_mod.make_step(
+                self.scene_dev, dn_s, self.prims, h=self.h,
+                wind_config=cfg.wind_config, flags=self.flags,
+                eps_forward=self.eps_forward,
+                eps_backward=self.eps_backward, self_cfg=self.self_cfg,
+                sparse=sp_s, solve_mode=solve_mode,
+                cg_max_iters=cg_max_iters, cg_rtol=cg_rtol,
+                stats=self.bwd_stats)
+            self.steps.append(st)
+            self.residuals.append(res)
+        self.step, self.residual = self.steps[0], self.residuals[0]
 
     # ------------------------------------------------------------------ params
 
@@ -277,63 +317,113 @@ class ClothSim:
             density=fab.density)
         if self.n_prims > 0:
             p = p.replace(mu=self.prims.mu.clone())
-        sd = self.stage_dev
         return p.replace(
             x0=self.scene_dev.x_rest.clone(),
             v0=torch.as_tensor(self.scene_host.v_init).to(self.device,
                                                           self.dtype),
-            spline=spl.default_params_from_endpoints(
-                sd.spline_p0,
-                torch.as_tensor(self.stage_host.spline_p1).to(self.device,
-                                                              self.dtype),
-                sd.spline_yup))
+            spline=self._default_spline())
 
-    def p_inv(self, params: SimParams) -> torch.Tensor:
+    def _default_spline(self) -> torch.Tensor:
+        """(F,9) for one stage; (S, F_max, 9), zero-padded, for several
+        (one spline set per sysMat, Simulation.h:372; JAX sim.py:322-335)."""
+        per_stage = []
+        for sh, sd in zip(self.stages_host, self.stage_devs):
+            sp = spl.default_params_from_endpoints(
+                sd.spline_p0,
+                torch.as_tensor(sh.spline_p1).to(self.device, self.dtype),
+                sd.spline_yup)
+            per_stage.append(torch.nn.functional.pad(
+                sp, (0, 0, 0, self.max_fixed - sp.shape[0])))
+        return per_stage[0] if self.n_stages == 1 else torch.stack(per_stage)
+
+    def p_inv(self, params: SimParams):
         """Refactorize the PD system for a parameter guess (the analogue of
         resetSystemWithParams): the (n,n) P^{-1} with solve_mode "dense",
-        the (n,) Jacobi diagonal 1/diag(P) with "cg".  A batched SimParams
-        shares sample 0's: k_pertype and density must agree across the
-        batch."""
+        the (n,) Jacobi diagonal 1/diag(P) with "cg"; a tuple of one per
+        stage for a scene of several.  A batched SimParams shares sample
+        0's: k_pertype and density must agree across the batch."""
         p = params.sample(0) if params.batch_size is not None else params
-        return self._p_inv_fn(p.k_pertype, p.density)
+        out = tuple(f(p.k_pertype, p.density) for f in self._p_inv_fns)
+        return out[0] if self.n_stages == 1 else out
 
     # -------------------------------------------------------- fixed trajectory
 
-    def x_fixed_seq(self, params: SimParams) -> torch.Tensor:
-        """(N, F, 3) clip positions for steps 1..N (stepFixPoints,
-        Simulation.cpp:964-1018); batched params -> (B, N, F, 3)."""
-        N = self.n_steps
-        fracs = torch.arange(1, N + 1, dtype=self.dtype,
-                             device=self.device) / N
-        sd = self.stage_dev
-        F = len(self.stage_host.particle_idx)
+    def _xf_for_stage(self, s: int, params: SimParams,
+                      fracs: torch.Tensor) -> torch.Tensor:
+        """(L, F_s, 3) clip positions of stage s at the given fractions of
+        the episode, (B, L, F_s, 3) for batched params (stepFixPoints
+        evaluates the splines at the whole episode's fraction whatever the
+        stage, Simulation.cpp:1004-1011; JAX sim.py:364-400)."""
+        sh, sd = self.stages_host[s], self.stage_devs[s]
+        F = len(sh.particle_idx)
         traj = self.cfg.trajectory
         B = params.batch_size
-        lead = (N, F, 3) if B is None else (B, N, F, 3)
+        lead = (fracs.shape[0], F, 3) if B is None else \
+            (B, fracs.shape[0], F, 3)
         if F == 0 or traj == TrajectoryConfig.NO_TRAJECTORY:
             return sd.fixed_pos_rest.expand(lead).clone()
         if traj in (TrajectoryConfig.CORNERS_2_UP,
                     TrajectoryConfig.CORNERS_2_WEARHAT,
                     TrajectoryConfig.CORNERS_1_WEARHAT,
                     TrajectoryConfig.CORNERS_2_WEARSOCK):
-            return spl.eval_splines(self.spline_type, params.spline,
-                                    sd.spline_p0, sd.spline_yup, fracs)
-        raise NotImplementedError(f"trajectory {traj} is not ported yet")
+            spline = (params.spline if self.n_stages == 1
+                      else params.spline[..., s, :F, :])
+            return spl.eval_splines(self.spline_type, spline, sd.spline_p0,
+                                    sd.spline_yup, fracs)
+        if traj == TrajectoryConfig.TRAJECTORY_DRESS_TWIRL:
+            # 0.02 rad per step about the vertical axis through
+            # restShapeMidPoint (Simulation.cpp:980-994), in closed form:
+            # the rotation keeps y
+            mid = torch.as_tensor(self.scene_host.rest_mid).to(self.device,
+                                                               self.dtype)
+            ang = 0.02 * fracs * self.n_steps
+            rest = sd.fixed_pos_rest
+            rel_x, rel_z = rest[:, 0] - mid[0], rest[:, 2] - mid[2]
+            c, sn = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+            out = torch.stack(
+                [c * rel_x + sn * rel_z + mid[0],
+                 rest[:, 1].expand(fracs.shape[0], F),
+                 -sn * rel_x + c * rel_z + mid[2]], dim=-1)
+            return out.expand(lead).clone()
+        raise NotImplementedError(f"trajectory {traj}")
+
+    def x_fixed_seq(self, params: SimParams) -> torch.Tensor:
+        """(N, F, 3) clip positions for steps 1..N (stepFixPoints,
+        Simulation.cpp:964-1018); batched params -> (B, N, F, 3).  Several
+        stages pad F to the largest stage's (F_max); frame k's stage reads
+        the leading F_s rows (JAX sim.py:402-416)."""
+        N = self.n_steps
+        fracs = torch.arange(1, N + 1, dtype=self.dtype,
+                             device=self.device) / N
+        if self.n_stages == 1:
+            return self._xf_for_stage(0, params, fracs)
+        if params.batch_size is not None:
+            raise ValueError(_BATCHED_MULTISTAGE)
+        parts = []
+        for s, lo, hi in self.segments:
+            xf = self._xf_for_stage(s, params, fracs[lo - 1:hi - 1])
+            parts.append(torch.nn.functional.pad(
+                xf, (0, 0, 0, self.max_fixed - xf.shape[-2])))
+        return torch.cat(parts, dim=0)
 
     # ---------------------------------------------------------------- episode
 
-    def simulate(self, params: SimParams, p_inv: torch.Tensor,
+    def simulate(self, params: SimParams, p_inv,
                  x_fixed_seq: torch.Tensor,
                  record_forces: bool = True) -> EpisodeRecords:
         """Full rollout: frame 0 (the initial state) plus the stacked records
         of steps 1..N.  Single or batched params (then x_fixed_seq is
-        (B, N, F, 3) and every record carries a leading B).  Once an episode
-        explodes its remaining steps pass the state through unchanged
-        (Simulation.cpp:1415-1424)."""
+        (B, N, F, 3) and every record carries a leading B); a scene of
+        several stages takes single params only, and `p_inv` is then
+        `p_inv(params)`'s tuple.  Once an episode explodes its remaining
+        steps pass the state through unchanged (Simulation.cpp:1415-1424)."""
         batched = params.batch_size is not None
+        if batched and self.n_stages > 1:
+            raise ValueError(_BATCHED_MULTISTAGE)
         pb = params.as_batched()
         xfs = x_fixed_seq if batched else x_fixed_seq[None]
         B = pb.x0.shape[0]
+        p_invs = p_inv if self.n_stages > 1 else (p_inv,)
         x, v = pb.x0, pb.v0
         frozen = torch.zeros(B, dtype=torch.bool, device=x.device)
         diag_keys = ("converged", "iters", "avg_deformation",
@@ -343,7 +433,10 @@ class ClothSim:
         for i in range(1, self.n_steps + 1):
             t = torch.tensor(float(i), dtype=self.dtype,
                              device=self.device) * self.h
-            x2, v2, aux = self.step(x, v, pb, xfs[:, i - 1], p_inv, t, i)
+            s = self._stage_of_frame[i - 1]
+            F_s = len(self.stages_host[s].particle_idx)
+            x2, v2, aux = self.steps[s](x, v, pb, xfs[:, i - 1, :F_s],
+                                        p_invs[s], t, i)
             frozen = frozen | diag.is_exploded(x2, v2)
             fz = frozen[:, None, None]
             x2 = torch.where(fz, x, x2)
@@ -426,6 +519,11 @@ class ClothSim:
 
         value_and_grad.split = None
         return value_and_grad
+
+
+_BATCHED_MULTISTAGE = (
+    "a scene of several attachment stages runs one episode at a time (the "
+    "JAX package's batched routes have no multi-stage form either)")
 
 
 def _sync(device: torch.device) -> None:

@@ -316,7 +316,8 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
               self_cfg: Optional[SelfColConfig] = None,
               sparse: Optional[spo.SparseOps] = None,
               solve_mode: str = "dense", cg_max_iters: int = 64,
-              cg_rtol: float = 1e-6):
+              cg_rtol: float = 1e-6,
+              stats: Optional[BackwardStats] = None):
     """Build the batched differentiable PD step for one attachment stage:
 
         step(x (B,n,3), v, params (batched SimParams), x_fixed (B,F,3),
@@ -328,7 +329,8 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     The constraint operators are `dense` or, when it is None, `sparse`.
     p_inv is the (n,n) P^{-1} with solve_mode "dense" and the (n,)
     1/diag(P) with "cg".  `prims` are the scene's obstacles (an empty set
-    for none).  `step.bwd_stats` counts the adjoint's work."""
+    for none).  `step.bwd_stats` counts the adjoint's work (into `stats`
+    when given, shared by the steps of a scene's stages)."""
     if flags.adjoint_mode != "fp":
         raise NotImplementedError(
             f"adjoint_mode {flags.adjoint_mode!r} is not ported; the port "
@@ -352,7 +354,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     cap_pairs = None
     if use_self:
         cap_pairs = self_cfg.cap_pairs or max(128, n // 2)
-    stats = BackwardStats()
+    stats = stats if stats is not None else BackwardStats()
 
     def wind_factor(params: SimParams, t, step_idx):
         """(sin(freq t + phase) + 1)/2 and friends (fillForces,

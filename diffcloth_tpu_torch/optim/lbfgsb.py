@@ -55,14 +55,23 @@ def minimize_lbfgsb_native(loss_and_grad, x0, lower, upper, *,
                            ftol: float = 1e-6, m: int = 10,
                            max_linesearch: int = 20, gtol: float = 1e-10,
                            maxiter: int = 100,
-                           callback=None) -> LbfgsResult:
+                           callback=None, state=None,
+                           on_state=None) -> LbfgsResult:
     """Projected L-BFGS-B: two-loop recursion + Armijo backtracking along
     the projected arc x(a) = clip(x - a*Hg, bounds).
 
     Written from scratch (no scipy) because scipy's Fortran linesearch
     aborts on this problem family's first iteration (huge curvature change
     across the box, f32-quantized objective); a projected-arc backtracking
-    search is robust to both.  Runs in the unit box like the scipy path."""
+    search is robust to both.  Runs in the unit box like the scipy path.
+
+    `on_state(state)` receives the solver's whole state (a dict of numpy
+    arrays: the iterate x and its unit-box z, loss, gradient, curvature
+    pairs, iteration count, loss history and whether it converged) after
+    every accepted iteration;
+    passing such a `state` back resumes the run exactly where it was, x0
+    unused, up to `maxiter` iterations in all; a converged state returns at
+    once (the checkpoints of optim.solver.solve_demo)."""
     lower = np.asarray(lower, np.float64)
     upper = np.asarray(upper, np.float64)
     rng = np.where(upper - lower > 0, upper - lower, 1.0)
@@ -77,15 +86,25 @@ def minimize_lbfgsb_native(loss_and_grad, x0, lower, upper, *,
         history.append(float(L))
         return float(L), np.asarray(g, np.float64) * rng
 
-    z = (np.clip(np.asarray(x0, np.float64), lower, upper) - lower) / rng
-    f, g = fun(z)
-    S: List[np.ndarray] = []
-    Y: List[np.ndarray] = []
-    rho: List[float] = []
-    n_iters = 0
-    converged = False
-    message = "max iterations reached"
-    for it in range(maxiter):
+    if state is None:
+        z = (np.clip(np.asarray(x0, np.float64), lower, upper) - lower) / rng
+        f, g = fun(z)
+        S: List[np.ndarray] = []
+        Y: List[np.ndarray] = []
+        rho: List[float] = []
+        n_iters = 0
+    else:
+        z, g = np.array(state["z"], np.float64), np.array(state["g"],
+                                                          np.float64)
+        f = float(state["f"])
+        S, Y = list(np.array(state["S"])), list(np.array(state["Y"]))
+        rho = [float(r) for r in state["rho"]]
+        n_iters = int(state["n_iters"])
+        history.extend(float(h) for h in state["history"])
+    converged = bool(state["converged"]) if state is not None else False
+    message = (str(state["message"]) if converged
+               else "max iterations reached")
+    for it in range(n_iters, n_iters if converged else maxiter):
         d = -_two_loop(g, S, Y, rho)
         if np.dot(d, g) > -1e-15:      # not a descent direction: reset
             S.clear(); Y.clear(); rho.clear()
@@ -125,19 +144,28 @@ def minimize_lbfgsb_native(loss_and_grad, x0, lower, upper, *,
             if len(S) > m:
                 S.pop(0); Y.pop(0); rho.pop(0)
         n_iters += 1
-        if callback is not None:
-            callback(n_iters, to_phys(zn))
         df = f - fn
         z, f, g = zn, fn, gn
         # reference convergence test: |f-f'| <= delta*max(1,|f|,|f'|)
         if df <= ftol * max(1.0, abs(f), abs(f + df)):
             converged = True
             message = "relative reduction of f <= ftol"
-            break
-        pg = np.linalg.norm(np.clip(z - g, 0.0, 1.0) - z, np.inf)
-        if pg <= gtol:
+        elif np.linalg.norm(np.clip(z - g, 0.0, 1.0) - z, np.inf) <= gtol:
             converged = True
             message = "projected gradient <= gtol"
+        if on_state is not None:
+            D = z.shape[0]
+            on_state({"x": to_phys(z), "z": z, "f": np.float64(f), "g": g,
+                      "S": np.array(S).reshape(-1, D),
+                      "Y": np.array(Y).reshape(-1, D),
+                      "rho": np.array(rho, np.float64),
+                      "n_iters": np.int64(n_iters),
+                      "history": np.array(history, np.float64),
+                      "converged": np.bool_(converged),
+                      "message": np.str_(message)})
+        if callback is not None:
+            callback(n_iters, to_phys(z))
+        if converged:
             break
     return LbfgsResult(x=to_phys(z), loss=f, n_iters=n_iters,
                        n_evals=len(history), converged=bool(converged),
@@ -152,9 +180,12 @@ def minimize_lbfgsb(loss_and_grad: Callable[[np.ndarray],
                     maxiter: int = 100,
                     callback: Optional[Callable[[int, np.ndarray],
                                                 None]] = None,
-                    backend: str = "native") -> LbfgsResult:
-    """`callback(iteration, x)` fires once per L-BFGS iteration — the
-    checkpoint hook (reference saveLastIter, OptimizeHelper.cpp:528-533).
+                    backend: str = "native", state=None,
+                    on_state=None) -> LbfgsResult:
+    """`callback(iteration, x)` fires once per L-BFGS iteration.
+    `on_state` / `state` save and resume the native solver's whole state,
+    the checkpoint hook (reference saveLastIter, OptimizeHelper.cpp
+    :528-533; see minimize_lbfgsb_native).
 
     The solver runs in the unit box: parameters are affinely mapped to
     [0,1]^d by their bounds (gradients by the chain rule).  The physical
@@ -172,7 +203,11 @@ def minimize_lbfgsb(loss_and_grad: Callable[[np.ndarray],
         return minimize_lbfgsb_native(
             loss_and_grad, x0, lower, upper, ftol=ftol, m=m,
             max_linesearch=max_linesearch, gtol=max(gtol, 1e-12),
-            maxiter=maxiter, callback=callback)
+            maxiter=maxiter, callback=callback, state=state,
+            on_state=on_state)
+    if state is not None or on_state is not None:
+        raise ValueError("saving and resuming the solver's state needs "
+                         "backend='native'")
     history: List[float] = []
     it_count = [0]
 
@@ -214,6 +249,7 @@ class PopulationResult:
     losses: np.ndarray       # (P,) final losses
     messages: List[str]
     n_iters: np.ndarray      # (P,) accepted steps per candidate
+    converged: np.ndarray    # (P,) bool
     n_outer: int
     n_batched_evals: int
     best: LbfgsResult = None
@@ -344,5 +380,5 @@ def minimize_lbfgsb_population(batched_loss_and_grad, X0, lower, upper, *,
                        n_evals=n_evals, converged=bool(conv[b]),
                        message=msgs[b], loss_history=[float(F[b])])
     return PopulationResult(X=Xf, losses=F, messages=msgs, n_iters=iters,
-                            n_outer=n_outer, n_batched_evals=n_evals,
-                            best=best)
+                            converged=conv, n_outer=n_outer,
+                            n_batched_evals=n_evals, best=best)

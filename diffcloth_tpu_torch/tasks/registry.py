@@ -195,6 +195,28 @@ TSHIRT_GRID_STANDIN = SceneConfig(
     wind_config=WindConfig.WIND_SIN, time_step=1.0 / 90.0,
     step_num=250, name="tshirt_grid_standin")
 
+
+
+def dress_grid_standin(grid: int = 84) -> SceneConfig:
+    """The dress twirl (DRESS_SCENE: the DRESS_V7K_DRAPE physics, h =
+    1/120, 125 steps, TRAJECTORY_DRESS_TWIRL) on a grid x grid cloth of the
+    dress's 13 x 13 size, for checkouts without the dress mesh: 84 x 84 is
+    n = 7056, the size of the reference's 7k-vertex dress.  The dress's
+    attachment indices address its mesh, so the stand-in attaches the 31
+    middle vertices of the grid's top row (vertices 0 .. grid-1 of a FRONT
+    grid; all of them on a narrower grid), as many as the dress attaches."""
+    n_attached = min(len(DRESS_SCENE.custom_attachment_vertex_idx[0][1]),
+                     grid)
+    lo = (grid - n_attached) // 2
+    return _dc.replace(
+        DRESS_SCENE,
+        fabric=_dc.replace(DRESS_V7K_DRAPE, is_model=False, grid_num_x=grid,
+                           grid_num_y=grid, name="dress_grid_standin"),
+        custom_attachment_vertex_idx=(
+            (0.0, tuple(range(lo, lo + n_attached))),),
+        name="dress_grid_standin")
+
+
 # ---------------------------------------------------------------------------
 # demo -> task map (OptimizationTaskConfigurations.cpp:353-421)
 

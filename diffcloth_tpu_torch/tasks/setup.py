@@ -4,11 +4,10 @@ targets and scene primitives.
 Counterpart of `diffcloth_tpu/tasks/setup.py` (reference
 optimization/OptimizationTaskSetup.cpp: `setInitialConditions` :154-224,
 `setLossFunctionInformationAndType` :50-152; primitive placement
-`Simulation::initScene`, Simulation.cpp:1804-2067) for the single-stage
-demos: `wind`, `wind_sim2real` and `sphere` build from grids; `tshirt`,
-`slope`, `hat` and `sock` read mesh or position assets, and the builder
-raises FileNotFoundError where those are missing.  `dress` (the twirl
-trajectory and its mesh) raises NotImplementedError.
+`Simulation::initScene`, Simulation.cpp:1804-2067) for all eight demos:
+`wind`, `wind_sim2real` and `sphere` build from grids; `tshirt`, `slope`,
+`hat`, `sock` and `dress` read mesh or position assets, and the builder
+raises FileNotFoundError where those are missing.
 """
 from __future__ import annotations
 
@@ -30,8 +29,6 @@ from diffcloth_tpu_torch.geometry import builder as gb
 from diffcloth_tpu_torch.optim.helper import GradMask
 from diffcloth_tpu_torch.tasks import registry
 
-PORTED_DEMOS = ("wind", "wind_sim2real", "tshirt", "sphere", "slope", "hat",
-                "sock")
 # the demos whose episodes have wind (tasks/setup.py:189-191)
 WIND_DEMOS = ("wind", "tshirt", "wind_sim2real")
 # the slope plane's corners relative to its center (Simulation.h:474)
@@ -224,16 +221,16 @@ def _moved_spline(sim: ClothSim, translation, yup: float):
 
 
 def build_task(demo: str, dtype=torch.float32, device=None,
-               max_backward_iters: Optional[int] = None) -> TaskSetup:
+               keypoint_tau: float = 0.0,
+               max_backward_iters: Optional[int] = None,
+               **sim_kwargs) -> TaskSetup:
     """The demo's sim (on the card unless device="cpu"), mask, ground
     truth and loss target (a rollout of the ground truth where the task
-    generates one)."""
+    generates one).  `keypoint_tau` > 0 smooths the keypoint loss's hard
+    max into a softmax of that temperature (the sock demo); `sim_kwargs`
+    go to ClothSim (its size switches)."""
     if demo not in registry.DEMOS:
         raise KeyError(demo)
-    if demo not in PORTED_DEMOS:
-        raise NotImplementedError(
-            f"demo {demo!r} needs the dress twirl, which is not ported yet "
-            f"(ported: {', '.join(PORTED_DEMOS)})")
     device = resolve_device(device)
     task = registry.DEMOS[demo]
     cfg = task.scene
@@ -249,7 +246,7 @@ def build_task(demo: str, dtype=torch.float32, device=None,
         flags = dataclasses.replace(flags,
                                     max_backward_iters=max_backward_iters)
     sim = ClothSim(scene, flags=flags, prims=prims, spline_type=spline_type,
-                   device=device, dtype=dtype)
+                   device=device, dtype=dtype, **sim_kwargs)
     base = sim.default_params()
     loss_info = losses.LossInfo()
 
@@ -280,6 +277,21 @@ def build_task(demo: str, dtype=torch.float32, device=None,
         # DEMO_SPHERE_ROTATE (:178-184): friction system-ID
         mask = GradMask(mu_primitives=(0,))
         param_gt = mu_set(0, 0.3)
+    elif demo == "dress":
+        # DEMO_DRESS_TWIRL (:213-220): optimize density and k_bend; the
+        # loss holds the skirt's loop (the vertices within 1.2 of the
+        # lowest) at 0.3 of the rest height while the waist twirls
+        mask = GradMask(density=True, k_pertype=(False, False, False, True))
+        k = base.k_pertype.clone()
+        k[C_STRETCH] = 2.0
+        param_gt = base.replace(density=t(0.01), k_pertype=k)
+        loop = np.where(np.abs(scene.x_rest[:, 1] - scene.rest_min[1])
+                        < 1.2)[0]
+        loss_info = losses.LossInfo(
+            target_twirl_height=0.3,
+            loop_points=torch.as_tensor(loop.astype(np.int32),
+                                        device=device),
+            rest_min=t(scene.rest_min), rest_max=t(scene.rest_max))
     elif demo == "slope":
         # DEMO_SLOPE_PERF (:205-211): optimize friction; the target is the
         # cloth translated to the slope's end (:127-133)
@@ -312,7 +324,8 @@ def build_task(demo: str, dtype=torch.float32, device=None,
         loss_info = losses.LossInfo(
             keypoint_frames=torch.as_tensor(frames, device=device),
             keypoint_targets=t(targets),
-            keypoint_candidates=torch.as_tensor(cands, device=device))
+            keypoint_candidates=torch.as_tensor(cands, device=device),
+            keypoint_tau=keypoint_tau)
         r = 0.8
         foot_top = center + np.array([0.0, 5.0 + 2 * r, 0.0])
         sock_top = np.array([

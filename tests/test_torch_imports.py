@@ -32,8 +32,15 @@ for name in names:
 # the gradient path's modules are among them
 need = {"diffcloth_tpu_torch.losses", "diffcloth_tpu_torch.tasks.setup",
         "diffcloth_tpu_torch.optim.helper", "diffcloth_tpu_torch.optim.lbfgsb",
-        "diffcloth_tpu_torch.optim.solver", "diffcloth_tpu_torch.apps.optimize"}
+        "diffcloth_tpu_torch.optim.solver", "diffcloth_tpu_torch.apps.optimize",
+        "diffcloth_tpu_torch.io.export", "diffcloth_tpu_torch.io.viewer",
+        "diffcloth_tpu_torch.utils.checkpoint",
+        "diffcloth_tpu_torch.utils.timing"}
 assert need <= set(names), need - set(names)
+# the card's machine has none of these: no module may need them to import
+extra = [m for m in sys.modules
+         if m.split(".")[0] in ("matplotlib", "imageio", "orbax")]
+assert not extra, extra
 import chip_smoke
 
 from diffcloth_tpu_torch import config as tc

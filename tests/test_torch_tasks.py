@@ -3,8 +3,8 @@ primitive placement for every `PrimitiveConfig` branch, the lower-leg
 composite, and `build_task` for the obstacle demos against the JAX
 package's, on the CPU in f64.
 
-The `slope`, `hat` and `sock` demos read mesh or position assets that are
-not in the repository (their builds raise the builder's FileNotFoundError,
+The `slope`, `hat`, `sock` and `dress` demos read mesh or position assets
+that are not in the repository (their builds raise the builder's FileNotFoundError,
 tests/test_torch_optimize.py); here both packages' registries are patched
 to asset-free grid stand-ins of those scenes (the same obstacles,
 attachments, trajectory and physics; a grid of at least as many vertices
@@ -46,8 +46,11 @@ HOST_FIELDS = ("kind", "rotates", "enabled", "kinematic")
 PRIM_CONFIGS = ("PLANE_AND_SPHERE", "BIG_SPHERE", "PLANE_BUST_WEARHAT",
                 "SLOPE_SIMPLIFIED", "FOOT", "Y0PLANE")
 # grid sizes of the stand-ins: enough vertices for every index the task
-# names (hat attaches vertex 394, sock's keypoints reach 995)
-GRID = {"slope": 25, "hat": 25, "sock": 32, "tshirt": 25}
+# names (hat attaches vertex 394, sock's keypoints reach 995; the dress's
+# attachments, which address its mesh, become the middle DRESS_CLIPS
+# vertices of the grid's top row)
+GRID = {"slope": 25, "hat": 25, "sock": 32, "tshirt": 25, "dress": 8}
+DRESS_CLIPS = 4
 
 
 def grid_scene(m, pc):
@@ -126,7 +129,7 @@ def test_sock_keypoint_table(axis, step_num):
         assert abs(d - r) < 1e-9, d
 
 
-@pytest.mark.parametrize("demo", ["slope", "hat", "sock"])
+@pytest.mark.parametrize("demo", ["slope", "hat", "sock", "dress"])
 def test_asset_demos_raise_like_jax(demo):
     """Without their mesh or position assets, both builders raise
     FileNotFoundError for the same demos."""
@@ -146,6 +149,10 @@ def stand_in(m, reg, demo):
             scene.fabric, is_model=False, custom_init_pos=False,
             init_pos_file="", grid_num_x=GRID[demo], grid_num_y=GRID[demo])
         scene = dataclasses.replace(scene, fabric=fab)
+    if demo == "dress":
+        lo = (GRID[demo] - DRESS_CLIPS) // 2
+        scene = dataclasses.replace(scene, custom_attachment_vertex_idx=(
+            (0.0, tuple(range(lo, lo + DRESS_CLIPS))),))
     return dataclasses.replace(task, scene=scene)
 
 
@@ -170,7 +177,8 @@ def assert_value_equal(a, b, what, atol=ATOL):
                                err_msg=what)
 
 
-@pytest.mark.parametrize("demo", ["sphere", "slope", "hat", "sock"])
+@pytest.mark.parametrize("demo", ["sphere", "slope", "hat", "sock",
+                                  "dress"])
 def test_build_task_matches_jax(demo, stand_ins):
     stand_ins(demo)
     jt = jsetup.build_task(demo, dtype=jnp.float64, self_method="pallas",
@@ -207,7 +215,7 @@ def test_build_task_matches_jax(demo, stand_ins):
 
 
 @pytest.mark.parametrize("demo", ["wind", "wind_sim2real", "tshirt",
-                                  "sphere", "slope", "hat", "sock"])
+                                  "sphere", "slope", "hat", "sock", "dress"])
 def test_wind_enabled_per_demo(demo, stand_ins):
     """Wind acts only in the wind demos (tasks/setup.py:189-191)."""
     stand_ins(demo)
@@ -246,3 +254,89 @@ def test_x_fixed_seq_evaluates_the_spline_type():
     assert float((ends - xf).abs().max()) > 1e-3
     np.testing.assert_allclose(ends[-1].numpy(), xf[-1].numpy(), rtol=0,
                                atol=ATOL)
+
+
+def twirl_cfg(m, steps=7):
+    return m.SceneConfig(
+        fabric=m.FabricConfig(cloth_dim_x=3.0, cloth_dim_y=2.0,
+                              grid_num_x=6, grid_num_y=5, density=0.3),
+        attachment_points=m.AttachmentConfig.CUSTOM_ARRAY,
+        custom_attachment_vertex_idx=((0.0, (1, 2, 4, 9)),),
+        trajectory=m.TrajectoryConfig.TRAJECTORY_DRESS_TWIRL,
+        step_num=steps, name="twirl")
+
+
+def test_dress_twirl_x_fixed_seq_matches_jax():
+    """TRAJECTORY_DRESS_TWIRL: 0.02 rad per step about the vertical axis
+    through the rest shape's middle, single and batched."""
+    jsim = JaxSim(jgb.build_scene(twirl_cfg(jc)), dtype=jnp.float64)
+    tsim = TorchSim(tgb.build_scene(twirl_cfg(tc)), device="cpu", dtype=F64)
+    jxf = np.asarray(jsim.x_fixed_seq(jsim.default_params()))
+    xf = tsim.x_fixed_seq(tsim.default_params())
+    np.testing.assert_allclose(xf.numpy(), jxf, rtol=0, atol=ATOL)
+    batch = tsim.x_fixed_seq(tsim.default_params().expand(2))
+    assert tuple(batch.shape) == (2, 7, 4, 3)
+    np.testing.assert_array_equal(batch[1].numpy(), xf.numpy())
+    # heights stay, radii about the axis stay, the angle grows 0.02 a step
+    rest = tsim.stage_host.fixed_pos_rest
+    mid = tsim.scene_host.rest_mid
+    np.testing.assert_allclose(xf[..., 1].numpy(), np.broadcast_to(
+        rest[:, 1], (7, 4)), rtol=0, atol=ATOL)
+    rel = rest - mid
+    ang = np.arctan2(-(xf[-1, :, 2].numpy() - mid[2]),
+                     xf[-1, :, 0].numpy() - mid[0]) - np.arctan2(
+        -rel[:, 2], rel[:, 0])
+    np.testing.assert_allclose(np.mod(ang, 2 * np.pi), 0.14, atol=1e-12)
+
+
+def test_dress_task_episode_and_gradient_match_jax(stand_ins):
+    """The dress demo on an 8 x 8 grid stand-in: its DRESS_ANGLE loss and
+    the gradient over its mask (density, k_bend) against the JAX
+    package's.  Tolerances: the loss rtol 1e-6 and the gradient rtol 1e-5
+    of each class's entry (f64 episodes; the f32 friction sweep inside
+    both, as in tests/test_torch_sim.py)."""
+    stand_ins("dress")
+    jt = jsetup.build_task("dress", dtype=jnp.float64, self_method="pallas",
+                           self_friction_impl="pallas")
+    tt = tsetup.build_task("dress", dtype=F64, device="cpu")
+    assert tt.sim.cfg.trajectory == tc.TrajectoryConfig.TRAJECTORY_DRESS_TWIRL
+    assert int(tt.loss_info.loop_points.numel()) > 0
+    L, g = tt.sim.episode_value_and_grad(tt.loss_fn())(tt.param_gt)
+    jL, jg = jt.sim.episode_value_and_grad(jt.loss_fn())(jt.param_gt)
+    np.testing.assert_allclose(float(L), float(jL), rtol=1e-6)
+    for name in ("density", "k_pertype"):
+        np.testing.assert_allclose(getattr(g, name).numpy(),
+                                   np.asarray(getattr(jg, name)), rtol=1e-5,
+                                   atol=1e-12, err_msg=name)
+    assert float(g.density) != 0.0 and float(g.k_pertype[3]) != 0.0
+
+
+def test_keypoint_tau_smooths_the_sock_loss(stand_ins):
+    """keypoint_tau reaches the loss: on the same frames (the sock
+    stand-in's rest shape plus noise, numpy seed 5), the port task's
+    softmax loss at tau 0.5 equals the JAX task's and differs from the
+    hard max.  Tolerance rtol 1e-12 (the same f64 arithmetic)."""
+    import types
+
+    from diffcloth_tpu_torch import losses as tl
+    stand_ins("sock")
+    jt = jsetup.build_task("sock", dtype=jnp.float64, keypoint_tau=0.5,
+                           self_method="pallas", self_friction_impl="pallas")
+    tt = tsetup.build_task("sock", dtype=F64, device="cpu", keypoint_tau=0.5)
+    assert tt.loss_info.keypoint_tau == jt.loss_info.keypoint_tau == 0.5
+    rng = np.random.RandomState(5)
+    rest = tt.sim.scene_host.x_rest
+    frames = rest + 0.3 * rng.randn(STEPS + 1, tt.sim.n, 3)
+
+    def recs(f):
+        return types.SimpleNamespace(
+            x0=f(frames[0]), v0=f(np.zeros_like(rest)),
+            steps=types.SimpleNamespace(x=f(frames[1:]),
+                                        v=f(np.zeros_like(frames[1:]))))
+
+    soft = float(tt.loss_fn()(recs(torch.as_tensor)))
+    np.testing.assert_allclose(soft, float(jt.loss_fn()(recs(jnp.asarray))),
+                               rtol=1e-12)
+    hard = float(tl.make_loss_fn(tt.loss_type, dataclasses.replace(
+        tt.loss_info, keypoint_tau=0.0))(recs(torch.as_tensor)))
+    assert soft != hard
