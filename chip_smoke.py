@@ -22,7 +22,7 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      the floor of its unfused f32 instructions.
   3. forward path: `ClothSim(...).rollout` of a batch of 32 perturbed-wind
      episodes of the flagship stand-in (half of them starting folded half
-     over half) for 150 of its 250 steps on the card.  Launch counters are
+     over half) for 100 of its 250 steps on the card.  Launch counters are
      zeroed just before and read just after: detection runs once per step,
      friction once per PD sweep.
   4. profile: the first 10 steps of the same batch under torch.profiler
@@ -31,7 +31,7 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      episode through the plain versions on the CPU.
   6. gradient path: one batched value-and-grad through
      `OptimizeHelper.batched_loss_and_grad` (GradMask(f_wind=True)) of the
-     same 32 episodes, 150 steps, MATCH_TRAJECTORY against the base wind's
+     same 32 episodes, 100 steps, MATCH_TRAJECTORY against the base wind's
      rollout.  Counters zeroed just before and read just after: the
      backward friction kernel launches once per adjoint trip, GMRES matvec
      and residual VJP; the forward one once per PD sweep of the forward
@@ -112,7 +112,7 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         launches checked; then a 10-step profile without the P^{-1};
      c. gradient: the value-and-grad of the dress loss over its mask
         (density, k_bend), trips per step and GMRES fallbacks;
-     d. fit: solve_demo("dress"), 12 steps, 2 iterations, with export_dir,
+     d. fit: solve_demo("dress"), 8 steps, 2 iterations, with export_dir,
         checkpoint_dir and export_iters; resumed from its checkpoint to 3
         iterations; the exported final episode re-imported, equal to the
         rollout's records to the files' 8 decimals;
@@ -120,13 +120,13 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         (episode within 1e-6, gradients within 1e-6 of each class's
         largest entry).
  13. multistage: the flagship stand-in with two attachment stages (the
-     corners until mid-episode, then the top row's middle), B = 1, 30
+     corners until mid-episode, then the top row's middle), B = 1, 20
      steps: the f32 forward (the clips switch) and value-and-grad with
      launch checks, then f64 card against CPU over 4 steps from the flat
      state (bounded as 12e).
  14. ladder: solve_demo_tau_ladder("sock") on the sock stand-in (a 32 x 32
-     grid, the FOOT primitives, 10 steps), population 4, two rungs of two
-     iterations.
+     grid, the FOOT primitives, 6 steps), population 4, two rungs of one
+     iteration.
  15. obstacles: the slope stand-in on its plane, a grid dropped on the
      FOOT capsules, one dropped into the Y0PLANE bowl, and the sphere
      scene's corners on a CORNERS_2_WEARHAT trajectory under
@@ -134,18 +134,46 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      against CPU over 6 steps (bounded as 12e).
  16. precision: the f32 value-and-grad against the f64 one and f64
      central differences (one entry per parameter class), on the flagship
-     stand-in (5 steps) and the sphere path (20 steps); reported, not
+     stand-in (3 steps) and the sphere path (20 steps); reported, not
      bounded.
+ 17. control (the closed-loop hat controller on `registry.hat_grid_standin`:
+     HAT_SCENE's physics, bust and clips on a 25 x 25 grid, n = 625):
+     a. kernels: phase 2's checks at its shapes (B = 4: a controller start
+        pose, the grid folded, the hat on the bust in the head sphere's
+        contact band, the folded grid there too);
+     b. facade and bridge, f64 on the card and the CPU: 20
+        `SimulationAPI.step_nn` steps and one `step_backward_nn`, then
+        `PySim` over 5 steps with a scalar loss; states and cotangents
+        within 1e-6;
+     c. training: `hat_controller.train` for 3 epochs, B = 4 poses, 2
+        validation poses, seed 0, 100 of the hat's 400 steps; per epoch the
+        losses, gradient norms and episode-gradient steps/s; then one
+        `loss_and_grad` with the counters zeroed just before and read just
+        after (detection once per step, the forward sweep once per PD
+        sweep plus two per residual VJP, the backward sweep once per trip,
+        GMRES matvec and residual VJP); every gradient finite; and its
+        profile over 10 steps;
+     d. eval: one 400-step closed-loop episode of the trained controller
+        rendered to a GIF, its loss;
+     e. the GMRES adjoint: the flagship stand-in's batched value-and-grad
+        (B = 4, half folded, 10 steps, GradMask(f_wind=True)) in "gmres"
+        against "fp", f32 (trips, matvecs, cosine: reported, not bounded);
+        "gmres" in f64, card against CPU (2 steps, the adjoint to 1e-12;
+        bounded as 12e);
+     f. parallel: `parallel/mesh.py` on a world-size-1 NCCL group: the
+        dp = 1 objective equal to the plain batched one and the tp = 1
+        row-sharded solve equal to the dense P^{-1} product, exactly.
 
 `--only PATH,...` runs some of the paths while iterating (flagship:
 phases 2-9, sphere, large, dress, multistage, ladder, obstacles,
-precision); the acceptance run takes no arguments.
+precision, control); the acceptance run takes no arguments.
 
 Prints one JSON line `{"kernels": [...]}` (each kernel's launches counted
 on the path that runs it: the forward path for detection and the forward
 sweep, the gradient path for the backward sweep, phase 11 for the sweeps'
 global-state route, whose entries carry "state": "global", phase 12 for
-the dress stand-in's, named with "_dress"), the nvidia-smi line, and last
+the dress stand-in's, named with "_dress", phase 17c's loss_and_grad for
+the control path's, named with "_control"), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Needs one card; imports nothing of JAX.
 """
 import argparse
@@ -185,7 +213,7 @@ FRICTION_BWD_OPS_PER_SLOT = 114
 # episodes of the main path's batch (perturbed winds, half starting folded)
 # and their depth (of the scene's 250 steps)
 BATCH = 32
-FLAGSHIP_STEPS = 150
+FLAGSHIP_STEPS = 100
 # the flagship's base wind; the batch's winds are perturbations of it
 BASE_WIND = [0.04, 0.004, 0.04]
 # episodes of the sphere path's batch: friction coefficients
@@ -215,21 +243,37 @@ LARGE_REF_STEPS = 1
 # its fit (solve_demo, of its 125 steps) and of its f64 card-vs-CPU check
 DRESS_GRID = 84
 DRESS_PROFILE_STEPS = 10
-DRESS_FIT_STEPS = 12
+DRESS_FIT_STEPS = 8
 DRESS_REF_STEPS = 1
 # the adjoint tolerance of the card-against-CPU f64 references (phase 9's)
 REF_ADJOINT_EPS = 1e-8
 # phase 13: the two-stage scene's f32 depth and its f64 reference's
-MULTI_STEPS = 30
+MULTI_STEPS = 20
 MULTI_REF_STEPS = 4
 # phase 14: the sock stand-in's depth in the tau ladder (of its 400 steps)
-LADDER_STEPS = 10
+LADDER_STEPS = 6
 # phase 15: the obstacle scenes' f32 depth and their f64 reference's
 OBSTACLE_STEPS = 30
 OBSTACLE_REF_STEPS = 6
 # phase 16: the depths of the f32-against-f64 gradients
-PRECISION_STEPS = 5
+PRECISION_STEPS = 3
 SPHERE_PRECISION_STEPS = 20
+# phase 17 (the control path, the hat stand-in): the training batch, the
+# validation poses, the epochs and the horizon (of the hat's 400 steps);
+# the facade's steps and the bridge's; the GMRES comparison's depth and
+# batch (the flagship stand-in) and its f64 reference's depth; the
+# world-size-1 NCCL objective's depth
+HAT_BATCH = 4
+HAT_VAL = 2
+HAT_EPOCHS = 3
+HAT_STEPS = 100
+CONTROL_PROFILE_STEPS = 10
+FACADE_STEPS = 20
+BRIDGE_STEPS = 5
+GMRES_STEPS = 10
+GMRES_BATCH = 4
+GMRES_REF_STEPS = 2
+PARALLEL_STEPS = 5
 # the forward path's hand-written kernels: (name, symbol substring)
 FORWARD_KERNELS = (("selfcol_detect", "detect_kernel"),
                    ("friction_fwd", "friction_kernel"))
@@ -1032,11 +1076,10 @@ def pd_sweeps(iters, sim):
     """Launches of the forward sweep per step: the PD loop of a step sweeps
     until its slowest episode is done, rounded up to the host's check
     interval."""
-    from diffcloth_tpu_torch.config import pd_total_iters
     from diffcloth_tpu_torch.core import step as step_mod
     ce = step_mod.CHECK_EVERY
     return np.minimum(-(-iters.max(axis=0) // ce) * ce,
-                      pd_total_iters(sim.eps_forward))
+                      sim.max_forward_iters)
 
 
 def phase_sphere_forward(card, B, steps=None, device=None):
@@ -2088,7 +2131,7 @@ def sock_standin():
 def phase_ladder(card):
     """Phase 14: solve_demo_tau_ladder("sock") on the sock stand-in cut to
     LADDER_STEPS steps, population 4, two rungs (tau 0.5, then the hard
-    max) of two iterations each, on the card."""
+    max) of one iteration each, on the card."""
     from diffcloth_tpu_torch.optim.solver import solve_demo_tau_ladder
 
     def report(r, tau, k, X, F):
@@ -2097,7 +2140,7 @@ def phase_ladder(card):
 
     with demo_steps("sock", LADDER_STEPS, sock_standin()):
         res = solve_demo_tau_ladder("sock", taus=(0.5, 0.0),
-                                    maxiter_per_rung=2, final_maxiter=2,
+                                    maxiter_per_rung=1, final_maxiter=1,
                                     population=4, callback=report)
     rungs = res.rungs
     hard = [r["hard_max_loss"] for r in rungs]
@@ -2321,8 +2364,383 @@ def phase_precision(card):
                      f"mu at 0.5)", *gradients(helpers, np.array([0.5]), [0]))
 
 
+def hat_task(dtype, device):
+    """build_task("hat") on the hat's grid stand-in (registry.
+    hat_grid_standin: HAT_SCENE's physics, bust and clips on a 25 x 25
+    grid, n = 625; the hat mesh is not in the repository)."""
+    from diffcloth_tpu_torch.tasks.registry import hat_grid_standin
+    from diffcloth_tpu_torch.tasks.setup import build_task
+    return build_task("hat", dtype=dtype, device=device,
+                      scene=hat_grid_standin())
+
+
+def control_states(prob, rng):
+    """17a's (4, n, 3) positions: a controller start pose (sample_pose),
+    the grid folded half over half, the hat on the bust (the loss's
+    target: inside the head sphere's contact band) and the folded grid
+    moved there too."""
+    import torch
+    from diffcloth_tpu_torch.apps import hat_controller as hc
+    sim = prob.sim
+    folded = initial_states(sim, 1)[0]
+    shift = (prob.target - prob.x0).mean(dim=0).cpu().numpy()
+    pose = hc.sample_pose(prob, rng)[0].cpu().numpy()
+    target = prob.target.to(torch.float64).cpu().numpy()
+    return np.stack([pose, folded, target, folded + shift])
+
+
+def phase_control_facade(card):
+    """17b: the facade and the bridge on the hat stand-in in f64, on the
+    card and on the CPU: FACADE_STEPS `SimulationAPI.step_nn` steps with
+    the clips raised a little every step, one `step_backward_nn` of the
+    last, then `PySim` over BRIDGE_STEPS steps from the start with a
+    scalar loss of the last state, its x0 and clip-target gradients
+    (after the bridge's dL/da clamp).  The card within 1e-6 of the CPU on
+    the states and of each cotangent's largest entry."""
+    import torch
+    from diffcloth_tpu_torch.api.pysim import SimulationAPI
+    from diffcloth_tpu_torch.api.torch_bridge import PySim
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        api = SimulationAPI(hat_task(torch.float64, dev))
+        lift = torch.tensor([0.0, 0.02, 0.0], dtype=torch.float64,
+                            device=api.sim.device)
+        a0 = api.get_state_info().x_fixedpoints.reshape(-1, 3)
+        for k in range(1, FACADE_STEPS + 1):
+            info = api.get_state_info()
+            api.step_nn(k, info.x, info.v, (a0 + k * lift).reshape(-1))
+        recs = api.forward_records
+        rng = np.random.RandomState(5)
+        g = torch.as_tensor(rng.randn(recs[-1].x.shape[0]),
+                            device=api.sim.device)
+        back = api.step_backward_nn(FACADE_STEPS, recs[-2].x, recs[-2].v,
+                                    recs[-1].x_fixedpoints, g,
+                                    torch.zeros_like(g))
+        api.reset_system()
+        module = PySim(api)
+        info = api.get_state_info()
+        x0 = info.x.clone().requires_grad_(True)
+        x, v = x0, info.v
+        clips = []
+        for k in range(1, BRIDGE_STEPS + 1):
+            a = (a0 + k * lift).reshape(-1).clone().requires_grad_(True)
+            clips.append(a)
+            x, v = module(x, v, a)
+        loss = (x * g).sum() + 0.5 * (v * v).sum()
+        loss.backward()
+        if api.sim.device.type == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = {"states": torch.stack([r.x for r in recs]).cpu(),
+                    "dx": back[0].cpu(), "dv": back[1].cpu(),
+                    "da": back[2].cpu(), "bridge_x0": x0.grad.cpu(),
+                    "bridge_a": torch.stack([a.grad for a in clips]).cpu(),
+                    "loss": float(loss.detach()),
+                    "s": time.perf_counter() - t0}
+    c, g = out["cpu"], out["cuda"]
+    err = float((g["states"] - c["states"]).abs().max())
+    rel = {k: float((g[k] - c[k]).abs().max())
+           / max(float(c[k].abs().max()), 1e-300)
+           for k in ("dx", "dv", "da", "bridge_x0", "bridge_a")}
+    moved = float((c["states"][-1] - c["states"][0]).abs().max())
+    if not all(np.isfinite(list(rel.values()))) or err > 1e-6 or \
+            max(rel.values()) > 1e-6 or moved == 0.0 or \
+            float(c["da"].abs().max()) == 0.0:
+        raise AssertionError(f"[control-facade] card vs CPU: states {err}, "
+                             f"cotangents {rel}, moved {moved}")
+    log(f"[control-facade] hat stand-in, f64: {FACADE_STEPS} step_nn steps "
+        f"and one step_backward_nn, then PySim over {BRIDGE_STEPS} steps; "
+        f"card {g['s']:.1f} s, CPU {c['s']:.1f} s; card vs CPU states max "
+        f"|dx| {err:.3e} (tolerance 1e-6), the clips moved the cloth "
+        f"{moved:.3f}; cotangents max error / largest entry (tolerance "
+        f"1e-6): " + ", ".join(f"{k} {v:.1e}" for k, v in rel.items())
+        + f"; bridge loss card {g['loss']:.10e}, CPU {c['loss']:.10e}")
+
+
+def phase_control_train(card):
+    """17c: `train()` on the hat stand-in, f32 on the card, HAT_EPOCHS
+    epochs of HAT_BATCH poses (HAT_VAL validation poses, seed 0) over
+    HAT_STEPS of the hat's 400 steps; each epoch's episode-gradient
+    steps/s and shares.  Then the trained controller's `loss_and_grad`
+    once more with the counters zeroed just before and read just after:
+    detection once per step, the forward sweep once per PD sweep plus two
+    per residual VJP, the backward sweep once per adjoint trip, GMRES
+    matvec and residual VJP.  Returns (launches, the controller, the
+    temporary directory holding controller.pkl)."""
+    import tempfile
+    import torch
+    from diffcloth_tpu_torch.apps import hat_controller as hc
+    task = hat_task(torch.float32, "cuda")
+    prob = hc.make_problem(task, HAT_STEPS)
+    sim = prob.sim
+    tmp = tempfile.TemporaryDirectory()
+    grads = []
+
+    def on_epoch(epoch, pg):
+        finite = all(bool(torch.isfinite(g).all()) for g in pg.grads)
+        if not (finite and np.isfinite(pg.sample_gnorms).all()
+                and bool(torch.isfinite(pg.loss))):
+            raise AssertionError(f"epoch {epoch}: a non-finite gradient")
+        wall = pg.forward_s + pg.backward_s
+        grads.append(wall)
+        log(f"[control-train] epoch {epoch}: loss_and_grad {wall:.2f} s, "
+            f"{HAT_BATCH * prob.n_steps / wall:.1f} episode-gradient "
+            f"steps/s (forward {100 * pg.forward_s / wall:.1f} %, backward "
+            f"{100 * pg.backward_s / wall:.1f} %), PD sweeps per step "
+            f"{pg.iters.float().mean():.2f}")
+
+    t0 = time.perf_counter()
+    res = hc.train(prob, hc.TrainConfig(
+        epochs=HAT_EPOCHS, train_samples=HAT_BATCH, val_samples=HAT_VAL,
+        seed=0, out=tmp.name), log=lambda m: log(f"[control-train] {m}"),
+        on_epoch=on_epoch)
+    wall = time.perf_counter() - t0
+    hist = res["log"]
+    if len(hist) != HAT_EPOCHS or not all(
+            np.isfinite([e["train"], e["val"], e["gnorm"]]).all()
+            for e in hist):
+        raise AssertionError(f"the training log {hist}")
+    log(f"[control-train] hat stand-in (n = {sim.n}, {prob.n_steps} of "
+        f"{sim.n_steps} steps, B = {HAT_BATCH}, {HAT_VAL} validation poses) "
+        f"on {card}: {HAT_EPOCHS} epochs in {wall:.1f} s; train loss "
+        + " -> ".join(f"{e['train']:.5f}" for e in hist) + "; val "
+        + " -> ".join(f"{e['val']:.5f}" for e in hist))
+    xs, aas = hc.stack_poses(prob, np.random.RandomState(3), HAT_BATCH)
+    torch.cuda.synchronize()
+    zero_counters()
+    sim.bwd_stats.reset()
+    t0 = time.perf_counter()
+    pg = hc.loss_and_grad(prob, res["controller"], xs, aas)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    st = sim.bwd_stats.summary()
+    if not all(bool(torch.isfinite(g).all()) for g in pg.grads):
+        raise AssertionError("a non-finite policy gradient")
+    sweeps = int(pd_sweeps(pg.iters.cpu().numpy(), sim).sum())
+    check_launches("control", launches, prob.n_steps, sweeps, st)
+    log(f"[control] loss_and_grad of the trained controller, {prob.n_steps} "
+        f"steps x B={HAT_BATCH} on {card}: {wall:.2f} s, "
+        f"{HAT_BATCH * prob.n_steps / wall:.1f} episode-gradient steps/s "
+        f"(forward {pg.forward_s:.2f} s, backward {pg.backward_s:.2f} s); "
+        f"loss {float(pg.loss):.5f}, per-sample gradient norms "
+        f"{np.array2string(pg.sample_gnorms, precision=4)}, dropped "
+        f"{int(pg.dropped.sum())}; {sweeps / prob.n_steps:.2f} PD sweeps "
+        f"per step; adjoint {st['lane_trips'] / max(st['lane_steps'], 1):.2f}"
+        f" trips per episode-step, {st['fallback_lanes']:.0f} of "
+        f"{st['lane_steps']:.0f} to GMRES ({st['gmres_matvecs']:.0f} "
+        f"matvecs); launches {launches}")
+    return launches, res["controller"], tmp
+
+
+def phase_control_profile(card, ctrl):
+    """17c': where the time of one loss_and_grad goes: the trained
+    controller on CONTROL_PROFILE_STEPS steps of HAT_BATCH poses under
+    torch.profiler (device activity alone)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from diffcloth_tpu_torch.apps import hat_controller as hc
+    prob = hc.make_problem(hat_task(torch.float32, "cuda"),
+                           CONTROL_PROFILE_STEPS)
+    xs, aas = hc.stack_poses(prob, np.random.RandomState(3), HAT_BATCH)
+    hc.loss_and_grad(prob, ctrl, xs, aas)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pg = hc.loss_and_grad(prob, ctrl, xs, aas)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = profiled_ops(prof)
+    busy_ms = sum(ms for _, ms, _ in ops)
+    if busy_ms == 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"[control-profile] loss_and_grad, {prob.n_steps} steps x "
+        f"B={HAT_BATCH} on {card}: wall {wall_ms:.1f} ms (forward "
+        f"{pg.forward_s * 1e3:.1f}, backward {pg.backward_s * 1e3:.1f}; "
+        f"inflated by the profiler), device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f} %), "
+        f"{sum(c for _, _, c in ops)} device launches")
+    log_breakdown("control-profile", ops, FORWARD_KERNELS
+                  + (("friction_bwd", "friction_bwd_kernel"),))
+
+
+def phase_control_eval(card, pkl):
+    """17d: one full 400-step closed-loop episode of the trained
+    controller (`evaluate`), rendered to a GIF."""
+    import torch
+    from diffcloth_tpu_torch.apps import hat_controller as hc
+    prob = hc.make_problem(hat_task(torch.float32, "cuda"))
+    gif = os.path.join(os.path.dirname(pkl), "eval.gif")
+    t0 = time.perf_counter()
+    res = hc.evaluate(prob, pkl, seed=0, gif=gif,
+                      log=lambda m: log(f"[control-eval] {m}"))
+    if not (np.isfinite(res["loss"]) and np.isfinite(res["frames"]).all()
+            and res["frames"].shape == (prob.n_steps + 1, prob.sim.n, 3)):
+        raise AssertionError(f"the eval episode: loss {res['loss']}")
+    log(f"[control-eval] {prob.n_steps}-step episode on {card} and its GIF "
+        f"({os.path.getsize(gif)} bytes, every 8th frame) in "
+        f"{time.perf_counter() - t0:.1f} s; loss {res['loss']:.5f}")
+
+
+def gmres_sim(dtype, device, steps, mode, eps_backward=None,
+              max_backward_iters=64):
+    """The flagship stand-in cut to `steps` steps, its adjoint in `mode`."""
+    import dataclasses
+    from diffcloth_tpu_torch.config import SimFlags
+    from diffcloth_tpu_torch.core.sim import ClothSim
+    from diffcloth_tpu_torch.geometry import builder as gb
+    from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
+    cfg = dataclasses.replace(TSHIRT_GRID_STANDIN, step_num=steps)
+    return ClothSim(gb.build_scene(cfg), device=device, dtype=dtype,
+                    eps_backward=eps_backward,
+                    flags=SimFlags(wind_enabled=True, adjoint_mode=mode,
+                                   max_backward_iters=max_backward_iters))
+
+
+def phase_control_gmres(card):
+    """17e: the GMRES adjoint.  The flagship stand-in (B = GMRES_BATCH, half
+    folded, GMRES_STEPS steps): the batched value-and-grad of
+    GradMask(f_wind=True) against the base wind's rollout in "gmres" and in
+    "fp", f32 on the card, their trips, matvecs and cosine (reported, not
+    bounded); then "gmres" in f64, card against CPU (GMRES_REF_STEPS steps
+    from the folded state, the adjoint to 1e-12), bounded as 12e."""
+    import torch
+    from diffcloth_tpu_torch.optim.helper import GradMask, OptimizeHelper
+    out = {}
+    for mode in ("fp", "gmres"):
+        sim = gmres_sim(torch.float32, "cuda", GMRES_STEPS, mode)
+        params = episode_params(sim, GMRES_BATCH)
+        helper = OptimizeHelper(sim, GradMask(f_wind=True),
+                                base_wind_target(sim, params),
+                                param_base=params)
+        X = np.stack([helper.params_to_vec(params.sample(i))
+                      for i in range(GMRES_BATCH)])
+        torch.cuda.synchronize()
+        zero_counters()
+        sim.bwd_stats.reset()
+        t0 = time.perf_counter()
+        L, G = helper.batched_loss_and_grad(X)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = sim.bwd_stats.summary()
+        launches = read_counters()
+        if not (np.isfinite(L).all() and np.isfinite(G).all()):
+            raise AssertionError(f"[control-gmres] {mode}: non-finite")
+        if launches["friction_bwd"] != st["launches"]:
+            raise AssertionError(f"[control-gmres] {mode}: friction_bwd "
+                                 f"{launches} vs {st}")
+        out[mode] = G
+        log(f"[control-gmres] {mode}, f32, {GMRES_STEPS} steps x "
+            f"B={GMRES_BATCH} on {card}: {wall:.2f} s; loss mean "
+            f"{L.mean():.6e}; {st['trips']:.0f} fixed-point trips, "
+            f"{st['gmres_cycles']:.0f} GMRES cycles over the batch, "
+            f"{st['gmres_matvecs']:.0f} GMRES matvecs, "
+            f"{st['lane_trips'] / st['lane_steps']:.2f} trips (fp) or cycles "
+            f"(gmres) per episode-step, {st['residual_vjps']:.0f} residual "
+            f"VJPs; friction_bwd {launches['friction_bwd']}")
+    a, b = out["fp"].reshape(-1), out["gmres"].reshape(-1)
+    cos = float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-300))
+    per = [float(x @ y / max(np.linalg.norm(x) * np.linalg.norm(y), 1e-300))
+           for x, y in zip(out["fp"], out["gmres"])]
+    log(f"[control-gmres] cosine(fp, gmres) of the batch's wind gradients "
+        f"{cos:.8f}, per episode {np.array2string(np.array(per), precision=6)}"
+        f"; max |gmres - fp| / max |fp| "
+        f"{np.abs(b - a).max() / max(np.abs(a).max(), 1e-300):.3e} "
+        f"(reported, not bounded)")
+
+    def make(dev):
+        # run to convergence (1e-12, up to 22 GMRES(16) cycles): at
+        # REF_ADJOINT_EPS the two devices' cycles can stop on either side
+        # of a threshold (on an H100 80GB HBM3, x0's gradient came 3.0e-6
+        # of its largest entry apart)
+        sim = gmres_sim(torch.float64, dev, GMRES_REF_STEPS, "gmres",
+                        eps_backward=1e-12, max_backward_iters=400)
+        return sim, folded_params(sim), squared_positions
+
+    phase_card_vs_cpu("control-gmres-reference", make)
+
+
+def phase_control_parallel(card):
+    """17f: parallel/mesh.py on a world-size-1 NCCL group on the one card:
+    the dp = 1 `batched_value_and_grad` equal to the plain batched
+    value-and-grad averaged over the batch, exactly; the tp = 1
+    `make_tp_solve` equal to the dense P^{-1} product, exactly."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from diffcloth_tpu_torch.core import dense_ops as dn
+    from diffcloth_tpu_torch.parallel import mesh as pmesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    pmesh.initialize_distributed("nccl", f"tcp://localhost:{port}", 1, 0)
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        sim = flagship(torch.float32, "cuda", PARALLEL_STEPS)
+        params = episode_params(sim, 2)
+        loss_fn = base_wind_target(sim, params)
+        p_inv = sim.p_inv(params)
+        L, g = pmesh.batched_value_and_grad(sim, loss_fn, mesh)(params,
+                                                                p_inv)
+        L_ref, g_ref = sim.episode_value_and_grad(loss_fn)(params)
+        diffs = {k: float((getattr(g, k) - v.mean(dim=0)).abs().max())
+                 for k, v in g_ref.items()}
+        if not torch.equal(L, L_ref) or max(diffs.values()) != 0.0:
+            raise AssertionError(f"[control-parallel] dp=1 vs plain: losses "
+                                 f"{L} vs {L_ref}, gradients {diffs}")
+        rhs = torch.randn((2, sim.n, 3), device=sim.device,
+                          generator=torch.Generator(
+                              sim.device).manual_seed(0))
+        tp = pmesh.make_tp_solve(mesh.tp_group)(p_inv, rhs)
+        dense = dn.mm(p_inv, rhs)
+        if not torch.equal(tp, dense):
+            raise AssertionError(f"[control-parallel] tp=1 solve differs "
+                                 f"by {float((tp - dense).abs().max())}")
+        log(f"[control-parallel] NCCL world size 1 on {card}: dp = 1 "
+            f"batched_value_and_grad ({PARALLEL_STEPS} steps, B = 2) equals "
+            f"the plain one exactly (losses {L.tolist()}, |dL/dwind| max "
+            f"{float(g.wind.abs().max()):.4e}); the tp = 1 row-sharded solve "
+            f"equals the dense P^-1 product exactly")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_control(card, timed):
+    """Phase 17, the control path (the closed-loop hat controller on the
+    hat stand-in).  Returns the JSON line's entries of the three kernels at
+    its shapes (names ending "_control"), their launches counted around
+    17c's loss_and_grad."""
+    import torch
+    from diffcloth_tpu_torch.apps import hat_controller as hc
+    with timed("control kernels"):
+        task = hat_task(torch.float32, "cuda")
+        prob = hc.make_problem(task, HAT_STEPS)
+        rng = np.random.RandomState(8)
+        x0 = control_states(prob, rng)
+        mu = task.sim.prims.mu.cpu().numpy()[None].repeat(len(x0), 0)
+        entries = phase_kernels("control-kernels", task.sim, x0, rng, mu=mu,
+                                suffix="_control")
+        del task, prob
+    with timed("control facade"):
+        phase_control_facade(card)
+    with timed("control train"):
+        launches, ctrl, tmp = phase_control_train(card)
+    with timed("control profile"):
+        phase_control_profile(card, ctrl)
+    with timed("control eval"):
+        phase_control_eval(card, os.path.join(tmp.name, "controller.pkl"))
+    tmp.cleanup()
+    with timed("control gmres"):
+        phase_control_gmres(card)
+    with timed("control parallel"):
+        phase_control_parallel(card)
+    for e in entries:
+        e["launches"] = launches[e["name"][:-len("_control")]]
+    return entries
+
+
 PATHS = ("flagship", "sphere", "large", "dress", "multistage", "ladder",
-         "obstacles", "precision")
+         "obstacles", "precision", "control")
 
 
 def main():
@@ -2407,6 +2825,8 @@ def main():
     if "precision" in only:
         with timed("precision"):
             phase_precision(card)
+    if "control" in only:
+        kernels += run_control(card, timed)
     torch.cuda.empty_cache()
     log(f"[time] all phases {timed.total:.1f} s")
 

@@ -8,12 +8,15 @@ packages compute the same episode.  `sim_params_to_numpy` is its inverse,
 for the port's parameters and its gradients alike (a dict that the JAX
 `SimParams(**d)` takes).  `primitive_set_from_numpy` carries a JAX
 `PrimitiveSet` (`p._asdict()`, arrays as numpy) across the same way, so
-that both packages simulate the same obstacles.  Nothing here imports JAX.
+that both packages simulate the same obstacles.  `controller_from_numpy`
+and `controller_to_numpy` move the hat controller's weights the same way,
+in the JAX app's `controller.pkl` format (a list of {"w": (in, out),
+"b": (out,)} numpy dicts, one per layer).  Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -63,3 +66,24 @@ def primitive_set_from_numpy(fields: Mapping[str, np.ndarray],
             out[f.name] = torch.as_tensor(np.array(a)).to(device=device,
                                                           dtype=dtype)
     return PrimitiveSet(**out)
+
+
+def controller_from_numpy(layers: List[Mapping[str, np.ndarray]],
+                          device=None, dtype=torch.float32):
+    """The JAX app's controller weights -> the port's `Controller`, on the
+    card unless `device` says otherwise."""
+    from diffcloth_tpu_torch.apps.hat_controller import Controller
+    device = resolve_device(device)
+    widths = [np.shape(layers[0]["w"])[0]] + [np.shape(d["w"])[1]
+                                               for d in layers]
+    ctrl = Controller(widths, dtype, device)
+    with torch.no_grad():
+        for p, a in zip(ctrl.layers(),
+                        [a for d in layers for a in (d["w"], d["b"])]):
+            p.copy_(torch.as_tensor(np.asarray(a)))
+    return ctrl
+
+
+def controller_to_numpy(ctrl) -> List[Dict[str, np.ndarray]]:
+    ws = [p.detach().cpu().numpy() for p in ctrl.layers()]
+    return [{"w": ws[i], "b": ws[i + 1]} for i in range(0, len(ws), 2)]

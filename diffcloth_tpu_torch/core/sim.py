@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from diffcloth_tpu_torch.config import (SimFlags, SplineType,
-                                        TrajectoryConfig, WindConfig)
+                                        TrajectoryConfig, WindConfig,
+                                        pd_total_iters)
 from diffcloth_tpu_torch.core import contact as ct
 from diffcloth_tpu_torch.core import dense_ops as dn
 from diffcloth_tpu_torch.core import diagnostics as diag
@@ -154,12 +155,18 @@ class ClothSim:
     "matrix" are "kernel" here and raise).  The choices are recorded as
     `solve_mode`, `dense`, `sparse` and `self_cfg.method`; with several
     attachment stages `dense` / `sparse` / `step` are stage 0's and
-    `dense_list` / `sparse_list` / `steps` hold every stage's.  Not ported,
-    and raising: the gather/scatter operator path (dense_ops=False with
-    sparse_ops=False), `SimFlags.adjoint_mode` "gmres"; the JAX ClothSim's
-    other arguments (eps and iteration overrides, solve_fn,
-    plateau_window, the self-collision capacity and friction
-    implementation options) are not arguments here."""
+    `dense_list` / `sparse_list` / `steps` hold every stage's.
+
+    The JAX ClothSim's solver arguments: `eps_forward` / `eps_backward`
+    (None: the scene's thresholds; in f32 the forward one is floored at
+    1e-6, an override too), `max_forward_iters` (None: the flags', else
+    -log10(eps_forward) * 150), `plateau_window` and `solve_fn` (see
+    core/step.make_step; the tensor-parallel solve of parallel/mesh.py).
+    Not ported, and raising: the gather/scatter operator path
+    (dense_ops=False with sparse_ops=False); the JAX ClothSim's TPU
+    self-collision tuning options (`self_ablate`, `self_friction_unroll`,
+    `self_friction_impl`, `self_compact_*`, `self_max_layers`,
+    `self_k_partners`) are not arguments here."""
 
     def __init__(self, scene: gb.Scene, *, flags: Optional[SimFlags] = None,
                  prims: Optional[ct.PrimitiveSet] = None,
@@ -169,7 +176,12 @@ class ClothSim:
                  cg_rtol: float = 1e-6, dense_ops: Optional[bool] = None,
                  sparse_ops: Optional[bool] = None,
                  self_method: Optional[str] = None, self_window: int = 48,
-                 self_cap_pairs: Optional[int] = None):
+                 self_cap_pairs: Optional[int] = None,
+                 eps_forward: Optional[float] = None,
+                 eps_backward: Optional[float] = None,
+                 max_forward_iters: Optional[int] = None,
+                 plateau_window: int = step_mod.PLATEAU_WINDOW,
+                 solve_fn=None):
         self.device = resolve_device(device)
         set_full_f32_matmul()
         cfg = scene.cfg
@@ -183,12 +195,17 @@ class ClothSim:
         self.n = scene.n
         self.n_steps = cfg.step_num
         # f32 cannot resolve displacement deltas below ~1e-7 of |x|; floor
-        # the forward tolerance (sim.py:141-147); f64 keeps the config's
-        eps_f = cfg.forward_convergence_thresh
+        # the forward tolerance (sim.py:141-150); f64 keeps the config's
+        eps_f = (cfg.forward_convergence_thresh if eps_forward is None
+                 else eps_forward)
         if dtype == torch.float32:
             eps_f = max(eps_f, 1e-6)
         self.eps_forward = eps_f
-        self.eps_backward = cfg.backward_convergence_thresh
+        self.eps_backward = (cfg.backward_convergence_thresh
+                             if eps_backward is None else eps_backward)
+        self.max_forward_iters = (max_forward_iters
+                                  or self.flags.max_forward_iters
+                                  or pd_total_iters(eps_f))
 
         dev = self.device
         self.scene_dev = scene_to_device(scene, dtype, dev)
@@ -300,6 +317,8 @@ class ClothSim:
                 eps_backward=self.eps_backward, self_cfg=self.self_cfg,
                 sparse=sp_s, solve_mode=solve_mode,
                 cg_max_iters=cg_max_iters, cg_rtol=cg_rtol,
+                max_forward_iters=self.max_forward_iters,
+                plateau_window=plateau_window, solve_fn=solve_fn,
                 stats=self.bwd_stats)
             self.steps.append(st)
             self.residuals.append(res)
@@ -494,9 +513,11 @@ class ClothSim:
         `x_fixed_seq` into the spline params, through the explosion freeze
         (a select, so a frozen episode passes zero cotangents) and into x0
         and v0.  `value_and_grad.split` holds the forward and backward wall
-        seconds of the last call."""
-        def value_and_grad(params: SimParams):
-            p_inv = self.p_inv(params)
+        seconds of the last call.  `p_inv` given: that in place of
+        `p_inv(params)` (a tensor-parallel rank's row block of it)."""
+        def value_and_grad(params: SimParams, p_inv=None):
+            if p_inv is None:
+                p_inv = self.p_inv(params)
             leaves = {k: v.detach().clone().requires_grad_(True)
                       for k, v in params.items()}
             p = SimParams(**leaves)

@@ -15,10 +15,18 @@ its default `fp` mode (:659-830).  Options, as the JAX package's:
   * self-collision `SelfColConfig.method`: "kernel" (the detection kernel,
     the JAX package's "pallas" and "matrix") or "sweep" (sort-based
     sweep-and-prune, selfcol.py);
-  * `flags.adjoint_mode`: "fp" only; the experimental "gmres" mode is not
-    ported and raises, as do the JAX package's `solve_fn`,
-    `max_forward_iters`, `plateau_window` and the self-collision profiling
-    options, which the port's make_step does not take.
+  * `solve_fn` (p_inv, rhs) -> P^{-1} rhs in place of the dense product or
+    the CG solve, in the PD loop and in every P^{-1} of the adjoint (the
+    tensor-parallel solve of parallel/mesh.py plugs in here; like P^{-1}
+    it is a constant to autograd);
+  * `max_forward_iters` and `plateau_window` (the PD loop's cap and its
+    plateau exit);
+  * `flags.adjoint_mode`: "fp" (the reference's fixed point with a GMRES
+    fallback) or "gmres" (restarted preconditioned GMRES as the primary
+    solver, step.py:704-757).
+  The JAX package's self-collision profiling and TPU tuning options
+  (`ablate`, `friction_unroll`, `friction_impl`, `compact_*`) are not
+  ported.
 
 Forward: velocity-based projective dynamics with dry frictional contact
 (Simulation::step, Simulation.cpp:1043-1428):
@@ -43,10 +51,12 @@ episode as the loops are.
 Backward (Simulation::stepBackward, Simulation.cpp:1455-1780): implicit
 differentiation of the residual R(v_new; x_n, v_n, theta, x_fixed) =
 P v_new - b~(x_new) - r(f) = 0.  The adjoint lambda solves
-(dR/dv)^T lambda = w, w = v_bar + h x_bar, by the reference's fixed point
-lambda <- P^{-1}(w + (dK/dv)^T lambda) with K(v) = b~(x_n + h v) + r(f(v)),
-capped at max_backward_iters, with a GMRES(16) fallback of up to 3 cycles;
-one VJP of R then gives every gradient.  Each (dK/dv)^T product is one
+(dR/dv)^T lambda = w, w = v_bar + h x_bar, in mode "fp" by the reference's
+fixed point lambda <- P^{-1}(w + (dK/dv)^T lambda) with K(v) =
+b~(x_n + h v) + r(f(v)), capped at max_backward_iters, with a GMRES(16)
+fallback of up to 3 cycles; in mode "gmres" by restarted GMRES(m) on the
+preconditioned system, each cycle judged by its true residual.  One VJP of
+R then gives every gradient.  Each (dK/dv)^T product is one
 `torch.autograd.grad` of K at v_new (graph kept across trips), and its
 friction part is the backward sweep kernel (`friction_cuda.FrictionSweep`).
 `StepFn` (a `torch.autograd.Function`) is the counterpart of the step's
@@ -54,11 +64,11 @@ friction part is the backward sweep kernel (`friction_cuda.FrictionSweep`).
 
 Everything is batched over a leading dim B: where the JAX package vmaps a
 `while_loop`, here every update is masked per episode (the PD loop's state,
-the adjoint's lambda), so an episode that is done stops changing exactly as
-a finished vmapped lane does, and a batched result equals the per-episode
-ones.  The loops test on the host whether any episode is still active only
-every CHECK_EVERY sweeps (or CG iterations); the masked extra sweeps are
-no-ops.
+the adjoint's lambda, the GMRES iterate), so an episode that is done stops
+changing exactly as a finished vmapped lane does, and a batched result
+equals the per-episode ones.  The loops test on the host whether any
+episode is still active only every CHECK_EVERY sweeps (or CG iterations);
+the masked extra sweeps are no-ops.
 """
 from __future__ import annotations
 
@@ -161,10 +171,11 @@ class BackwardStats:
     matvec) and every residual VJP launches the backward friction sweep once
     for the whole batch when self-collision is on."""
     trips: int = 0           # fixed-point sweeps over the batch
-    gmres_matvecs: int = 0   # (dK/dv)^T products of the GMRES fallback
+    gmres_matvecs: int = 0   # (dK/dv)^T products of GMRES (either mode)
+    gmres_cycles: int = 0    # GMRES cycles over the batch (mode "gmres")
     residual_vjps: int = 0   # VJPs of the residual
     lane_steps: object = 0   # (episode, step) pairs with a nonzero cotangent
-    lane_trips: object = 0   # their fixed-point trips
+    lane_trips: object = 0   # their fixed-point trips (GMRES cycles)
     fallback_lanes: object = 0   # of them that fell to the GMRES fallback
     slot_launches: object = 0    # active friction slots over all launches
     cg_solves: int = 0       # CG solves over the batch (solve_mode "cg")
@@ -316,7 +327,8 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
               self_cfg: Optional[SelfColConfig] = None,
               sparse: Optional[spo.SparseOps] = None,
               solve_mode: str = "dense", cg_max_iters: int = 64,
-              cg_rtol: float = 1e-6,
+              cg_rtol: float = 1e-6, max_forward_iters: Optional[int] = None,
+              plateau_window: int = PLATEAU_WINDOW, solve_fn=None,
               stats: Optional[BackwardStats] = None):
     """Build the batched differentiable PD step for one attachment stage:
 
@@ -328,14 +340,15 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     step_idx) it differentiates (`frozen`: the step's `Frozen` contacts).
     The constraint operators are `dense` or, when it is None, `sparse`.
     p_inv is the (n,n) P^{-1} with solve_mode "dense" and the (n,)
-    1/diag(P) with "cg".  `prims` are the scene's obstacles (an empty set
-    for none).  `step.bwd_stats` counts the adjoint's work (into `stats`
-    when given, shared by the steps of a scene's stages)."""
-    if flags.adjoint_mode != "fp":
+    1/diag(P) with "cg"; `solve_fn(p_inv, rhs)`, when given, replaces
+    either solve (p_inv is then whatever it takes, e.g. a row block of
+    P^{-1}).  `prims` are the scene's obstacles (an empty set for none).
+    `step.bwd_stats` counts the adjoint's work (into `stats` when given,
+    shared by the steps of a scene's stages)."""
+    if flags.adjoint_mode not in ("fp", "gmres"):
         raise NotImplementedError(
-            f"adjoint_mode {flags.adjoint_mode!r} is not ported; the port "
-            f"runs the reference's fixed point ('fp') with its GMRES "
-            f"fallback")
+            f"adjoint_mode {flags.adjoint_mode!r}: the port has 'fp' (the "
+            f"reference's fixed point with its GMRES fallback) and 'gmres'")
     if dense is None and sparse is None:
         raise NotImplementedError(
             "the gather/scatter operator path is not ported: pass dense or "
@@ -343,7 +356,8 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     if solve_mode not in ("dense", "cg"):
         raise ValueError(f"solve_mode {solve_mode!r}: 'dense' or 'cg'")
     n = int(scene.area.shape[0])
-    max_iter = flags.max_forward_iters or pd_total_iters(eps_forward)
+    max_iter = (max_forward_iters or flags.max_forward_iters
+                or pd_total_iters(eps_forward))
     max_back = flags.max_backward_iters
     h2 = h * h
     use_obstacles = flags.contact_enabled and prims.n > 0
@@ -430,7 +444,9 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         """The global solve (p_inv, rhs) -> (P^{-1} rhs, CG iterations (B,)
         or None) for this parameter guess (step.py:425-436): one matmul by
         the explicit P^{-1} ("dense"), or Jacobi-PCG on P u = m u + C u
-        with p_inv = 1/diag(P) ("cg")."""
+        with p_inv = 1/diag(P) ("cg"), or the caller's solve_fn."""
+        if solve_fn is not None:
+            return lambda p_inv, rhs: (solve_fn(p_inv, rhs), None)
         if solve_mode == "dense":
             return lambda p_inv, rhs: (dn.mm(p_inv, rhs), None)
         return lambda p_diag_inv, rhs: pcg(
@@ -545,7 +561,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
             min_xd = torch.where(act, torch.minimum(xd, min_xd), min_xd)
             since = torch.where(act, since_k, since)
             strict = torch.where(act, strict_k, strict)
-            done = torch.where(act, strict_k | (since_k >= PLATEAU_WINDOW),
+            done = torch.where(act, strict_k | (since_k >= plateau_window),
                                done)
         # strict convergence keeps the last iterate; plateau / cap exit
         # reverts to the best iterate (Simulation.cpp:1357-1367)
@@ -653,48 +669,90 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                 stats.cg_iters = stats.cg_iters + cg_k.sum()
             return u
 
+        def vjp_v(u):
+            """(dR/dv)^T u = P u - (dK/dv)^T u."""
+            return m[..., None] * u + apply_C(params, u) - vjp_k(u)
+
         def op_pre(u):
             """P^{-1} (dR/dv)^T u, the GMRES operator."""
-            return P_inv(m[..., None] * u + apply_C(params, u) - vjp_k(u))
+            return P_inv(vjp_v(u))
 
-        # ---- the reference's fixed point (Simulation.cpp:1569-1599)
         b_pre = P_inv(w)
-        lam = b_pre
-        it = torch.ones(B, dtype=torch.int32, device=w.device)
-        done = ~live
-        bad = torch.zeros_like(live)
-        for k in range(max_back - 1):
-            act = ~(done | bad)
-            if k and k % CHECK_EVERY == 0 and not bool(act.any()):
-                break
-            lam_next = P_inv(w + vjp_k(lam))
-            delta = _frob(lam_next - lam) / nh
-            bad_k = ~torch.isfinite(delta) | (
-                _frob(lam_next) > 1e8 * (w_norm + 1e-30))
-            lam = torch.where(act[:, None, None], lam_next, lam)
-            it = it + act.to(torch.int32)
-            done = torch.where(act, delta < eps_backward, done)
-            bad = torch.where(act, bad_k, bad)
-        trips = launches
-        stats.trips += trips
-        stats.lane_steps = stats.lane_steps + live.sum()
-        stats.lane_trips = stats.lane_trips + torch.where(live, it - 1,
-                                                          0).sum()
+        if flags.adjoint_mode == "gmres":
+            # ---- restarted preconditioned GMRES as the primary solver
+            # (step.py:704-757): a cycle budget of max_back // (M + 2),
+            # each cycle judged by its TRUE preconditioned residual (the
+            # free Hessenberg estimate is not trusted), restarted from the
+            # best iterate; an episode stops on convergence, on a cycle
+            # that does not improve, or on one that gains under 10 %
+            M = flags.adjoint_gmres_m
 
-        # ---- GMRES(16) fallback, up to 3 cycles, for the episodes whose
-        # fixed point did not converge (step.py:782-798)
-        need = ~(done & ~bad) & live
-        stats.fallback_lanes = stats.fallback_lanes + need.sum()
-        for _ in range(GMRES_CYCLES):
-            if not bool(need.any()):
-                break
-            x0 = torch.where(torch.isfinite(lam), lam, 0.0)
-            sol = _gmres_cycle(op_pre, b_pre, x0, GMRES_M)
-            sol = torch.where(torch.isfinite(sol), sol, 0.0)
-            res = _frob(b_pre - op_pre(sol)) / nh
-            lam = torch.where(need[:, None, None], sol, lam)
-            need = need & ((res >= eps_backward) | ~torch.isfinite(res))
-        stats.gmres_matvecs += launches - trips
+            def true_res(u):
+                return _frob(P_inv(w - vjp_v(u)))
+
+            r0 = true_res(b_pre)
+            best_res = torch.where(torch.isfinite(r0), r0, float("inf"))
+            lam = b_pre
+            stop = (best_res / nh < eps_backward) | ~live
+            cycles = torch.zeros(B, dtype=torch.int32, device=w.device)
+            for _ in range(max(1, max_back // (M + 2))):
+                act = ~stop
+                if not bool(act.any()):
+                    break
+                sol = _gmres_cycle(op_pre, b_pre, lam, M)
+                res = true_res(sol)
+                better = (torch.isfinite(res)
+                          & torch.isfinite(sol).all(dim=(-2, -1))
+                          & (res < best_res))
+                new_res = torch.where(better, res, best_res)
+                stop_k = ((new_res / nh < eps_backward) | ~better
+                          | (res > 0.9 * best_res))
+                lam = torch.where((act & better)[:, None, None], sol, lam)
+                best_res = torch.where(act, new_res, best_res)
+                stop = torch.where(act, stop_k, stop)
+                cycles = cycles + act.to(torch.int32)
+                stats.gmres_cycles += 1
+            stats.lane_steps = stats.lane_steps + live.sum()
+            stats.lane_trips = stats.lane_trips + cycles.sum()
+            stats.gmres_matvecs += launches
+        else:
+            # ---- the reference's fixed point (Simulation.cpp:1569-1599)
+            lam = b_pre
+            it = torch.ones(B, dtype=torch.int32, device=w.device)
+            done = ~live
+            bad = torch.zeros_like(live)
+            for k in range(max_back - 1):
+                act = ~(done | bad)
+                if k and k % CHECK_EVERY == 0 and not bool(act.any()):
+                    break
+                lam_next = P_inv(w + vjp_k(lam))
+                delta = _frob(lam_next - lam) / nh
+                bad_k = ~torch.isfinite(delta) | (
+                    _frob(lam_next) > 1e8 * (w_norm + 1e-30))
+                lam = torch.where(act[:, None, None], lam_next, lam)
+                it = it + act.to(torch.int32)
+                done = torch.where(act, delta < eps_backward, done)
+                bad = torch.where(act, bad_k, bad)
+            trips = launches
+            stats.trips += trips
+            stats.lane_steps = stats.lane_steps + live.sum()
+            stats.lane_trips = stats.lane_trips + torch.where(live, it - 1,
+                                                              0).sum()
+
+            # ---- GMRES(16) fallback, up to 3 cycles, for the episodes
+            # whose fixed point did not converge (step.py:782-798)
+            need = ~(done & ~bad) & live
+            stats.fallback_lanes = stats.fallback_lanes + need.sum()
+            for _ in range(GMRES_CYCLES):
+                if not bool(need.any()):
+                    break
+                x0 = torch.where(torch.isfinite(lam), lam, 0.0)
+                sol = _gmres_cycle(op_pre, b_pre, x0, GMRES_M)
+                sol = torch.where(torch.isfinite(sol), sol, 0.0)
+                res = _frob(b_pre - op_pre(sol)) / nh
+                lam = torch.where(need[:, None, None], sol, lam)
+                need = need & ((res >= eps_backward) | ~torch.isfinite(res))
+            stats.gmres_matvecs += launches - trips
         lam = torch.where(live[:, None, None], lam, 0.0)
 
         # ---- one VJP of the residual for x_n, v_n, x_fixed and params

@@ -4,10 +4,14 @@ Counterpart of `diffcloth_tpu/io/viewer.py` (the reference's OpenGL
 Viewer, src/code/engine/Viewer.cpp, replaced by offline rendering); pairs
 with `io.export.import_episode` for `--mode visualize --exp NAME`
 (reference main.cpp:33-45).  Takes host numpy arrays.  matplotlib is
-imported inside the functions, so nothing else in the port needs it.
+imported inside the functions, so nothing else in the port needs it;
+where it is not installed (the card's machine), `render_episode` draws
+with Pillow instead: flat-shaded triangles in an orthographic view from
+the same angles.
 """
 from __future__ import annotations
 
+import importlib.util
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -60,20 +64,72 @@ def render_frame(x: np.ndarray, tris: np.ndarray,
     return fig
 
 
+def _pil_frames(xs: np.ndarray, tris: np.ndarray, frames, size: int = 480,
+                elev: float = 12.0, azim: float = -60.0):
+    """Pillow images of the given frames: the cloth's triangles, back to
+    front, shaded by the angle of their normal to the view, in one
+    orthographic view (y up) fitted to every frame."""
+    from PIL import Image, ImageDraw
+    a, e = np.radians(azim), np.radians(elev)
+    turn = np.array([[np.cos(a), 0.0, -np.sin(a)], [0.0, 1.0, 0.0],
+                     [np.sin(a), 0.0, np.cos(a)]])
+    tilt = np.array([[1.0, 0.0, 0.0], [0.0, np.cos(e), -np.sin(e)],
+                     [0.0, np.sin(e), np.cos(e)]])
+    view = tilt @ turn
+    pts = xs[frames] @ view.T                       # screen u, v, depth
+    lo, hi = pts.reshape(-1, 3).min(0), pts.reshape(-1, 3).max(0)
+    scale = 0.9 * size / max(float((hi - lo)[:2].max()), 1e-9)
+    mid = (lo + hi) / 2
+    tris = np.asarray(tris)
+    images = []
+    for p in pts:
+        tri = p[tris]                                # (T, 3, 3)
+        nrm = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+        shade = 0.35 + 0.65 * np.abs(nrm[:, 2]) / np.maximum(
+            np.linalg.norm(nrm, axis=1), 1e-12)
+        uv = np.stack([(tri[..., 0] - mid[0]) * scale + size / 2,
+                       size / 2 - (tri[..., 1] - mid[1]) * scale], -1)
+        img = Image.new("RGB", (size, size), "white")
+        draw = ImageDraw.Draw(img)
+        for t in np.argsort(-tri[:, :, 2].mean(1)):
+            c = tuple(int(v * shade[t]) for v in (90, 140, 217))
+            draw.polygon([tuple(q) for q in uv[t]], fill=c)
+        images.append(img)
+    return images
+
+
 def render_episode(xs: np.ndarray, tris: np.ndarray, out: str,
                    stride: int = 5, fps: int = 12,
                    x_fixed: Optional[np.ndarray] = None,
-                   overlay_pts: Optional[np.ndarray] = None) -> str:
+                   overlay_pts: Optional[np.ndarray] = None,
+                   backend: Optional[str] = None) -> str:
     """Render a trajectory (N,n,3) to an animated GIF (or per-frame PNGs if
     `out` is a directory).  The playback analog of Viewer::startMainLoop.
     `overlay_pts` (P,3): static scene geometry (e.g. sampled obstacle
-    surfaces) drawn as gray dots in every frame."""
+    surfaces) drawn as gray dots in every frame.  `backend`: "matplotlib"
+    (the default where it is installed) or "pil" (the cloth alone, without
+    x_fixed and overlay_pts)."""
+    if backend is None:
+        backend = ("matplotlib" if importlib.util.find_spec("matplotlib")
+                   else "pil")
+    xs = np.asarray(xs)
+    if backend == "pil":
+        frames = list(range(0, xs.shape[0], max(1, stride)))
+        images = _pil_frames(xs, tris, frames)
+        if not out.endswith(".gif"):
+            os.makedirs(out, exist_ok=True)
+            for i, img in zip(frames, images):
+                img.save(os.path.join(out, f"frame{i:04d}.png"))
+            return out
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        images[0].save(out, save_all=True, append_images=images[1:],
+                       duration=int(1000 / fps), loop=0)
+        return out
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
     from matplotlib import animation
 
-    xs = np.asarray(xs)
     frames = list(range(0, xs.shape[0], max(1, stride)))
     if not out.endswith(".gif"):
         os.makedirs(out, exist_ok=True)

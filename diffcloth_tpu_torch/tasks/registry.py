@@ -217,6 +217,20 @@ def dress_grid_standin(grid: int = 84) -> SceneConfig:
         name="dress_grid_standin")
 
 
+def hat_grid_standin(grid: int = 25) -> SceneConfig:
+    """The hat demo (HAT_SCENE: the AGENT_HAT_579 physics, h = 1/100, 400
+    steps, CORNERS_2_WEARHAT, PLANE_BUST_WEARHAT, clips at vertices 394
+    and 32) on a grid x grid cloth of the hat's 6 x 6 size, for checkouts
+    without the hat mesh: 25 x 25 is n = 625, near the hat's 579
+    vertices, and holds every vertex the demo and its controller name
+    (the clips; the controller's direction pairs 394-562 and 32-108)."""
+    return _dc.replace(
+        HAT_SCENE,
+        fabric=_dc.replace(AGENT_HAT_579, is_model=False, grid_num_x=grid,
+                           grid_num_y=grid, name="hat_grid_standin"),
+        name="hat_grid_standin")
+
+
 # ---------------------------------------------------------------------------
 # demo -> task map (OptimizationTaskConfigurations.cpp:353-421)
 

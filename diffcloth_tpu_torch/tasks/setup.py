@@ -19,7 +19,8 @@ import torch
 
 from diffcloth_tpu_torch import losses
 from diffcloth_tpu_torch.config import (C_BEND, C_STRETCH, LossType,
-                                        PrimitiveConfig, SimFlags, SplineType)
+                                        PrimitiveConfig, SceneConfig,
+                                        SimFlags, SplineType)
 from diffcloth_tpu_torch.core import contact as ct
 from diffcloth_tpu_torch.core import spline as spl
 from diffcloth_tpu_torch.core.device import resolve_device
@@ -223,17 +224,20 @@ def _moved_spline(sim: ClothSim, translation, yup: float):
 def build_task(demo: str, dtype=torch.float32, device=None,
                keypoint_tau: float = 0.0,
                max_backward_iters: Optional[int] = None,
+               scene: Optional[SceneConfig] = None,
                **sim_kwargs) -> TaskSetup:
     """The demo's sim (on the card unless device="cpu"), mask, ground
     truth and loss target (a rollout of the ground truth where the task
     generates one).  `keypoint_tau` > 0 smooths the keypoint loss's hard
-    max into a softmax of that temperature (the sock demo); `sim_kwargs`
-    go to ClothSim (its size switches)."""
+    max into a softmax of that temperature (the sock demo); `scene`
+    replaces the demo's scene (a grid stand-in of a mesh demo,
+    registry.hat_grid_standin); `sim_kwargs` go to ClothSim (its size
+    switches)."""
     if demo not in registry.DEMOS:
         raise KeyError(demo)
     device = resolve_device(device)
     task = registry.DEMOS[demo]
-    cfg = task.scene
+    cfg = scene or task.scene
     scene = gb.build_scene(cfg)
     prims, prim_entries = _make_primitives(scene, dtype, device)
     spline_type = SplineType.ENDPOINT

@@ -35,7 +35,12 @@ need = {"diffcloth_tpu_torch.losses", "diffcloth_tpu_torch.tasks.setup",
         "diffcloth_tpu_torch.optim.solver", "diffcloth_tpu_torch.apps.optimize",
         "diffcloth_tpu_torch.io.export", "diffcloth_tpu_torch.io.viewer",
         "diffcloth_tpu_torch.utils.checkpoint",
-        "diffcloth_tpu_torch.utils.timing"}
+        "diffcloth_tpu_torch.utils.timing",
+        "diffcloth_tpu_torch.api.pysim", "diffcloth_tpu_torch.api.torch_bridge",
+        "diffcloth_tpu_torch.apps.hat_controller",
+        "diffcloth_tpu_torch.apps.scaling_bench",
+        "diffcloth_tpu_torch.parallel.mesh",
+        "diffcloth_tpu_torch.native.fastobj"}
 assert need <= set(names), need - set(names)
 # the card's machine has none of these: no module may need them to import
 extra = [m for m in sys.modules
@@ -63,13 +68,17 @@ assert bool(torch.isfinite(rec.steps.x).all())
 assert not torch.equal(rec.steps.x[-1], p.x0), "the cloth did not move"
 
 torch.cuda.is_available = lambda: False      # a machine without a card
-from diffcloth_tpu_torch.apps import optimize
+from diffcloth_tpu_torch.api.pysim import make_sim
+from diffcloth_tpu_torch.apps import hat_controller, optimize, scaling_bench
 from diffcloth_tpu_torch.optim.solver import solve_demo
 from diffcloth_tpu_torch.tasks.setup import build_task
 for entry in (lambda: ClothSim(scene), lambda: build_task("wind"),
               lambda: solve_demo("wind", population=2, maxiter=1),
               lambda: optimize.main(["--demo", "wind", "--mode",
-                                     "simulate"])):
+                                     "simulate"]),
+              lambda: make_sim("wind"),
+              lambda: hat_controller.main(["--standin", "--epochs", "0"]),
+              lambda: scaling_bench.main([])):
     try:
         entry()
     except RuntimeError as e:

@@ -124,12 +124,11 @@ def test_step_vjp_matches_jax(step_pair, scale):
         assert np.abs(np.asarray(ref[names.index(name)])).max() > 0, name
 
 
-@pytest.mark.parametrize("mode", ["gmres", "no_such_mode"])
+@pytest.mark.parametrize("mode", ["no_such_mode"])
 def test_unported_adjoint_mode_raises(mode):
-    """`SimFlags.adjoint_mode` other than the reference's fixed point
-    ("fp") is not ported: building the step refuses it instead of running
-    "fp" in its place (the JAX package runs its GMRES solver for "gmres",
-    diffcloth_tpu/core/step.py:704)."""
+    """An `SimFlags.adjoint_mode` other than "fp" (the reference's fixed
+    point) and "gmres" (tests/test_torch_adjoint_gmres.py): building the
+    step refuses it instead of running "fp" in its place."""
     scene = tgb.build_scene(scene_cfg(tc))
     flags = tc.SimFlags(wind_enabled=True, adjoint_mode=mode)
     with pytest.raises(NotImplementedError, match="adjoint_mode"):
