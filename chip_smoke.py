@@ -35,8 +35,9 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      rollout.  Counters zeroed just before and read just after: the
      backward friction kernel launches once per adjoint trip, GMRES matvec
      and residual VJP; the forward one once per PD sweep of the forward
-     (as in phase 3) and twice per step whose cotangent is nonzero (the K
-     map and the residual).  Prints episode-gradient steps/s, the forward and
+     (as in phase 3) and once more per adjoint trip, GMRES matvec and
+     residual VJP (each recomputes K's forward beside its backward, so
+     that a trip is one CUDA graph).  Prints episode-gradient steps/s, the forward and
      backward shares, adjoint trips per step, fallback steps and active
      slots per backward launch.
   7. gradient profile: a 10-step value-and-grad of the batch under
@@ -88,9 +89,9 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         beside their bounds;
      b. gradient: the batched value-and-grad of GradMask(f_wind=True)
         against the base wind's rollout, of 11a's episodes; finite, the
-        forward sweep once per PD sweep of 11a plus two per residual VJP,
-        the backward sweep once per adjoint trip, GMRES matvec and residual
-        VJP, on the global-state route;
+        forward sweep once per PD sweep of 11a plus once per adjoint trip,
+        GMRES matvec and residual VJP, the backward sweep once per each of
+        those, on the global-state route;
      c. profile: phase 4 on 1 step of the batch;
      d. reference, f64, card against CPU within 1e-6: an episode of a
         48 x 48 grid (sparse operators, dense P^{-1}, detection kernel),
@@ -150,8 +151,8 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         losses, gradient norms and episode-gradient steps/s; then one
         `loss_and_grad` with the counters zeroed just before and read just
         after (detection once per step, the forward sweep once per PD
-        sweep plus two per residual VJP, the backward sweep once per trip,
-        GMRES matvec and residual VJP); every gradient finite; and its
+        sweep plus once per trip, GMRES matvec and residual VJP, the
+        backward sweep once per each of those); every gradient finite; and its
         profile over 10 steps;
      d. eval: one 400-step closed-loop episode of the trained controller
         rendered to a GIF, its loss;
@@ -164,9 +165,27 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         dp = 1 objective equal to the plain batched one and the tp = 1
         row-sharded solve equal to the dense P^{-1} product, exactly.
 
+ 18. graphs (the compiled step): every earlier phase runs its sims as they
+     default, each step's loop blocks captured as CUDA graphs and replayed
+     (`core/graphs.py`); here each path runs both ways on two sims of one
+     configuration, `cuda_graphs=None` (captured) and `False` (the same
+     blocks uncaptured): the flagship stand-in's forward and value-and-grad
+     (B = 32, 16 steps), the sphere path's (B = 16, 30 steps), the large
+     path's forward (B = 8, 2 steps) and one control `loss_and_grad` (B =
+     4, 40 steps, a seeded controller).  A cold run each way (the graphed
+     one warms up and captures), then graphed, uncaptured, uncaptured,
+     graphed: every output (states, diagnostic counts, losses, gradients),
+     the kernels' counters and the adjoint's counts of all six runs equal
+     bit for bit; each captured block's kernels per replay equal to its
+     length, and the counters equal to the launches the blocks derive
+     (blocks run x length, plus the residual VJPs and GMRES matvecs outside
+     them); the rates both ways; then one profiled run each way (device
+     busy, device and host launches per PD sweep or step, replays per
+     step).
+
 `--only PATH,...` runs some of the paths while iterating (flagship:
 phases 2-9, sphere, large, dress, multistage, ladder, obstacles,
-precision, control); the acceptance run takes no arguments.
+precision, control, graphs); the acceptance run takes no arguments.
 
 Prints one JSON line `{"kernels": [...]}` (each kernel's launches counted
 on the path that runs it: the forward path for detection and the forward
@@ -368,6 +387,20 @@ def profiled_ops(prof):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
 
 
+# the CUDA runtime calls that put work on the card from the host: a kernel
+# launch, or a whole graph's
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def host_launches(prof):
+    """The host's kernel and graph launches in a profile (its CUDA runtime
+    events), None where the profiler recorded none."""
+    n = sum(e.count for e in prof.key_averages()
+            if e.key.split("_v")[0] in HOST_LAUNCHES)
+    return n or None
+
+
 def log_breakdown(tag, ops, kernels, top=8):
     """The `top` operators by device time, then each hand-written kernel's
     calls and device time per call; kernels: (name, symbol substring)."""
@@ -399,7 +432,7 @@ class Timer:
         log(f"[time] {name}: {dt:.1f} s")
 
 
-def flagship(dtype, device, steps=None):
+def flagship(dtype, device, steps=None, **sim_kw):
     from diffcloth_tpu_torch.core.sim import ClothSim
     from diffcloth_tpu_torch.geometry import builder as gb
     from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
@@ -408,7 +441,7 @@ def flagship(dtype, device, steps=None):
     if steps is not None:
         cfg = dataclasses.replace(cfg, step_num=steps)
     scene = gb.build_scene(cfg)
-    return ClothSim(scene, device=device, dtype=dtype)
+    return ClothSim(scene, device=device, dtype=dtype, **sim_kw)
 
 
 def initial_states(sim, B):
@@ -780,6 +813,7 @@ def phase_profile(tag, sim, params, card, top=8, kernels=FORWARD_KERNELS,
     if prefactor:
         p_inv, xfs = sim.p_inv(params), sim.x_fixed_seq(params)
         run = lambda: sim.simulate(params, p_inv, xfs)  # noqa: E731
+    run()   # the sim's blocks warmed up and captured outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -792,12 +826,15 @@ def phase_profile(tag, sim, params, card, top=8, kernels=FORWARD_KERNELS,
     n_kernels = sum(count for _, _, count in ops)
     if busy_ms == 0:
         raise AssertionError("the profiler saw no device time")
+    hosted = host_launches(prof)
     log(f"[{tag}] {sim.n_steps} steps x B={params.batch_size} on {card}: "
         f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f} %), {sweeps} PD sweeps: "
         f"{wall_ms / sweeps:.3f} ms wall and {busy_ms / sweeps:.3f} ms "
         f"device per sweep (wall inflated by the profiler), "
-        f"{n_kernels / sweeps:.1f} device launches per sweep")
+        f"{n_kernels / sweeps:.1f} device launches and "
+        + (f"{hosted / sweeps:.1f}" if hosted else "(not measured)")
+        + f" host launches per sweep; graphs {graph_line(sim)}")
     # the hand-written kernels' own device time per call, beside the CUDA
     # event time of back-to-back wrapper calls in phase 2
     log_breakdown(tag, ops, kernels, top)
@@ -896,13 +933,14 @@ def phase_gradient(sim, B, card, fwd_sweeps):
     if launches["selfcol_detect"] != N:
         raise AssertionError(f"detection launched {launches} times, "
                              f"expected once per step ({N})")
-    # the forward runs phase 3's sweeps; each step with a nonzero
-    # cotangent adds one forward sweep for the K map, one for the residual
-    if launches["friction_fwd"] != fwd_sweeps + 2 * st["residual_vjps"]:
+    # the forward runs phase 3's sweeps; every (dK/dv)^T product (a trip
+    # or a GMRES matvec) and every residual VJP recomputes its forward
+    # sweep beside the backward one
+    if launches["friction_fwd"] != fwd_sweeps + st["launches"]:
         raise AssertionError(
             f"friction_fwd launched {launches['friction_fwd']} times, not "
-            f"the forward's {fwd_sweeps} plus two per residual VJP "
-            f"({st['residual_vjps']:.0f})")
+            f"the forward's {fwd_sweeps} plus one per adjoint trip, GMRES "
+            f"matvec and residual VJP ({st['launches']:.0f})")
     if launches["friction_bwd"] != st["launches"]:
         raise AssertionError(
             f"friction_bwd launched {launches['friction_bwd']} times, not "
@@ -937,6 +975,7 @@ def phase_profile_gradient(tag, sim, params, loss_fn, card, top=8):
     from torch.profiler import ProfilerActivity, profile
 
     vg = sim.episode_value_and_grad(loss_fn)
+    vg(params)   # the sim's blocks warmed up and captured outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -952,7 +991,9 @@ def phase_profile_gradient(tag, sim, params, loss_fn, card, top=8):
         f"backward {vg.split['backward_s'] * 1e3:.1f}; inflated by the "
         f"profiler), device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f} %), "
-        f"{sum(c for _, _, c in ops)} device launches")
+        f"{sum(c for _, _, c in ops)} device launches, "
+        f"{host_launches(prof) or '(not measured)'} host launches; graphs "
+        f"{graph_line(sim)}")
     log_breakdown(tag, ops,
                   (("friction_bwd", "friction_bwd_kernel"),), top)
 
@@ -1197,11 +1238,11 @@ def phase_sphere_gradient(task, helper, X, fwd_sweeps, card):
     if launches["selfcol_detect"] != N:
         raise AssertionError(f"detection launched {launches} times, "
                              f"expected once per step ({N})")
-    if launches["friction_fwd"] != fwd_sweeps + 2 * st["residual_vjps"]:
+    if launches["friction_fwd"] != fwd_sweeps + st["launches"]:
         raise AssertionError(
             f"friction_fwd launched {launches['friction_fwd']} times, not "
-            f"the forward's {fwd_sweeps} plus two per residual VJP "
-            f"({st['residual_vjps']:.0f})")
+            f"the forward's {fwd_sweeps} plus one per adjoint trip, GMRES "
+            f"matvec and residual VJP ({st['launches']:.0f})")
     if launches["friction_bwd"] != st["launches"]:
         raise AssertionError(
             f"friction_bwd launched {launches['friction_bwd']} times, not "
@@ -1378,7 +1419,7 @@ def run_sphere(card, timed):
         phase_sphere_fit(card, SPHERE_FIT_STEPS)
 
 
-def large_mesh(dtype, device, steps, grid=LARGE_GRID):
+def large_mesh(dtype, device, steps, grid=LARGE_GRID, **sim_kw):
     """The flagship stand-in's physics on a grid x grid cloth (the large-mesh
     scene, 128 x 128 = 16 384 vertices), cut to `steps` steps."""
     import dataclasses
@@ -1388,7 +1429,8 @@ def large_mesh(dtype, device, steps, grid=LARGE_GRID):
     cfg = TSHIRT_GRID_STANDIN
     cfg = dataclasses.replace(cfg, step_num=steps, fabric=dataclasses.replace(
         cfg.fabric, grid_num_x=grid, grid_num_y=grid))
-    return ClothSim(gb.build_scene(cfg), device=device, dtype=dtype)
+    return ClothSim(gb.build_scene(cfg), device=device, dtype=dtype,
+                    **sim_kw)
 
 
 def large_modes(sim):
@@ -1534,11 +1576,11 @@ def phase_large_gradient(sim, B, card, fwd_sweeps):
         raise AssertionError("non-finite loss or gradient")
     if not ((L > 0).all() and (np.abs(G).max(axis=1) > 0).all()):
         raise AssertionError("a zero loss or gradient")
-    if launches["friction_fwd"] != fwd_sweeps + 2 * st["residual_vjps"]:
+    if launches["friction_fwd"] != fwd_sweeps + st["launches"]:
         raise AssertionError(
             f"friction_fwd launched {launches['friction_fwd']} times, not "
-            f"the forward's {fwd_sweeps} plus two per residual VJP "
-            f"({st['residual_vjps']:.0f})")
+            f"the forward's {fwd_sweeps} plus one per adjoint trip, GMRES "
+            f"matvec and residual VJP ({st['launches']:.0f})")
     if not (launches["friction_bwd"] == launches["friction_bwd_global"]
             == st["launches"]):
         raise AssertionError(
@@ -1722,16 +1764,17 @@ def dress_task(steps=None, dtype=None, device=None, **changes):
 def check_launches(tag, launches, n_steps, fwd_sweeps, bwd=None):
     """Detection once per step, the forward sweep once per PD sweep of the
     forward (`fwd_sweeps`) plus, on a gradient path (bwd: its
-    BackwardStats summary), two per residual VJP, and the backward sweep
-    once per adjoint trip, GMRES matvec and residual VJP."""
-    want_fwd = fwd_sweeps + (2 * bwd["residual_vjps"] if bwd else 0)
+    BackwardStats summary), once per adjoint trip, GMRES matvec and
+    residual VJP, as the backward sweep is."""
+    want_fwd = fwd_sweeps + (bwd["launches"] if bwd else 0)
     if launches["selfcol_detect"] != n_steps:
         raise AssertionError(f"[{tag}] detection launched {launches}, not "
                              f"once per step ({n_steps})")
     if launches["friction_fwd"] != want_fwd:
         raise AssertionError(f"[{tag}] friction_fwd launched {launches}, not "
                              f"{want_fwd} (the forward's PD sweeps"
-                             + (" plus two per residual VJP)" if bwd else ")"))
+                             + (" plus one per adjoint trip, GMRES matvec "
+                                "and residual VJP)" if bwd else ")"))
     if bwd and launches["friction_bwd"] != bwd["launches"]:
         raise AssertionError(f"[{tag}] friction_bwd launched {launches}, not "
                              f"once per adjoint trip, GMRES matvec and "
@@ -2364,14 +2407,14 @@ def phase_precision(card):
                      f"mu at 0.5)", *gradients(helpers, np.array([0.5]), [0]))
 
 
-def hat_task(dtype, device):
+def hat_task(dtype, device, **sim_kw):
     """build_task("hat") on the hat's grid stand-in (registry.
     hat_grid_standin: HAT_SCENE's physics, bust and clips on a 25 x 25
     grid, n = 625; the hat mesh is not in the repository)."""
     from diffcloth_tpu_torch.tasks.registry import hat_grid_standin
     from diffcloth_tpu_torch.tasks.setup import build_task
     return build_task("hat", dtype=dtype, device=device,
-                      scene=hat_grid_standin())
+                      scene=hat_grid_standin(), **sim_kw)
 
 
 def control_states(prob, rng):
@@ -2463,9 +2506,9 @@ def phase_control_train(card):
     HAT_STEPS of the hat's 400 steps; each epoch's episode-gradient
     steps/s and shares.  Then the trained controller's `loss_and_grad`
     once more with the counters zeroed just before and read just after:
-    detection once per step, the forward sweep once per PD sweep plus two
-    per residual VJP, the backward sweep once per adjoint trip, GMRES
-    matvec and residual VJP.  Returns (launches, the controller, the
+    detection once per step, the forward sweep once per PD sweep plus once
+    per adjoint trip, GMRES matvec and residual VJP, the backward sweep
+    once per each of those.  Returns (launches, the controller, the
     temporary directory holding controller.pkl)."""
     import tempfile
     import torch
@@ -2739,8 +2782,272 @@ def run_control(card, timed):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the compiled step, graphed against uncaptured
+
+GRAPHS_FLAGSHIP_STEPS = 16
+GRAPHS_SPHERE_STEPS = 30
+GRAPHS_LARGE_STEPS = 2
+GRAPHS_CONTROL_STEPS = 40
+
+
+def graph_blocks(sim) -> dict:
+    """{(kind, block length): [blocks run, replays, kernels per replay]}
+    over the sim's steps' graphs since their last reset; kind "pd" (PD
+    sweeps), "adj" (fixed-point trips) or "cg" (CG iterations)."""
+    out = {}
+    for g in sim.graphs:
+        for key, b in g.summary().items():
+            row = out.setdefault((key[0], key[-1]), [0, 0, {}])
+            row[0] += b["eager"] + b["replays"]
+            row[1] += b["replays"]
+            row[2].update(b["kernels"])
+    return out
+
+
+def graph_line(sim) -> str:
+    rows = graph_blocks(sim)
+    if not rows:
+        return "none (uncaptured)"
+    return "; ".join(
+        f"{kind}[{k}] {runs} blocks ({replays} replays, {kern or 'no kernel'}"
+        f" per replay)" for (kind, k), (runs, replays, kern)
+        in sorted(rows.items()))
+
+
+def reset_graphs(sim):
+    for g in sim.graphs:
+        g.reset()
+
+
+def check_graph_counts(tag, sim, launches, adjoint=None):
+    """The launches the blocks derive against the counters: each captured
+    block holds one forward sweep per PD sweep, and one forward and one
+    backward sweep per fixed-point trip (kernels per replay equal to its
+    length), so the PD blocks run x length plus the trip blocks run x
+    length plus what ran eagerly outside them (adjoint: (trips, residual
+    VJPs + GMRES matvecs), a gradient path's) is the forward sweep's count,
+    the trip blocks' part plus the eager part the backward sweep's, and the
+    trip blocks cover the adjoint's trips."""
+    rows = graph_blocks(sim)
+    pd = sum(runs * k for (kind, k), (runs, _, _) in rows.items()
+             if kind == "pd")
+    adj = sum(runs * k for (kind, k), (runs, _, _) in rows.items()
+              if kind == "adj")
+    for (kind, k), (runs, replays, kern) in rows.items():
+        want = {"pd": {"friction_fwd": k},
+                "adj": {"friction_fwd": k, "friction_bwd": k}}.get(kind, {})
+        got = {n: c for n, c in kern.items() if not n.endswith("_global")}
+        if replays and got != want:
+            raise AssertionError(f"[{tag}] {kind}[{k}]: kernels per replay "
+                                 f"{kern}, not {want}")
+    trips, eager = adjoint or (0, 0)
+    if (adj, pd + adj + eager, adj + eager) != (
+            trips, launches["friction_fwd"], launches["friction_bwd"]):
+        raise AssertionError(
+            f"[{tag}] the blocks derive {pd} + {adj} forward and {adj} "
+            f"backward sweeps, {eager} ran outside them; counted {launches}"
+            f", the adjoint's trips {trips}")
+
+
+def _equal_outputs(tag, ref, out):
+    """Every output bit for bit: max abs difference 0 (tensors or numpy)."""
+    import torch
+    for k, a in ref.items():
+        b = out[k]
+        if isinstance(a, torch.Tensor):
+            if not torch.equal(a, b):
+                d = float((a.double() - b.double()).abs().max())
+                raise AssertionError(f"[graphs] {tag}: {k} differs between "
+                                     f"graphed and uncaptured by {d:.3e}")
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"[graphs] {tag}: {k} differs between "
+                                 f"graphed and uncaptured by "
+                                 f"{float(np.abs(a - b).max()):.3e}")
+
+
+def graph_cases():
+    """(name, B, steps, profiled steps, make(graphs, steps) -> (sim, run))
+    per path; run() returns (outputs, counters, adjoint summary or None,
+    PD sweeps or None)."""
+    import torch
+    from diffcloth_tpu_torch.apps import hat_controller as hc
+    from diffcloth_tpu_torch.optim.helper import GradMask, OptimizeHelper
+    from diffcloth_tpu_torch.tasks.setup import build_task
+
+    def forward(sim, params):
+        def run():
+            zero_counters()
+            st = sim.rollout(params).steps
+            out = {k: getattr(st, k) for k in (
+                "x", "v", "f", "r", "iters", "cg_iters", "converged",
+                "selfcol_pairs", "selfcol_slots", "selfcol_overflow",
+                "obstacle_contacts")}
+            return (out, read_counters(), None,
+                    int(pd_sweeps(st.iters.cpu().numpy(), sim).sum()))
+        return sim, run
+
+    def gradient(sim, helper, X):
+        def run():
+            zero_counters()
+            sim.bwd_stats.reset()
+            L, G = helper.batched_loss_and_grad(X)
+            return ({"loss": L, "grad": G}, read_counters(),
+                    sim.bwd_stats.summary(), None)
+        return sim, run
+
+    def flagship_sim(g, steps):
+        sim = flagship(torch.float32, "cuda", steps, cuda_graphs=g)
+        return sim, episode_params(sim, BATCH)
+
+    def flagship_grad(g, steps):
+        sim, params = flagship_sim(g, steps)
+        helper = OptimizeHelper(sim, GradMask(f_wind=True),
+                                base_wind_target(sim, params),
+                                param_base=params)
+        X = np.stack([helper.params_to_vec(params.sample(i))
+                      for i in range(BATCH)])
+        return gradient(sim, helper, X)
+
+    def sphere(g, steps):
+        with demo_steps("sphere", steps):
+            task = build_task("sphere", device="cuda", cuda_graphs=g)
+        helper = OptimizeHelper(task.sim, task.mask, task.loss_fn(),
+                                param_base=task.param_base)
+        return task.sim, helper, sphere_candidates(SPHERE_BATCH)
+
+    def sphere_fwd(g, steps):
+        sim, helper, X = sphere(g, steps)
+        return forward(sim, helper.stack_vecs(X))
+
+    def large(g, steps):
+        sim = large_mesh(torch.float32, "cuda", steps, cuda_graphs=g)
+        return forward(sim, episode_params(sim, LARGE_BATCH))
+
+    def control(g, steps):
+        prob = hc.make_problem(hat_task(torch.float32, "cuda",
+                                        cuda_graphs=g), steps)
+        feat = hc.featurize(prob, prob.x0[None],
+                            torch.zeros_like(prob.x0)[None])
+        ctrl = hc.Controller(
+            [feat.shape[1], *hc.HIDDEN, 3 * prob.clip0.shape[0]],
+            prob.sim.dtype, prob.sim.device,
+            generator=torch.Generator().manual_seed(0))
+        xs, aas = hc.stack_poses(prob, np.random.RandomState(3), HAT_BATCH)
+
+        def run():
+            zero_counters()
+            prob.sim.bwd_stats.reset()
+            pg = hc.loss_and_grad(prob, ctrl, xs, aas)
+            out = {"loss": pg.loss, "iters": pg.iters,
+                   "gnorms": pg.sample_gnorms}
+            out.update({f"grad{i}": g for i, g in enumerate(pg.grads)})
+            return (out, read_counters(), prob.sim.bwd_stats.summary(),
+                    int(pd_sweeps(pg.iters.cpu().numpy(), prob.sim).sum()))
+        return prob.sim, run
+
+    return (
+        ("flagship forward", BATCH, GRAPHS_FLAGSHIP_STEPS, 4,
+         lambda g, steps: forward(*flagship_sim(g, steps))),
+        ("flagship value-and-grad", BATCH, GRAPHS_FLAGSHIP_STEPS, 4,
+         flagship_grad),
+        ("sphere forward", SPHERE_BATCH, GRAPHS_SPHERE_STEPS, 8, sphere_fwd),
+        ("sphere value-and-grad", SPHERE_BATCH, GRAPHS_SPHERE_STEPS, 8,
+         lambda g, steps: gradient(*sphere(g, steps))),
+        ("large forward", LARGE_BATCH, GRAPHS_LARGE_STEPS, 1, large),
+        ("control loss_and_grad", HAT_BATCH, GRAPHS_CONTROL_STEPS, 10,
+         control))
+
+
+def phase_graphs(card):
+    """18: each path's run with cuda_graphs=None (captured) and False
+    (uncaptured), on two sims of one configuration: a cold run of each
+    (the graphed one warms up and captures its blocks), then graphed,
+    uncaptured, uncaptured, graphed; every output (states, diagnostic
+    counts, losses, gradients) and every kernel counter of every run equal
+    to the first's bit for bit; the graphs' replays and the launches they
+    derive held to the counters and the adjoint's trips; the rates of the
+    four runs; then, on two sims of a few steps (the profiler's cost grows
+    with its events), a warm run and a profiled one each way: device busy,
+    device and host launches per PD sweep (forward) or per step, replays
+    per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for name, B, N, prof_steps, make in graph_cases():
+        units = B * N
+        sims = {g: make(g, N) for g in (None, False)}
+        ref = None
+        rates = {None: [], False: []}
+        for i, g in enumerate((None, False, None, False, False, None)):
+            sim, run = sims[g]
+            reset_graphs(sim)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, launches, st, sweeps = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if ref is None:
+                ref = (out, launches, st)
+            _equal_outputs(name, ref[0], out)
+            if launches != ref[1] or (st or {}) != (ref[2] or {}):
+                raise AssertionError(f"[graphs] {name}: counters {launches} "
+                                     f"{st}, the first run's {ref[1]} "
+                                     f"{ref[2]}")
+            if g is None:
+                check_graph_counts(name, sim, launches, st and (
+                    st["trips"], st["gmres_matvecs"] + st["residual_vjps"]))
+                if i >= 2 and not any(r for _, r, _ in
+                                      graph_blocks(sim).values()):
+                    raise AssertionError(f"[graphs] {name}: no replay")
+            if i >= 2:
+                rates[g].append(units / wall)
+            log(f"[graphs] {name}, run {i} "
+                f"({'graphed' if g is None else 'uncaptured'}"
+                f"{', cold' if i < 2 else ''}) on {card}: {wall:.3f} s, "
+                f"{units / wall:.1f} "
+                f"{'PD' if st is None else 'episode-gradient'} steps/s; "
+                f"launches {launches}"
+                + (f"; {sweeps} PD sweeps" if sweeps else "")
+                + (f"; graphs {graph_line(sim)}" if g is None else ""))
+        log(f"[graphs] {name} on {card}: graphed "
+            f"{', '.join(f'{r:.1f}' for r in rates[None])} against "
+            f"uncaptured {', '.join(f'{r:.1f}' for r in rates[False])} "
+            f"steps/s (runs 2-5: graphed first, then uncaptured first), "
+            f"{np.mean(rates[None]) / np.mean(rates[False]):.2f}x; every "
+            f"output and counter of the six runs equal bit for bit")
+        del sims
+        for g in (None, False):
+            sim, run = make(g, prof_steps)
+            run()
+            reset_graphs(sim)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out, launches, st, sweeps = run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            ops = profiled_ops(prof)
+            busy = sum(ms for _, ms, _ in ops)
+            # a forward per PD sweep, a gradient path per step
+            div, per = ((sweeps, "PD sweep") if st is None
+                        else (prof_steps, "step"))
+            hosted = host_launches(prof)
+            replays = sum(r for _, r, _ in graph_blocks(sim).values())
+            log(f"[graphs-profile] {name}, {prof_steps} steps x B={B} "
+                f"({'graphed' if g is None else 'uncaptured'}) on {card}: "
+                f"wall {wall_ms:.1f} ms (inflated by the profiler), device "
+                f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f} %); per "
+                f"{per} ({div}): "
+                f"{sum(c for _, _, c in ops) / div:.1f} device launches, "
+                + (f"{hosted / div:.1f}" if hosted else "(not measured)")
+                + f" host launches; {replays / prof_steps:.2f} graph "
+                f"replays per step")
+            del sim, run
+        torch.cuda.empty_cache()
+
+
 PATHS = ("flagship", "sphere", "large", "dress", "multistage", "ladder",
-         "obstacles", "precision", "control")
+         "obstacles", "precision", "control", "graphs")
 
 
 def main():
@@ -2827,6 +3134,9 @@ def main():
             phase_precision(card)
     if "control" in only:
         kernels += run_control(card, timed)
+    if "graphs" in only:
+        with timed("graphs"):
+            phase_graphs(card)
     torch.cuda.empty_cache()
     log(f"[time] all phases {timed.total:.1f} s")
 

@@ -258,8 +258,14 @@ def obstacle_friction(f, contact: ContactSet, mass, mu_prims):
     mu[prim_i]) on the contact particles (contact.py:242-248; reference
     calculateDryFrictionVector, Simulation.cpp:639-651).  f (..., n, 3),
     mass (..., n), mu_prims (..., P): a batch gathers each episode's own
-    coefficients, so dL/dmu stays per episode."""
+    coefficients, so dL/dmu stays per episode.  The coefficient is picked
+    by a one-hot contraction, whose backward sums over the particles in a
+    fixed order: a gather's backward scatters with atomic adds, whose
+    order (and so dL/dmu's last bits) changes from run to run on the
+    card."""
     d = f - mass[..., None] * contact.v_out
-    mu = torch.gather(mu_prims, -1, contact.prim_id)
+    pick = contact.prim_id[..., None] == torch.arange(
+        mu_prims.shape[-1], device=mu_prims.device)
+    mu = torch.sum(torch.where(pick, mu_prims[..., None, :], 0.0), dim=-1)
     r = dry_friction_force(contact.normal, d, mu)
     return torch.where(contact.mask[..., None], r, 0.0)

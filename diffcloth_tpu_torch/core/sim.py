@@ -9,9 +9,10 @@ with the explosion freeze, `rollout_chunked`, `episode_loss` and
 `episode_value_and_grad`.  The JAX `lax.scan` over steps is a Python loop;
 `vmap` over a population of episodes is a leading batch dim on the
 `SimParams` (one shared P^{-1}, as the JAX package's batched paths share
-it).  Eager PyTorch runs no device program longer than one kernel, so the
-JAX package's `_chunked` variants (bounded device executions of `chunk`
-steps) fold into these single functions.
+it).  A step's loops run as CUDA graphs of a few iterations each
+(`core/graphs.py`), no device program spans a step, so the JAX package's
+`_chunked` variants (bounded device executions of `chunk` steps) fold into
+these single functions.
 
 A scene of several attachment stages (reference: one `sysMat` per stage,
 switched by frame, Simulation.h:361-405, Simulation.cpp:1053-1068) gets
@@ -43,6 +44,7 @@ from diffcloth_tpu_torch.config import (SimFlags, SplineType,
 from diffcloth_tpu_torch.core import contact as ct
 from diffcloth_tpu_torch.core import dense_ops as dn
 from diffcloth_tpu_torch.core import diagnostics as diag
+from diffcloth_tpu_torch.core import graphs as gr
 from diffcloth_tpu_torch.core import selfcol as sc
 from diffcloth_tpu_torch.core import selfcol_cuda as scd
 from diffcloth_tpu_torch.core import solver as slv
@@ -162,6 +164,14 @@ class ClothSim:
     1e-6, an override too), `max_forward_iters` (None: the flags', else
     -log10(eps_forward) * 150), `plateau_window` and `solve_fn` (see
     core/step.make_step; the tensor-parallel solve of parallel/mesh.py).
+
+    `cuda_graphs`, the counterpart of the JAX package's jit: None runs each
+    step's loop blocks (PD sweeps, fixed-point trips, CG iterations) as
+    CUDA graphs on a CUDA device and uncaptured on the CPU or with a
+    `solve_fn`; True raises on the CPU or with a `solve_fn`; False runs
+    the same blocks uncaptured on the card (`jax.disable_jit()`).  The
+    choice is `self.cuda_graphs`; each stage's step keeps its graphs
+    (`self.graphs`), dropped with the sim.
     Not ported, and raising: the gather/scatter operator path
     (dense_ops=False with sparse_ops=False); the JAX ClothSim's TPU
     self-collision tuning options (`self_ablate`, `self_friction_unroll`,
@@ -181,8 +191,9 @@ class ClothSim:
                  eps_backward: Optional[float] = None,
                  max_forward_iters: Optional[int] = None,
                  plateau_window: int = step_mod.PLATEAU_WINDOW,
-                 solve_fn=None):
+                 solve_fn=None, cuda_graphs: Optional[bool] = None):
         self.device = resolve_device(device)
+        self.cuda_graphs = gr.resolve(cuda_graphs, self.device, solve_fn)
         set_full_f32_matmul()
         cfg = scene.cfg
         self.scene_host = scene
@@ -319,10 +330,11 @@ class ClothSim:
                 cg_max_iters=cg_max_iters, cg_rtol=cg_rtol,
                 max_forward_iters=self.max_forward_iters,
                 plateau_window=plateau_window, solve_fn=solve_fn,
-                stats=self.bwd_stats)
+                stats=self.bwd_stats, cuda_graphs=self.cuda_graphs)
             self.steps.append(st)
             self.residuals.append(res)
         self.step, self.residual = self.steps[0], self.residuals[0]
+        self.graphs = [st.graphs for st in self.steps]
 
     # ------------------------------------------------------------------ params
 
@@ -487,8 +499,8 @@ class ClothSim:
         """`rollout` whose records leave f / r zero-filled, as the JAX
         package's chunked rollout does (no consumer outside the viewer
         overlays reads them), saving their (N, n, 3) storage.  It takes no
-        chunk length: eager PyTorch runs no device program longer than one
-        kernel, so there is nothing to split."""
+        chunk length: no device program spans a step, so there is nothing
+        to split."""
         return self.simulate(params, self.p_inv(params),
                              self.x_fixed_seq(params), record_forces=False)
 

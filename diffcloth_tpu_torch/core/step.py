@@ -56,19 +56,28 @@ fixed point lambda <- P^{-1}(w + (dK/dv)^T lambda) with K(v) =
 b~(x_n + h v) + r(f(v)), capped at max_backward_iters, with a GMRES(16)
 fallback of up to 3 cycles; in mode "gmres" by restarted GMRES(m) on the
 preconditioned system, each cycle judged by its true residual.  One VJP of
-R then gives every gradient.  Each (dK/dv)^T product is one
-`torch.autograd.grad` of K at v_new (graph kept across trips), and its
-friction part is the backward sweep kernel (`friction_cuda.FrictionSweep`).
-`StepFn` (a `torch.autograd.Function`) is the counterpart of the step's
+R then gives every gradient.  Each (dK/dv)^T product recomputes K at v_new
+and takes one `torch.autograd.grad` of it, its friction part the forward
+and the backward sweep kernel (`friction_cuda.FrictionSweep`).  `StepFn`
+(a `torch.autograd.Function`) is the counterpart of the step's
 `jax.custom_vjp`.
 
 Everything is batched over a leading dim B: where the JAX package vmaps a
 `while_loop`, here every update is masked per episode (the PD loop's state,
 the adjoint's lambda, the GMRES iterate), so an episode that is done stops
 changing exactly as a finished vmapped lane does, and a batched result
-equals the per-episode ones.  The loops test on the host whether any
-episode is still active only every CHECK_EVERY sweeps (or CG iterations);
-the masked extra sweeps are no-ops.
+equals the per-episode ones.  Each of the three while_loops (the PD loop,
+the fixed point, Jacobi-PCG) is written once, as a block of CHECK_EVERY
+masked iterations over a dict of tensors (`pd_block`, `trip_block`,
+`_cg_block`; the last block of a cap that CHECK_EVERY does not divide is
+shorter), and the host reads whether any episode is still active between
+blocks; the masked extra iterations are no-ops.  On a CUDA device the
+blocks run as CUDA graphs, captured once and replayed (`graphs.py`, which
+also lists what stays uncaptured); on the CPU, with `cuda_graphs=False` or
+with a `solve_fn`, the same block functions are called directly.  A CG
+solve inside a captured PD sweep or fixed-point trip runs to its cap
+(`cg_max_iters`) without host reads, its extra iterations masked; the
+iterates are the same.
 """
 from __future__ import annotations
 
@@ -84,6 +93,7 @@ from diffcloth_tpu_torch.config import (GRAVITY, SimFlags, WindConfig,
 from diffcloth_tpu_torch.core import contact as ct
 from diffcloth_tpu_torch.core import dense_ops as dn
 from diffcloth_tpu_torch.core import friction_cuda as fc
+from diffcloth_tpu_torch.core import graphs as gr
 from diffcloth_tpu_torch.core import selfcol as sc
 from diffcloth_tpu_torch.core import selfcol_cuda as scd
 from diffcloth_tpu_torch.core import sparse_ops as spo
@@ -168,8 +178,9 @@ def _frob(a):
 class BackwardStats:
     """Counters of the adjoint, summed over `step_bwd` calls since the last
     `reset()`.  Every (dK/dv)^T product (a fixed-point trip or a GMRES
-    matvec) and every residual VJP launches the backward friction sweep once
-    for the whole batch when self-collision is on."""
+    matvec) and every residual VJP launches the forward and the backward
+    friction sweep once each for the whole batch when self-collision is
+    on.  `trips` counts the trips the blocks ran, masked ones included."""
     trips: int = 0           # fixed-point sweeps over the batch
     gmres_matvecs: int = 0   # (dK/dv)^T products of GMRES (either mode)
     gmres_cycles: int = 0    # GMRES cycles over the batch (mode "gmres")
@@ -180,6 +191,7 @@ class BackwardStats:
     slot_launches: object = 0    # active friction slots over all launches
     cg_solves: int = 0       # CG solves over the batch (solve_mode "cg")
     cg_iters: object = 0     # their iterations, summed over the episodes
+    #                          (a trip's only where the episode is active)
 
     def reset(self):
         for f in dataclasses.fields(self):
@@ -237,27 +249,42 @@ def _gmres_cycle(op, b, x0, m: int):
     return x0 + torch.einsum("bm,bmn->bn", y, V[:, :m]).reshape(shape)
 
 
-def pcg(op, b, diag_inv, max_iters: int, rtol: float):
-    """Jacobi-preconditioned conjugate gradients on the SPD operator `op`
-    for each episode of the batch (step.py:151-175): b (B, n, 3), the three
-    right-hand sides of an episode solved jointly (P x I_3 is SPD on the
-    product space, so inner products run over all entries), diag_inv (n,)
-    = 1/diag(P).  An episode iterates while it is under `max_iters`
-    iterations and its |r| is above rtol |b|, as its lane of the JAX
-    package's vmapped while_loop does; a finished episode is frozen.
-    Returns (x, iterations (B,) int32)."""
-    D = diag_inv[:, None]
-    x = D * b                     # Jacobi initial guess
+def _run_blocks(total: int, run_block, active=None) -> int:
+    """Run `total` masked iterations as blocks of CHECK_EVERY (the last one
+    shorter when CHECK_EVERY does not divide `total`): run_block(k) runs k
+    of them.  Between blocks the host reads active() (a (B,) bool tensor)
+    and stops when no episode is active; active None (inside a captured
+    block, where no host read may sit) runs every block.  The extra
+    iterations of a finished episode are masked no-ops, so either way the
+    iterates and counts are those of the JAX package's while_loop.  Returns
+    the iterations run, masked ones included."""
+    for k in range(0, total, CHECK_EVERY):
+        if k and active is not None and not bool(active().any()):
+            return k
+        run_block(min(CHECK_EVERY, total - k))
+    return total
+
+
+def _cg_start(op, b, diag_inv, rtol: float) -> dict:
+    """The Jacobi-PCG carry before its first iteration (step.py:151-175)."""
+    x = diag_inv[:, None] * b     # Jacobi initial guess
     r = b - op(x)
-    z = D * r
-    p = z
-    rz = torch.sum(r * z, dim=(-2, -1))
+    p = diag_inv[:, None] * r
     stop2 = (rtol * _frob(b)) ** 2
-    it = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
-    active = torch.sum(r * r, dim=(-2, -1)) > stop2
-    for k in range(max_iters):
-        if k and k % CHECK_EVERY == 0 and not bool(active.any()):
-            break
+    return dict(d=diag_inv, x=x, r=r, p=p,
+                rz=torch.sum(r * p, dim=(-2, -1)), stop2=stop2,
+                it=torch.zeros(b.shape[0], dtype=torch.int32,
+                               device=b.device),
+                active=torch.sum(r * r, dim=(-2, -1)) > stop2)
+
+
+def _cg_block(op, st: dict, k: int, max_iters: int) -> None:
+    """k masked Jacobi-PCG iterations on the carry in `st`, written back in
+    place (the body of step.py:185's while_loop, per episode)."""
+    D = st["d"][:, None]
+    x, r, p, rz, it, active = (st[name] for name in
+                               ("x", "r", "p", "rz", "it", "active"))
+    for _ in range(k):
         Ap = op(p)
         alpha = rz / torch.clamp(torch.sum(p * Ap, dim=(-2, -1)), min=1e-30)
         a3 = active[:, None, None]
@@ -271,8 +298,27 @@ def pcg(op, b, diag_inv, max_iters: int, rtol: float):
         rz = torch.where(active, rz_new, rz)
         it = it + active.to(torch.int32)
         active = (active & (it < max_iters)
-                  & (torch.sum(r * r, dim=(-2, -1)) > stop2))
-    return x, it
+                  & (torch.sum(r * r, dim=(-2, -1)) > st["stop2"]))
+    for name, val in zip(("x", "r", "p", "rz", "it", "active"),
+                         (x, r, p, rz, it, active)):
+        st[name].copy_(val)
+
+
+def pcg(op, b, diag_inv, max_iters: int, rtol: float, checked: bool = True):
+    """Jacobi-preconditioned conjugate gradients on the SPD operator `op`
+    for each episode of the batch (step.py:151-175): b (B, n, 3), the three
+    right-hand sides of an episode solved jointly (P x I_3 is SPD on the
+    product space, so inner products run over all entries), diag_inv (n,)
+    = 1/diag(P).  An episode iterates while it is under `max_iters`
+    iterations and its |r| is above rtol |b|, as its lane of the JAX
+    package's vmapped while_loop does; a finished episode is frozen.  The
+    iterations run in blocks of CHECK_EVERY; checked=False (inside a
+    captured block) skips the host's check between them.  Returns (x,
+    iterations (B,) int32)."""
+    st = _cg_start(op, b, diag_inv, rtol)
+    _run_blocks(max_iters, lambda k: _cg_block(op, st, k, max_iters),
+                (lambda: st["active"]) if checked else None)
+    return st["x"], st["it"]
 
 
 @dataclasses.dataclass
@@ -321,6 +367,12 @@ class StepFn(torch.autograd.Function):
             gp.get(k) for k in PARAM_FIELDS)
 
 
+# the loops' carries, written back in place by their blocks
+PD_CARRY = ("x_now", "v_now", "best_x", "best_v", "min_xd", "it", "cg_it",
+            "done", "strict", "since", "f", "r")
+TRIP_CARRY = ("lam", "it", "done", "bad", "cg_sum")
+
+
 def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
               prims: ct.PrimitiveSet, *, h: float, wind_config: WindConfig,
               flags: SimFlags, eps_forward: float, eps_backward: float,
@@ -329,7 +381,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
               solve_mode: str = "dense", cg_max_iters: int = 64,
               cg_rtol: float = 1e-6, max_forward_iters: Optional[int] = None,
               plateau_window: int = PLATEAU_WINDOW, solve_fn=None,
-              stats: Optional[BackwardStats] = None):
+              stats: Optional[BackwardStats] = None, cuda_graphs=None):
     """Build the batched differentiable PD step for one attachment stage:
 
         step(x (B,n,3), v, params (batched SimParams), x_fixed (B,F,3),
@@ -344,7 +396,11 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     either solve (p_inv is then whatever it takes, e.g. a row block of
     P^{-1}).  `prims` are the scene's obstacles (an empty set for none).
     `step.bwd_stats` counts the adjoint's work (into `stats` when given,
-    shared by the steps of a scene's stages)."""
+    shared by the steps of a scene's stages).  `cuda_graphs`
+    (`graphs.resolve`): None runs the loops' blocks as CUDA graphs on a
+    CUDA scene without `solve_fn` and uncaptured otherwise, True insists
+    on graphs, False runs the same blocks uncaptured; `step.graphs` holds
+    the step's blocks and graphs."""
     if flags.adjoint_mode not in ("fp", "gmres"):
         raise NotImplementedError(
             f"adjoint_mode {flags.adjoint_mode!r}: the port has 'fp' (the "
@@ -360,15 +416,22 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                 or pd_total_iters(eps_forward))
     max_back = flags.max_backward_iters
     h2 = h * h
+    nh = n * h
     use_obstacles = flags.contact_enabled and prims.n > 0
     use_self = (flags.contact_enabled and flags.self_collision_enabled
                 and self_cfg is not None)
     # friction runs in every sweep (step.py:294-297)
     has_contact = use_obstacles or use_self
+    uses_cg = solve_mode == "cg" and solve_fn is None
     cap_pairs = None
     if use_self:
         cap_pairs = self_cfg.cap_pairs or max(128, n // 2)
     stats = stats if stats is not None else BackwardStats()
+    graphs = gr.BlockGraphs(gr.resolve(cuda_graphs, scene.area.device,
+                                       solve_fn))
+    # a captured block holds no host read: a CG inside it runs to its cap
+    # (its extra iterations masked no-ops)
+    block_checks = not graphs.enabled
 
     def wind_factor(params: SimParams, t, step_idx):
         """(sin(freq t + phase) + 1)/2 and friends (fillForces,
@@ -384,7 +447,8 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         return torch.ones_like(params.wind_freq)   # WIND_CONSTANT
 
     def external_force(params: SimParams, mass, t, step_idx):
-        """f_ext per particle (fillForces, Simulation.cpp:55-116)."""
+        """f_ext per particle (fillForces, Simulation.cpp:55-116), computed
+        before the blocks (`wind_factor` indexes by the step)."""
         f = torch.zeros(mass.shape + (3,), dtype=mass.dtype,
                         device=mass.device)
         if flags.gravity_enabled:
@@ -426,51 +490,154 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
             return dn.apply_At(dense, k_pertype, d_s, d_b, d_a, d_sp)
         return spo.apply_At(sparse, k_pertype, d_s, d_b, d_a, d_sp)
 
-    def btilde_of(params, m, f_ext, v_n, x_eval, x_fixed, y_n):
-        """b~ in residual form (step.py:387-404):
+    def btilde_of(k, m, f_ext, v_n, x_eval, x_fixed, y_n):
+        """b~ in residual form (step.py:387-404), k the (B, 4) stiffness:
         h sum_t k_t A0_t^T (p0_t - A0_t x_n) + m v_n + h f_ext."""
         p_s, p_b, p_a, p_sp = projections(x_eval, x_fixed)
-        At_d = apply_At(params.k_pertype, p_s - y_n[0], p_b - y_n[1],
-                        p_a - y_n[2], p_sp - y_n[3])
+        At_d = apply_At(k, p_s - y_n[0], p_b - y_n[1], p_a - y_n[2],
+                        p_sp - y_n[3])
         return h * At_d + m[..., None] * v_n + h * f_ext
 
-    def apply_C(params, v):
+    def apply_C(k, v):
         """C v = h^2 (sum_t k_t S_t) v."""
         if dense is not None:
-            return h2 * dn.apply_S_pertype(dense.S, params.k_pertype, v)
-        return h2 * spo.apply_AtA(sparse, params.k_pertype, v)
+            return h2 * dn.apply_S_pertype(dense.S, k, v)
+        return h2 * spo.apply_AtA(sparse, k, v)
 
-    def solver_for(params, m):
-        """The global solve (p_inv, rhs) -> (P^{-1} rhs, CG iterations (B,)
-        or None) for this parameter guess (step.py:425-436): one matmul by
-        the explicit P^{-1} ("dense"), or Jacobi-PCG on P u = m u + C u
-        with p_inv = 1/diag(P) ("cg"), or the caller's solve_fn."""
+    def cg_op(st):
+        """u -> P u = m u + C u with st's masses and stiffness."""
+        return lambda q: st["m"][..., None] * q + apply_C(st["k"], q)
+
+    def solve(st, rhs, checked: bool):
+        """The global solve P^{-1} rhs -> (u, CG iterations (B,) or None)
+        with st's p_inv (step.py:425-436): one matmul by the explicit P^{-1}
+        ("dense"), or Jacobi-PCG on P u = m u + C u with p_inv = 1/diag(P)
+        ("cg", host checks between its blocks when `checked`), or the
+        caller's solve_fn."""
         if solve_fn is not None:
-            return lambda p_inv, rhs: (solve_fn(p_inv, rhs), None)
+            return solve_fn(st["p_inv"], rhs), None
         if solve_mode == "dense":
-            return lambda p_inv, rhs: (dn.mm(p_inv, rhs), None)
-        return lambda p_diag_inv, rhs: pcg(
-            lambda q: m[..., None] * q + apply_C(params, q), rhs,
-            p_diag_inv, cg_max_iters, cg_rtol)
+            return dn.mm(st["p_inv"], rhs), None
+        return pcg(cg_op(st), rhs, st["p_inv"], cg_max_iters, cg_rtol,
+                   checked)
+
+    def solve_alone(st, rhs):
+        """`solve` outside the loops' blocks (the adjoint's first solve and
+        its GMRES): with graphs and solve_mode "cg", the CG iterations run
+        as replayed CG blocks."""
+        if not (graphs.enabled and uses_cg):
+            return solve(st, rhs, True)
+        name = ("cg", rhs.shape[0], rhs.dtype)
+        cst = graphs.bind(name, dict(_cg_start(cg_op(st), rhs, st["p_inv"],
+                                               cg_rtol),
+                                     m=st["m"], k=st["k"]))
+        _run_blocks(cg_max_iters,
+                    lambda k: graphs.run(name + (k,), lambda s: _cg_block(
+                        cg_op(s), s, k, cg_max_iters), cst),
+                    lambda: cst["active"])
+        return cst["x"].clone(), cst["it"].clone()
 
     def sweep_ops(geom, params: SimParams):
         """The step's slot operands, validated once for all its sweeps."""
         return fc.sweep_operands(geom, fc.slot_masses(geom, params.density),
                                  self_cfg.budgets, n)
 
-    def friction(f, frozen: Frozen, ops, params: SimParams, m):
+    def friction(f, contact, ops, mu, m):
         """Obstacle friction first (layer 0), then the layered self-contact
         sweep on f + r_obstacle (step.py:349-385); ops: the step's sweep
         operands."""
         if use_obstacles:
-            r = ct.obstacle_friction(f, frozen.contact, m, params.mu)
+            r = ct.obstacle_friction(f, contact, m, mu)
         else:
             r = torch.zeros_like(f)
         if use_self:
             r = fc.self_friction(f, ops, r)
         return r
 
+    def frozen_entries(contact, ops) -> dict:
+        """The frozen contacts' tensors, as entries of a block's dict."""
+        d = {}
+        if use_obstacles:
+            d.update(c_mask=contact.mask, c_normal=contact.normal,
+                     c_v_out=contact.v_out, c_prim=contact.prim_id)
+        if use_self:
+            kred, imr, imp = ops.masses
+            d.update(idx_row=ops.geom.idx_row, idx_part=ops.geom.idx_part,
+                     normalT=ops.geom.normalT, counts=ops.geom.counts,
+                     kred=kred, imr=imr, imp=imp)
+        return d
+
+    def bind_frozen(st, ops) -> None:
+        """st["contact"] and st["ops"] over st's frozen entries: the step's
+        own sweep operands uncaptured; captured, operands over the slot
+        buffers, whose kernel argument struct points at them (validated
+        once per dict)."""
+        if use_obstacles:
+            st["contact"] = ct.ContactSet(st["c_mask"], st["c_normal"],
+                                          st["c_v_out"], st["c_prim"])
+        if not use_self:
+            return
+        if not graphs.enabled:
+            st["ops"] = ops
+        elif "ops" not in st:
+            geom = fc.KernelGeom(
+                idx_row=st["idx_row"], idx_part=st["idx_part"],
+                normalT=st["normalT"], area_row=None, area_part=None,
+                counts=st["counts"], overflow=None)
+            st["ops"] = fc.sweep_operands(geom, (st["kred"], st["imr"],
+                                                 st["imp"]),
+                                          self_cfg.budgets, n)
+
+    def y_entries(x_n) -> dict:
+        return {f"y{i}": y for i, y in enumerate(apply_A(x_n))}
+
+    def y_of(st) -> tuple:
+        return tuple(st[f"y{i}"] for i in range(4))
+
     # -- forward PD loop ----------------------------------------------------
+
+    def pd_block(st, k: int) -> None:
+        """k masked PD sweeps (the body of step.py:626's while_loop, per
+        episode) on the loop's carry in st, written back in place."""
+        x_n, v_n, m, kp = st["x_n"], st["v_n"], st["m"], st["k"]
+        y_n = y_of(st)
+        c = {name: st[name] for name in PD_CARRY}
+        for _ in range(k):
+            x_now, v_now = c["x_now"], c["v_now"]
+            btilde = btilde_of(kp, m, st["f_ext"], v_n, x_now, st["x_fixed"],
+                               y_n)
+            if has_contact:
+                f_k = btilde - apply_C(kp, v_now)
+                r_k = friction(f_k, st.get("contact"), st.get("ops"),
+                               st["mu"], m)
+            else:
+                f_k = r_k = torch.zeros_like(x_n)
+            v_new, cg_k = solve(st, btilde + r_k, block_checks)
+            x_new = x_n + h * v_new
+            xd = _frob(x_new - x_now) / n
+            better = xd < c["min_xd"]
+            since_k = torch.where(better, 0, c["since"] + 1)
+            strict_k = xd < eps_forward
+            act = ~c["done"]
+            a3 = act[:, None, None]
+            b3 = (act & better)[:, None, None]
+            c["best_x"] = torch.where(b3, x_new, c["best_x"])
+            c["best_v"] = torch.where(b3, v_new, c["best_v"])
+            c["x_now"] = torch.where(a3, x_new, x_now)
+            c["v_now"] = torch.where(a3, v_new, v_now)
+            c["f"] = torch.where(a3, f_k, c["f"])
+            c["r"] = torch.where(a3, r_k, c["r"])
+            c["it"] = c["it"] + act.to(torch.int32)
+            if cg_k is not None:
+                c["cg_it"] = c["cg_it"] + torch.where(act, cg_k, 0)
+            c["min_xd"] = torch.where(act, torch.minimum(xd, c["min_xd"]),
+                                      c["min_xd"])
+            c["since"] = torch.where(act, since_k, c["since"])
+            c["strict"] = torch.where(act, strict_k, c["strict"])
+            c["done"] = torch.where(
+                act, strict_k | (since_k >= plateau_window), c["done"])
+        for name in PD_CARRY:
+            st[name].copy_(c[name])
 
     def pd_forward(x_n, v_n, params: SimParams, x_fixed, p_inv, t,
                    step_idx):
@@ -514,70 +681,45 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
             ops = sweep_ops(geom, params)
         frozen = Frozen(contact=contact, geom=geom)
 
-        y_n = apply_A(x_n)                  # constant across PD iterations
-        cg_it = torch.zeros(B, dtype=torch.int32, device=dev)
-        solve = solver_for(params, m)
-
-        def one_iter(x_now, v_now):
-            btilde = btilde_of(params, m, f_ext, v_n, x_now, x_fixed, y_n)
-            if has_contact:
-                f = btilde - apply_C(params, v_now)
-                r = friction(f, frozen, ops, params, m)
-            else:
-                f = r = torch.zeros_like(x_n)
-            v_new, cg_k = solve(p_inv, btilde + r)
-            return x_n + h * v_new, v_new, f, r, cg_k
-
-        x_now, v_now = s_n, v_iter0     # the loop starts from the inertia
-        #                                 target (Simulation.cpp:1154-1160)
-        it = torch.zeros(B, dtype=torch.int32, device=dev)
-        min_xd = _frob(s_n - x_n) / n
-        best_x, best_v = x_n, v_n
-        done = torch.zeros(B, dtype=torch.bool, device=dev)
-        strict = torch.zeros(B, dtype=torch.bool, device=dev)
-        since = torch.zeros(B, dtype=torch.int32, device=dev)
-        f = torch.zeros_like(x_n)
-        r = torch.zeros_like(x_n)
-        for k in range(max_iter):
-            if k and k % CHECK_EVERY == 0 and not bool(torch.any(~done)):
-                break
-            x_new, v_new, f_k, r_k, cg_k = one_iter(x_now, v_now)
-            xd = _frob(x_new - x_now) / n
-            better = xd < min_xd
-            since_k = torch.where(better, 0, since + 1)
-            strict_k = xd < eps_forward
-            act = ~done
-            a3 = act[:, None, None]
-            b3 = (act & better)[:, None, None]
-            best_x = torch.where(b3, x_new, best_x)
-            best_v = torch.where(b3, v_new, best_v)
-            x_now = torch.where(a3, x_new, x_now)
-            v_now = torch.where(a3, v_new, v_now)
-            f = torch.where(a3, f_k, f)
-            r = torch.where(a3, r_k, r)
-            it = it + act.to(torch.int32)
-            if cg_k is not None:
-                cg_it = cg_it + torch.where(act, cg_k, 0)
-            min_xd = torch.where(act, torch.minimum(xd, min_xd), min_xd)
-            since = torch.where(act, since_k, since)
-            strict = torch.where(act, strict_k, strict)
-            done = torch.where(act, strict_k | (since_k >= plateau_window),
-                               done)
+        name = ("pd", B, x_n.dtype, ops.route if use_self else None)
+        zeros = lambda dt: torch.zeros(B, dtype=dt, device=dev)  # noqa: E731
+        st = graphs.bind(name, dict(
+            x_n=x_n, v_n=v_n, x_fixed=x_fixed, f_ext=f_ext, m=m,
+            k=params.k_pertype, mu=params.mu, p_inv=p_inv,
+            **y_entries(x_n), **frozen_entries(contact, ops),
+            # the carry: the loop starts from the inertia target
+            # (Simulation.cpp:1154-1160)
+            x_now=s_n, v_now=v_iter0, best_x=x_n.clone(),
+            best_v=v_n.clone(), min_xd=_frob(s_n - x_n) / n,
+            it=zeros(torch.int32), cg_it=zeros(torch.int32),
+            done=zeros(torch.bool), strict=zeros(torch.bool),
+            since=zeros(torch.int32), f=torch.zeros_like(x_n),
+            r=torch.zeros_like(x_n)), once=("p_inv",))
+        bind_frozen(st, ops)
+        _run_blocks(max_iter,
+                    lambda k: graphs.run(name + (k,),
+                                         lambda s: pd_block(s, k), st),
+                    lambda: ~st["done"])
         # strict convergence keeps the last iterate; plateau / cap exit
         # reverts to the best iterate (Simulation.cpp:1357-1367)
-        s3 = strict[:, None, None]
-        x_new = torch.where(s3, x_now, best_x)
-        v_new = torch.where(s3, v_now, best_v)
-        if not has_contact:
+        s3 = st["strict"][:, None, None]
+        x_new = torch.where(s3, st["x_now"], st["best_x"])
+        v_new = torch.where(s3, st["v_now"], st["best_v"])
+        r = st["r"].clone()
+        if has_contact:
+            f = st["f"].clone()
+        else:
             # the pre-friction force record, reconstructed once post-loop
-            f = (btilde_of(params, m, f_ext, v_n, x_new, x_fixed, y_n)
-                 - apply_C(params, v_new))
+            kp = params.k_pertype
+            f = (btilde_of(kp, m, f_ext, v_n, x_new, x_fixed, y_of(st))
+                 - apply_C(kp, v_new))
         avg_def, max_def = deformation(scene, x_new)
-        aux = StepAux(f=f, r=r, converged=done, iters=it,
-                      avg_deformation=avg_def, max_deformation=max_def,
-                      selfcol_overflow=overflow, selfcol_pairs=pairs,
-                      selfcol_slots=slots, obstacle_contacts=n_contacts,
-                      cg_iters=cg_it)
+        aux = StepAux(f=f, r=r, converged=st["done"].clone(),
+                      iters=st["it"].clone(), avg_deformation=avg_def,
+                      max_deformation=max_def, selfcol_overflow=overflow,
+                      selfcol_pairs=pairs, selfcol_slots=slots,
+                      obstacle_contacts=n_contacts,
+                      cg_iters=st["cg_it"].clone())
         return x_new, v_new, aux, frozen
 
     # -- the residual and the K map ------------------------------------------
@@ -592,36 +734,64 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         frozen contacts (normals, v_out, slot geometry) are constants."""
         m = masses(params)
         f_ext = external_force(params, m, t, step_idx)
-        x_new = x_n + h * v_new
-        btilde = btilde_of(params, m, f_ext, v_n, x_new, x_fixed,
+        kp = params.k_pertype
+        btilde = btilde_of(kp, m, f_ext, v_n, x_n + h * v_new, x_fixed,
                            apply_A(x_n))
-        Cv = apply_C(params, v_new)
+        Cv = apply_C(kp, v_new)
         R = m[..., None] * v_new + Cv - btilde
         if has_contact:
             ops = sweep_ops(frozen.geom, params) if use_self else None
-            R = R - friction(btilde - Cv, frozen, ops, params, m)
+            R = R - friction(btilde - Cv, frozen.contact, ops, params.mu, m)
         return R
 
-    def k_map(vn, x_n, v_n, params, x_fixed, frozen, ops, t, step_idx):
+    def k_map(vn, st):
         """K(v) = b~(x_n + h v) + r(f(v)), so that P - dR/dv = dK/dv
         (step.py:683-692): the fixed point needs only K's VJP."""
-        m = masses(params)
-        f_ext = external_force(params, m, t, step_idx)
-        btilde = btilde_of(params, m, f_ext, v_n, x_n + h * vn, x_fixed,
-                           apply_A(x_n))
+        kp, m = st["k"], st["m"]
+        btilde = btilde_of(kp, m, st["f_ext"], st["v_n"], st["x_n"] + h * vn,
+                           st["x_fixed"], y_of(st))
         if not has_contact:
             return btilde
-        return btilde + friction(btilde - apply_C(params, vn), frozen, ops,
-                                 params, m)
+        return btilde + friction(btilde - apply_C(kp, vn), st.get("contact"),
+                                 st.get("ops"), st["mu"], m)
+
+    def vjp_k(st, u):
+        """(dK/dv)^T u at the step's v_new.  K's forward is recomputed for
+        each product (one forward friction sweep beside the backward one),
+        so that a captured block holds both: autograd cannot replay inside
+        a graph the backward of a forward recorded outside it."""
+        with torch.enable_grad():
+            vn = st["v_new"].detach().requires_grad_(True)
+            return torch.autograd.grad(k_map(vn, st), vn, u)[0]
 
     # -- the implicit adjoint ------------------------------------------------
+
+    def trip_block(st, k: int) -> None:
+        """k masked fixed-point trips (the body of step.py:774's
+        while_loop, per episode) on the adjoint's carry in st, written back
+        in place."""
+        lam, it, done, bad, cg_sum = (st[name] for name in TRIP_CARRY)
+        for _ in range(k):
+            act = ~(done | bad)
+            lam_next, cg_k = solve(st, st["w"] + vjp_k(st, lam),
+                                   block_checks)
+            delta = _frob(lam_next - lam) / nh
+            bad_k = ~torch.isfinite(delta) | (
+                _frob(lam_next) > 1e8 * (st["w_norm"] + 1e-30))
+            lam = torch.where(act[:, None, None], lam_next, lam)
+            it = it + act.to(torch.int32)
+            done = torch.where(act, delta < eps_backward, done)
+            bad = torch.where(act, bad_k, bad)
+            if cg_k is not None:
+                cg_sum = cg_sum + torch.where(act, cg_k, 0)
+        for name, val in zip(TRIP_CARRY, (lam, it, done, bad, cg_sum)):
+            st[name].copy_(val)
 
     def step_bwd(x_n, v_n, v_new, params: SimParams, x_fixed,
                  frozen: Frozen, p_inv, t, step_idx, x_bar, v_bar, wanted):
         """Cotangents of (x_new, v_new) -> those of x_n, v_n and x_fixed,
         and a dict of those of the SimParams fields named in `wanted`."""
         B = x_n.shape[0]
-        nh = n * h
         params = SimParams(**{k: v.detach() for k, v in params.items()})
         x_n, v_n, v_new, x_fixed = (a.detach()
                                     for a in (x_n, v_n, v_new, x_fixed))
@@ -645,25 +815,21 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
             return (x_bar, torch.zeros_like(v_n), torch.zeros_like(x_fixed),
                     {k: torch.zeros_like(getattr(params, k))
                      for k in wanted})
-        launches = 0
-
-        ops = sweep_ops(frozen.geom, params) if use_self else None
-        with torch.enable_grad():
-            vn = v_new.clone().requires_grad_(True)
-            K = k_map(vn, x_n, v_n, params, x_fixed, frozen, ops, t,
-                      step_idx)
-
-        def vjp_k(u):
-            nonlocal launches
-            launches += 1
-            return torch.autograd.grad(K, vn, u, retain_graph=True)[0]
 
         m = masses(params)
-
-        solve = solver_for(params, m)
+        ops = sweep_ops(frozen.geom, params) if use_self else None
+        name = ("adj", B, x_n.dtype, ops.route if use_self else None)
+        st = graphs.bind(name, dict(
+            x_n=x_n, v_n=v_n, v_new=v_new, x_fixed=x_fixed,
+            f_ext=external_force(params, m, t, step_idx), m=m,
+            k=params.k_pertype, mu=params.mu, p_inv=p_inv, w=w,
+            w_norm=w_norm, **y_entries(x_n),
+            **frozen_entries(frozen.contact, ops)), once=("p_inv",))
+        bind_frozen(st, ops)
+        matvecs = 0     # (dK/dv)^T products outside the trip blocks
 
         def P_inv(rhs):
-            u, cg_k = solve(p_inv, rhs)
+            u, cg_k = solve_alone(st, rhs)
             if cg_k is not None:
                 stats.cg_solves += 1
                 stats.cg_iters = stats.cg_iters + cg_k.sum()
@@ -671,13 +837,17 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
 
         def vjp_v(u):
             """(dR/dv)^T u = P u - (dK/dv)^T u."""
-            return m[..., None] * u + apply_C(params, u) - vjp_k(u)
+            nonlocal matvecs
+            matvecs += 1
+            return m[..., None] * u + apply_C(params.k_pertype, u) - vjp_k(
+                st, u)
 
         def op_pre(u):
             """P^{-1} (dR/dv)^T u, the GMRES operator."""
             return P_inv(vjp_v(u))
 
         b_pre = P_inv(w)
+        trips = 0
         if flags.adjoint_mode == "gmres":
             # ---- restarted preconditioned GMRES as the primary solver
             # (step.py:704-757): a cycle budget of max_back // (M + 2),
@@ -714,27 +884,24 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                 stats.gmres_cycles += 1
             stats.lane_steps = stats.lane_steps + live.sum()
             stats.lane_trips = stats.lane_trips + cycles.sum()
-            stats.gmres_matvecs += launches
         else:
             # ---- the reference's fixed point (Simulation.cpp:1569-1599)
-            lam = b_pre
-            it = torch.ones(B, dtype=torch.int32, device=w.device)
-            done = ~live
-            bad = torch.zeros_like(live)
-            for k in range(max_back - 1):
-                act = ~(done | bad)
-                if k and k % CHECK_EVERY == 0 and not bool(act.any()):
-                    break
-                lam_next = P_inv(w + vjp_k(lam))
-                delta = _frob(lam_next - lam) / nh
-                bad_k = ~torch.isfinite(delta) | (
-                    _frob(lam_next) > 1e8 * (w_norm + 1e-30))
-                lam = torch.where(act[:, None, None], lam_next, lam)
-                it = it + act.to(torch.int32)
-                done = torch.where(act, delta < eps_backward, done)
-                bad = torch.where(act, bad_k, bad)
-            trips = launches
+            graphs.bind(name, dict(
+                lam=b_pre.clone(),
+                it=torch.ones(B, dtype=torch.int32, device=w.device),
+                done=~live, bad=torch.zeros_like(live),
+                cg_sum=torch.zeros(B, dtype=torch.int32, device=w.device)))
+            trips = _run_blocks(
+                max_back - 1,
+                lambda k: graphs.run(name + (k,),
+                                     lambda s: trip_block(s, k), st),
+                lambda: ~(st["done"] | st["bad"]))
+            lam, it, done, bad = (st[k].clone()
+                                  for k in ("lam", "it", "done", "bad"))
             stats.trips += trips
+            if uses_cg:
+                stats.cg_solves += trips
+                stats.cg_iters = stats.cg_iters + st["cg_sum"].sum()
             stats.lane_steps = stats.lane_steps + live.sum()
             stats.lane_trips = stats.lane_trips + torch.where(live, it - 1,
                                                               0).sum()
@@ -752,7 +919,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                 res = _frob(b_pre - op_pre(sol)) / nh
                 lam = torch.where(need[:, None, None], sol, lam)
                 need = need & ((res >= eps_backward) | ~torch.isfinite(res))
-            stats.gmres_matvecs += launches - trips
+        stats.gmres_matvecs += matvecs
         lam = torch.where(live[:, None, None], lam, 0.0)
 
         # ---- one VJP of the residual for x_n, v_n, x_fixed and params
@@ -766,16 +933,17 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                          leaves["x_fixed"], frozen, t, step_idx)
             grads = torch.autograd.grad(R, list(leaves.values()), lam,
                                         allow_unused=True)
-        launches += 1
         stats.residual_vjps += 1
         if use_self:
+            # every (dK/dv)^T product and the residual VJP sweep once
             stats.slot_launches = (stats.slot_launches
-                                   + frozen.geom.counts.sum() * launches)
+                                   + frozen.geom.counts.sum()
+                                   * (trips + matvecs + 1))
         g = {}
-        for k, gr, leaf in zip(leaves, grads, leaves.values()):
-            gr = torch.zeros_like(leaf) if gr is None else gr
-            g[k] = torch.where(live.view((-1,) + (1,) * (gr.dim() - 1)),
-                               gr, 0.0)
+        for k, gr_, leaf in zip(leaves, grads, leaves.values()):
+            gr_ = torch.zeros_like(leaf) if gr_ is None else gr_
+            g[k] = torch.where(live.view((-1,) + (1,) * (gr_.dim() - 1)),
+                               gr_, 0.0)
         return (x_bar - g.pop("x_n"), -g.pop("v_n"), -g.pop("x_fixed"),
                 {k: -v for k, v in g.items()})
 
@@ -787,4 +955,5 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         return out[0], out[1], StepAux(*out[2:])
 
     step.bwd_stats = stats
+    step.graphs = graphs
     return step, residual
