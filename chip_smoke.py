@@ -35,11 +35,15 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      rollout.  Counters zeroed just before and read just after: the
      backward friction kernel launches once per adjoint trip, GMRES matvec
      and residual VJP; the forward one once per PD sweep of the forward
-     (as in phase 3) and once more per adjoint trip, GMRES matvec and
-     residual VJP (each recomputes K's forward beside its backward, so
-     that a trip is one CUDA graph).  Prints episode-gradient steps/s, the forward and
-     backward shares, adjoint trips per step, fallback steps and active
-     slots per backward launch.
+     (as in phase 3) twice (the population's value-and-grad is chunked:
+     its backward recomputes each chunk's forward, detection too) and once
+     more per adjoint trip, GMRES matvec and residual VJP (each recomputes
+     K's forward beside its backward, so that a trip is one graph body).
+     Prints episode-gradient steps/s, the forward and backward shares,
+     adjoint trips per step, fallback steps and active slots per backward
+     launch.  Then the GMRES least squares kernel against its plain
+     version at the path's shapes (B = 32 Hessenbergs of 17 x 16), timed
+     beside it and torch.linalg.pinv; it must have launched on the path.
   7. gradient profile: a 10-step value-and-grad of the batch under
      torch.profiler.
   8. trainer: `solve_demo("wind", seed=1, population=4, maxiter=1)` on the
@@ -112,7 +116,8 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         PD steps/s, sweeps per step, self-contact steps and overflow,
         launches checked; then a 10-step profile without the P^{-1};
      c. gradient: the value-and-grad of the dress loss over its mask
-        (density, k_bend), trips per step and GMRES fallbacks;
+        (density, k_bend), trips per step and GMRES fallbacks; chunked
+        (n = 7056 > 2000, OptimizeHelper's rule), so the forward twice;
      d. fit: solve_demo("dress"), 8 steps, 2 iterations, with export_dir,
         checkpoint_dir and export_iters; resumed from its checkpoint to 3
         iterations; the exported final episode re-imported, equal to the
@@ -166,26 +171,51 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         row-sharded solve equal to the dense P^{-1} product, exactly.
 
  18. graphs (the compiled step): every earlier phase runs its sims as they
-     default, each step's loop blocks captured as CUDA graphs and replayed
-     (`core/graphs.py`); here each path runs both ways on two sims of one
-     configuration, `cuda_graphs=None` (captured) and `False` (the same
-     blocks uncaptured): the flagship stand-in's forward and value-and-grad
-     (B = 32, 16 steps), the sphere path's (B = 16, 30 steps), the large
+     default, each step's forward and adjoint one launch of a device
+     program whose loops end on the device (`core/graphs.py`); here each
+     path runs both ways on two sims of one configuration,
+     `cuda_graphs=None` (captured) and `False` (the same segments
+     uncaptured): the flagship stand-in's forward and value-and-grad
+     (B = 32, 8 steps), the sphere path's (B = 16, 16 steps), the large
      path's forward (B = 8, 2 steps) and one control `loss_and_grad` (B =
-     4, 40 steps, a seeded controller).  A cold run each way (the graphed
+     4, 20 steps, a seeded controller).  A cold run each way (the graphed
      one warms up and captures), then graphed, uncaptured, uncaptured,
      graphed: every output (states, diagnostic counts, losses, gradients),
      the kernels' counters and the adjoint's counts of all six runs equal
-     bit for bit; each captured block's kernels per replay equal to its
-     length, and the counters equal to the launches the blocks derive
-     (blocks run x length, plus the residual VJPs and GMRES matvecs outside
-     them); the rates both ways; then one profiled run each way (device
-     busy, device and host launches per PD sweep or step, replays per
-     step).
+     bit for bit; each PD and trip body's kernels per run equal to its
+     length, and, in a run without warm-ups, the kernels' own launch
+     counts (each kernel adds one on the device per launch) equal to what
+     the programs predict (launches x straight kernels plus body runs x
+     body kernels) and the trip bodies' runs the adjoint's trips;
+     the rates both ways; then one profiled run each way (device busy as
+     the profiler sees it, device and host launches per PD sweep or step,
+     program launches per step).
+
+ 19. chunked (the chunked episode): the flagship stand-in (B = 32, 100
+     steps, chunk 25) and the sphere path (B = 16, 60 steps, chunk 20)
+     through `rollout_chunked`, `episode_loss_chunked` and
+     `episode_value_and_grad_chunked(batched=True)` against `rollout`,
+     `episode_loss` and `episode_value_and_grad` on one sim: the chunked
+     states and diagnostics and the loss equal bit for bit, the gradients
+     within 1e-5 of each class's largest entry; the kernels' own launch
+     counts against the sweeps the iteration counts imply (the forward
+     twice in the chunked value-and-grad) and against what the programs'
+     launches and body runs predict; the rates both ways (chunked, whole,
+     whole, chunked);
+     device busy (CUDA events around each step program: the profiler sees
+     few or none of the kernels inside the loop bodies); host launches and
+     synchronizing runtime calls per step (torch.profiler's runtime
+     events, in a fresh process at 8 steps, chunk 4; its failure fails
+     the phase); the chunks'
+     forward under PyTorch's sync debug mode "error"; the loops' body
+     runs; the peak memory of the two value-and-grads.
+     Then the chunked value-and-grad in f64, card against CPU (a 10 x 10
+     folded grid, B = 2, 6 steps, chunk 3) within 1e-6.
 
 `--only PATH,...` runs some of the paths while iterating (flagship:
 phases 2-9, sphere, large, dress, multistage, ladder, obstacles,
-precision, control, graphs); the acceptance run takes no arguments.
+precision, control, graphs, chunked); the acceptance run takes no
+arguments.
 
 Prints one JSON line `{"kernels": [...]}` (each kernel's launches counted
 on the path that runs it: the forward path for detection and the forward
@@ -209,6 +239,12 @@ import numpy as np
 # outside the tensor cores; a card below its 700 W limit may not reach them
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# f64 FLOP/s outside the tensor cores (the GMRES least squares kernel
+# computes in f64)
+F64_FLOPS = 34e12
+# f64 operations of one Jacobi sweep of the least squares kernel per
+# column pair: three dot products over the 17 rows (2 each per row)
+LSTSQ_OPS_PER_PAIR = 6 * 17
 # f32 operations of the detection kernel per (row, column) pair: 6
 # differences, 6 squares, 4 adds, 1 min, 1 add, 1 square of the reach,
 # 1 compare
@@ -401,15 +437,22 @@ def host_launches(prof):
     return n or None
 
 
-def log_breakdown(tag, ops, kernels, top=8):
+def log_breakdown(tag, ops, kernels, top=8, captured=False):
     """The `top` operators by device time, then each hand-written kernel's
-    calls and device time per call; kernels: (name, symbol substring)."""
+    calls and device time per call; kernels: (name, symbol substring).  On
+    a captured path (`captured`) the profiler sees few or none of the
+    kernels inside the programs' WHILE loop bodies: a kernel it saw no
+    call of is reported so, not an error."""
     busy_ms = sum(ms for _, ms, _ in ops)
     for key, ms, count in sorted(ops, key=lambda o: -o[1])[:top]:
         log(f"[{tag}]   {100 * ms / busy_ms:5.1f} % of device time  "
             f"{ms:8.2f} ms  {count:6d} calls  {key[:90]}")
     for name, kernel in kernels:
         hits = [(ms, count) for key, ms, count in ops if kernel in key]
+        if not hits and captured:
+            log(f"[{tag}] {name}: no call recorded (inside the programs' "
+                f"loop bodies, which the profiler does not see)")
+            continue
         if not hits:
             raise AssertionError(f"the profiler saw no {kernel}")
         ms, count = map(sum, zip(*hits))
@@ -605,6 +648,69 @@ def phase_kernels(tag, sim, x0, rng, mu=None, suffix=""):
     ] + sweep_entries(sweeps, bounds, suffix)
 
 
+def phase_lstsq_kernel(B, launches, rng):
+    """The GMRES least squares kernel against its plain version (gelsd in
+    f64 on the host) at the flagship's shapes: B (17, 16) Hessenbergs in
+    f32, random, happy breakdowns (a zero subdiagonal entry, the block
+    below it zero) and columns near the cutoff; within 1e-5 of each
+    episode's largest entry.  Its time beside the plain version's and
+    PyTorch's pinv (the same truncated SVD solution, which reads back to
+    the host); the bound counts one Jacobi sweep per episode (the sweep
+    that finds nothing to rotate), a floor of the data's sweeps.  Returns
+    the JSON line's entry (`launches`: the gradient path's)."""
+    import torch
+    from diffcloth_tpu_torch.core import lstsq_cuda as lq
+    from diffcloth_tpu_torch.core import step as step_mod
+    if not launches:
+        raise AssertionError("[lstsq] the gradient path launched the GMRES "
+                             "least squares kernel no time")
+    m = step_mod.GMRES_M
+    H = np.triu(rng.randn(B, m + 1, m), -1)
+    for i in range(1, B, 3):
+        j = rng.randint(m)
+        H[i, j + 1, j] = 0.0
+        H[i, j + 1:, j + 1:] = 0.0
+    for i in range(2, B, 3):
+        H[i, :, -3:] *= 1e-9
+    e1 = np.zeros((B, m + 1))
+    e1[:, 0] = rng.rand(B) + 0.1
+    Ht = torch.as_tensor(H, dtype=torch.float32, device="cuda")
+    bt = torch.as_tensor(e1, dtype=torch.float32, device="cuda")
+    rcond = torch.finfo(torch.float32).eps * (m + 1)
+    y = lq.hessenberg_lstsq(Ht, bt, rcond)
+    Hc, bc = Ht.cpu(), bt.cpu()
+    ref = lq.hessenberg_lstsq_plain(Hc, bc, rcond)
+    diff = (y.cpu().double() - ref.double()).abs()
+    rel = float((diff.amax(1) / ref.double().abs().amax(1)).max())
+    if not rel <= 1e-5:
+        raise AssertionError(f"[lstsq] kernel against plain: {rel:.3e} of "
+                             f"an episode's largest entry")
+    ms = time_cuda(lambda: lq.hessenberg_lstsq(Ht, bt, rcond))
+    t0 = time.perf_counter()
+    for _ in range(5):
+        lq.hessenberg_lstsq_plain(Hc, bc, rcond)
+    plain_ms = (time.perf_counter() - t0) / 5 * 1e3
+    lib_ms = time_cuda(lambda: torch.linalg.pinv(Ht, rtol=rcond)
+                       @ bt[..., None], reps=5, warmup=1)
+    pairs = (m // 2) * (m - 1)
+    ops_ms = B * pairs * LSTSQ_OPS_PER_PAIR / F64_FLOPS * 1e3
+    bytes_ms = 4 * B * ((m + 1) * m + (m + 1) + m) / HBM_BYTES_PER_S * 1e3
+    bound, by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    log(f"[lstsq] B={B} (17 x 16) f32 Hessenbergs: kernel == plain within "
+        f"{rel:.2e} of each episode's largest entry (max abs "
+        f"{float(diff.max()):.2e}); kernel {ms:.4f} ms (CUDA events), plain "
+        f"{plain_ms:.3f} ms (host gelsd), torch.linalg.pinv {lib_ms:.3f} ms; "
+        f"bound {bound:.5f} ms ({by}); {launches} launches on the gradient "
+        f"path")
+    return dict(name="hessenberg_lstsq", route="cuda",
+                source="diffcloth_tpu_torch/csrc/hessenberg_lstsq.cu",
+                replaces="diffcloth_tpu/core/step.py:136 (jnp.linalg.lstsq, "
+                         "a library call; no Pallas kernel)",
+                launches=launches, max_abs_err=float(diff.max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+
+
 def sweep_entries(sweeps, bounds, suffix, state="shared"):
     """The JSON line's entries of the two sweeps (names + suffix), from
     check_sweeps' times at full budget, on the operands' `state` route."""
@@ -743,19 +849,15 @@ def episode_params(sim, B):
 def phase_main_path(sim, B, card):
     """The port's main path: a batched forward episode on the card."""
     import torch
-    from diffcloth_tpu_torch.core import friction_cuda as fc
-    from diffcloth_tpu_torch.core import selfcol_cuda as scd
 
     params = episode_params(sim, B)
     torch.cuda.synchronize()
-    scd.detect_partners.launches = 0
-    fc.friction_sweep.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     recs = sim.rollout(params)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"selfcol_detect": scd.detect_partners.launches,
-                "friction_fwd": fc.friction_sweep.launches}
+    launches = read_counters()
     st = recs.steps
     N = sim.n_steps
     if tuple(st.x.shape) != (B, N, sim.n, 3):
@@ -828,7 +930,8 @@ def phase_profile(tag, sim, params, card, top=8, kernels=FORWARD_KERNELS,
         raise AssertionError("the profiler saw no device time")
     hosted = host_launches(prof)
     log(f"[{tag}] {sim.n_steps} steps x B={params.batch_size} on {card}: "
-        f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"wall {wall_ms:.1f} ms, device busy (as the profiler sees it) "
+        f"{busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f} %), {sweeps} PD sweeps: "
         f"{wall_ms / sweeps:.3f} ms wall and {busy_ms / sweeps:.3f} ms "
         f"device per sweep (wall inflated by the profiler), "
@@ -837,7 +940,7 @@ def phase_profile(tag, sim, params, card, top=8, kernels=FORWARD_KERNELS,
         + f" host launches per sweep; graphs {graph_line(sim)}")
     # the hand-written kernels' own device time per call, beside the CUDA
     # event time of back-to-back wrapper calls in phase 2
-    log_breakdown(tag, ops, kernels, top)
+    log_breakdown(tag, ops, kernels, top, sim.cuda_graphs)
     return recs
 
 
@@ -897,8 +1000,6 @@ def phase_gradient(sim, B, card, fwd_sweeps):
     the optimizer's objective, on the card.  `fwd_sweeps`: the forward
     sweep's launches in phase 3's rollout of the same episodes."""
     import torch
-    from diffcloth_tpu_torch.core import friction_cuda as fc
-    from diffcloth_tpu_torch.core import selfcol_cuda as scd
     from diffcloth_tpu_torch.optim.helper import GradMask, OptimizeHelper
 
     params = episode_params(sim, B)
@@ -911,17 +1012,13 @@ def phase_gradient(sim, B, card, fwd_sweeps):
                             param_base=params)
     X = np.stack([helper.params_to_vec(params.sample(i)) for i in range(B)])
     torch.cuda.synchronize()
-    scd.detect_partners.launches = 0
-    fc.friction_sweep.launches = 0
-    fc.friction_sweep_bwd.launches = 0
+    zero_counters()
     sim.bwd_stats.reset()
     t0 = time.perf_counter()
     L, G = helper.batched_loss_and_grad(X)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"selfcol_detect": scd.detect_partners.launches,
-                "friction_fwd": fc.friction_sweep.launches,
-                "friction_bwd": fc.friction_sweep_bwd.launches}
+    launches = read_counters()
     st = sim.bwd_stats.summary()
     N = sim.n_steps
     if L.shape != (B,) or G.shape != (B, X.shape[1]):
@@ -930,23 +1027,11 @@ def phase_gradient(sim, B, card, fwd_sweeps):
         raise AssertionError("non-finite loss or gradient")
     if not ((L > 0).all() and (np.abs(G).max(axis=1) > 0).all()):
         raise AssertionError("a zero loss or gradient")
-    if launches["selfcol_detect"] != N:
-        raise AssertionError(f"detection launched {launches} times, "
-                             f"expected once per step ({N})")
-    # the forward runs phase 3's sweeps; every (dK/dv)^T product (a trip
-    # or a GMRES matvec) and every residual VJP recomputes its forward
-    # sweep beside the backward one
-    if launches["friction_fwd"] != fwd_sweeps + st["launches"]:
-        raise AssertionError(
-            f"friction_fwd launched {launches['friction_fwd']} times, not "
-            f"the forward's {fwd_sweeps} plus one per adjoint trip, GMRES "
-            f"matvec and residual VJP ({st['launches']:.0f})")
-    if launches["friction_bwd"] != st["launches"]:
-        raise AssertionError(
-            f"friction_bwd launched {launches['friction_bwd']} times, not "
-            f"once per adjoint trip ({st['trips']:.0f}), GMRES matvec "
-            f"({st['gmres_matvecs']:.0f}) and residual VJP "
-            f"({st['residual_vjps']:.0f})")
+    # the population's value-and-grad is chunked: its backward recomputes
+    # the forward (phase 3's sweeps twice); every (dK/dv)^T product (a
+    # trip or a GMRES matvec) and every residual VJP recomputes its
+    # forward sweep beside the backward one
+    check_launches("gradient", launches, N, fwd_sweeps, st, passes=2)
     split = helper.last_split
     log(f"[gradient] {N} steps x B={B} on {card}: {wall:.2f} s, "
         f"{B * N / wall:.1f} episode-gradient steps/s; forward "
@@ -989,13 +1074,15 @@ def phase_profile_gradient(tag, sim, params, loss_fn, card, top=8):
     log(f"[{tag}] {sim.n_steps} steps x B={params.batch_size} on {card}: "
         f"wall {wall_ms:.1f} ms (forward {vg.split['forward_s'] * 1e3:.1f}, "
         f"backward {vg.split['backward_s'] * 1e3:.1f}; inflated by the "
-        f"profiler), device busy {busy_ms:.1f} ms "
+        f"profiler), device busy (as the profiler sees it) "
+        f"{busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f} %), "
         f"{sum(c for _, _, c in ops)} device launches, "
         f"{host_launches(prof) or '(not measured)'} host launches; graphs "
         f"{graph_line(sim)}")
     log_breakdown(tag, ops,
-                  (("friction_bwd", "friction_bwd_kernel"),), top)
+                  (("friction_bwd", "friction_bwd_kernel"),), top,
+                  sim.cuda_graphs)
 
 
 def phase_trainer(card):
@@ -1128,8 +1215,6 @@ def phase_sphere_forward(card, B, steps=None, device=None):
     truth a 1-episode rollout at mu = 0.3), then one batched rollout of B
     friction coefficients.  Returns (task, helper, X, forward sweeps)."""
     import torch
-    from diffcloth_tpu_torch.core import friction_cuda as fc
-    from diffcloth_tpu_torch.core import selfcol_cuda as scd
     from diffcloth_tpu_torch.optim.helper import OptimizeHelper
     from diffcloth_tpu_torch.tasks.setup import build_task
 
@@ -1151,14 +1236,12 @@ def phase_sphere_forward(card, B, steps=None, device=None):
     X = sphere_candidates(B)
     params = helper.stack_vecs(X)
     torch.cuda.synchronize()
-    scd.detect_partners.launches = 0
-    fc.friction_sweep.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     recs = sim.rollout(params)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"selfcol_detect": scd.detect_partners.launches,
-                "friction_fwd": fc.friction_sweep.launches}
+    launches = read_counters()
     st = recs.steps
     N = sim.n_steps
     if tuple(st.x.shape) != (B, N, sim.n, 3):
@@ -1204,23 +1287,17 @@ def phase_sphere_gradient(task, helper, X, fwd_sweeps, card):
     """The obstacle path's training step: the batched value-and-grad of mu
     at the forward's candidates."""
     import torch
-    from diffcloth_tpu_torch.core import friction_cuda as fc
-    from diffcloth_tpu_torch.core import selfcol_cuda as scd
 
     sim = task.sim
     B, N = X.shape[0], sim.n_steps
     torch.cuda.synchronize()
-    scd.detect_partners.launches = 0
-    fc.friction_sweep.launches = 0
-    fc.friction_sweep_bwd.launches = 0
+    zero_counters()
     sim.bwd_stats.reset()
     t0 = time.perf_counter()
     L, G = helper.batched_loss_and_grad(X)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"selfcol_detect": scd.detect_partners.launches,
-                "friction_fwd": fc.friction_sweep.launches,
-                "friction_bwd": fc.friction_sweep_bwd.launches}
+    launches = read_counters()
     st = sim.bwd_stats.summary()
     mu = X[:, 0]
     mu_gt = float(task.param_gt.mu[0])
@@ -1235,20 +1312,7 @@ def phase_sphere_gradient(task, helper, X, fwd_sweeps, card):
         raise AssertionError(f"the loss is smallest at mu "
                              f"{mu[np.argmin(L)]:.4f}, not at the candidate "
                              f"nearest {mu_gt}")
-    if launches["selfcol_detect"] != N:
-        raise AssertionError(f"detection launched {launches} times, "
-                             f"expected once per step ({N})")
-    if launches["friction_fwd"] != fwd_sweeps + st["launches"]:
-        raise AssertionError(
-            f"friction_fwd launched {launches['friction_fwd']} times, not "
-            f"the forward's {fwd_sweeps} plus one per adjoint trip, GMRES "
-            f"matvec and residual VJP ({st['launches']:.0f})")
-    if launches["friction_bwd"] != st["launches"]:
-        raise AssertionError(
-            f"friction_bwd launched {launches['friction_bwd']} times, not "
-            f"once per adjoint trip ({st['trips']:.0f}), GMRES matvec "
-            f"({st['gmres_matvecs']:.0f}) and residual VJP "
-            f"({st['residual_vjps']:.0f})")
+    check_launches("sphere-gradient", launches, N, fwd_sweeps, st, passes=2)
     split = helper.last_split
     log(f"[sphere] gradient {N} steps x B={B} on {card}: {wall:.2f} s, "
         f"{B * N / wall:.1f} episode-gradient steps/s; forward "
@@ -1439,21 +1503,16 @@ def large_modes(sim):
 
 
 def zero_counters():
-    from diffcloth_tpu_torch.core import friction_cuda as fc
-    from diffcloth_tpu_torch.core import selfcol_cuda as scd
-    scd.detect_partners.launches = 0
-    for fn in (fc.friction_sweep, fc.friction_sweep_bwd):
-        fn.launches = fn.global_launches = 0
+    """Zero the kernels' launch counts (kept on the device by the kernels
+    themselves, `core/launch_count.py`)."""
+    from diffcloth_tpu_torch.core import launch_count as lc
+    lc.zero()
 
 
 def read_counters():
-    from diffcloth_tpu_torch.core import friction_cuda as fc
-    from diffcloth_tpu_torch.core import selfcol_cuda as scd
-    return {"selfcol_detect": scd.detect_partners.launches,
-            "friction_fwd": fc.friction_sweep.launches,
-            "friction_fwd_global": fc.friction_sweep.global_launches,
-            "friction_bwd": fc.friction_sweep_bwd.launches,
-            "friction_bwd_global": fc.friction_sweep_bwd.global_launches}
+    """{counter: launches since zero_counters()} (one device read)."""
+    from diffcloth_tpu_torch.core import launch_count as lc
+    return lc.read_all()
 
 
 def phase_large_forward(sim, B, card):
@@ -1576,11 +1635,12 @@ def phase_large_gradient(sim, B, card, fwd_sweeps):
         raise AssertionError("non-finite loss or gradient")
     if not ((L > 0).all() and (np.abs(G).max(axis=1) > 0).all()):
         raise AssertionError("a zero loss or gradient")
-    if launches["friction_fwd"] != fwd_sweeps + st["launches"]:
+    # chunked: the backward recomputes the forward's sweeps
+    if launches["friction_fwd"] != 2 * fwd_sweeps + st["launches"]:
         raise AssertionError(
             f"friction_fwd launched {launches['friction_fwd']} times, not "
-            f"the forward's {fwd_sweeps} plus one per adjoint trip, GMRES "
-            f"matvec and residual VJP ({st['launches']:.0f})")
+            f"the forward's {fwd_sweeps} twice plus one per adjoint trip, "
+            f"GMRES matvec and residual VJP ({st['launches']:.0f})")
     if not (launches["friction_bwd"] == launches["friction_bwd_global"]
             == st["launches"]):
         raise AssertionError(
@@ -1761,12 +1821,14 @@ def dress_task(steps=None, dtype=None, device=None, **changes):
                           device=device)
 
 
-def check_launches(tag, launches, n_steps, fwd_sweeps, bwd=None):
+def check_launches(tag, launches, n_steps, fwd_sweeps, bwd=None, passes=1):
     """Detection once per step, the forward sweep once per PD sweep of the
     forward (`fwd_sweeps`) plus, on a gradient path (bwd: its
     BackwardStats summary), once per adjoint trip, GMRES matvec and
-    residual VJP, as the backward sweep is."""
-    want_fwd = fwd_sweeps + (bwd["launches"] if bwd else 0)
+    residual VJP, as the backward sweep is; passes=2 for a chunked
+    value-and-grad, whose backward recomputes the forward."""
+    want_fwd = passes * fwd_sweeps + (bwd["launches"] if bwd else 0)
+    n_steps = passes * n_steps
     if launches["selfcol_detect"] != n_steps:
         raise AssertionError(f"[{tag}] detection launched {launches}, not "
                              f"once per step ({n_steps})")
@@ -1858,7 +1920,9 @@ def phase_dress_gradient(task, card, fwd_sweeps):
     N = sim.n_steps
     if not (np.isfinite(L) and np.isfinite(G).all() and np.abs(G).max() > 0):
         raise AssertionError(f"dress loss {L}, gradient {G}")
-    check_launches("dress-gradient", launches, N, fwd_sweeps, st)
+    if not helper.chunked:
+        raise AssertionError("the dress (n = 7056) fit is not chunked")
+    check_launches("dress-gradient", launches, N, fwd_sweeps, st, passes=2)
     split = helper.last_split
     log(f"[dress-gradient] {N} steps x B=1 on {card}: {wall:.2f} s "
         f"({N / wall:.2f} episode-gradient steps/s; host P^-1, forward "
@@ -2600,11 +2664,13 @@ def phase_control_profile(card, ctrl):
     log(f"[control-profile] loss_and_grad, {prob.n_steps} steps x "
         f"B={HAT_BATCH} on {card}: wall {wall_ms:.1f} ms (forward "
         f"{pg.forward_s * 1e3:.1f}, backward {pg.backward_s * 1e3:.1f}; "
-        f"inflated by the profiler), device busy {busy_ms:.1f} ms "
+        f"inflated by the profiler), device busy (as the profiler sees "
+        f"it) {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f} %), "
         f"{sum(c for _, _, c in ops)} device launches")
     log_breakdown("control-profile", ops, FORWARD_KERNELS
-                  + (("friction_bwd", "friction_bwd_kernel"),))
+                  + (("friction_bwd", "friction_bwd_kernel"),),
+                  captured=prob.sim.cuda_graphs)
 
 
 def phase_control_eval(card, pkl):
@@ -2785,34 +2851,42 @@ def run_control(card, timed):
 # ---------------------------------------------------------------------------
 # phase 18: the compiled step, graphed against uncaptured
 
-GRAPHS_FLAGSHIP_STEPS = 16
-GRAPHS_SPHERE_STEPS = 30
+GRAPHS_FLAGSHIP_STEPS = 8
+GRAPHS_SPHERE_STEPS = 16
 GRAPHS_LARGE_STEPS = 2
-GRAPHS_CONTROL_STEPS = 40
+GRAPHS_CONTROL_STEPS = 20
 
 
 def graph_blocks(sim) -> dict:
-    """{(kind, block length): [blocks run, replays, kernels per replay]}
-    over the sim's steps' graphs since their last reset; kind "pd" (PD
-    sweeps), "adj" (fixed-point trips) or "cg" (CG iterations)."""
+    """{(loop, block length): [body runs, program launches, kernels per
+    body run]} over the sim's step programs' loops since their last reset;
+    loop "pd" (PD sweeps), "trips" (fixed-point trips), "fallback" (the
+    GMRES fallback's cycles) or "gmres" (the GMRES mode's cycles)."""
     out = {}
     for g in sim.graphs:
-        for key, b in g.summary().items():
-            row = out.setdefault((key[0], key[-1]), [0, 0, {}])
-            row[0] += b["eager"] + b["replays"]
-            row[1] += b["replays"]
-            row[2].update(b["kernels"])
+        for p in g.summary().values():
+            for lp in p["loops"]:
+                row = out.setdefault((lp["name"], lp["every"]), [0, 0, {}])
+                row[0] += lp["runs"]
+                row[1] += p["launches"]
+                row[2].update(lp["kernels"])
     return out
+
+
+def graph_launches(sim) -> tuple:
+    """(program launches, warm-up runs) since the programs' last reset."""
+    ps = [p for g in sim.graphs for p in g.summary().values()]
+    return sum(p["launches"] for p in ps), sum(p["eager"] for p in ps)
 
 
 def graph_line(sim) -> str:
     rows = graph_blocks(sim)
     if not rows:
         return "none (uncaptured)"
-    return "; ".join(
-        f"{kind}[{k}] {runs} blocks ({replays} replays, {kern or 'no kernel'}"
-        f" per replay)" for (kind, k), (runs, replays, kern)
-        in sorted(rows.items()))
+    launches, eager = graph_launches(sim)
+    return f"{launches} program launches, {eager} warm-ups; " + "; ".join(
+        f"{name}[{k}] {runs} body runs ({kern or 'no kernel'} per run)"
+        for (name, k), (runs, _, kern) in sorted(rows.items()))
 
 
 def reset_graphs(sim):
@@ -2821,33 +2895,38 @@ def reset_graphs(sim):
 
 
 def check_graph_counts(tag, sim, launches, adjoint=None):
-    """The launches the blocks derive against the counters: each captured
-    block holds one forward sweep per PD sweep, and one forward and one
-    backward sweep per fixed-point trip (kernels per replay equal to its
-    length), so the PD blocks run x length plus the trip blocks run x
-    length plus what ran eagerly outside them (adjoint: (trips, residual
-    VJPs + GMRES matvecs), a gradient path's) is the forward sweep's count,
-    the trip blocks' part plus the eager part the backward sweep's, and the
-    trip blocks cover the adjoint's trips."""
+    """The programs' bookkeeping against the counters: each PD body holds
+    one forward sweep per PD sweep and each trip body one forward and one
+    backward sweep per trip (kernels per body run equal to its length);
+    in a run without warm-ups, the launches' straight kernels plus the
+    bodies' device-counted runs x their kernels are the counters, and the
+    trip bodies' runs x length the adjoint's trips (adjoint: its trips)."""
     rows = graph_blocks(sim)
-    pd = sum(runs * k for (kind, k), (runs, _, _) in rows.items()
-             if kind == "pd")
-    adj = sum(runs * k for (kind, k), (runs, _, _) in rows.items()
-              if kind == "adj")
-    for (kind, k), (runs, replays, kern) in rows.items():
+    for (name, k), (runs, _, kern) in rows.items():
         want = {"pd": {"friction_fwd": k},
-                "adj": {"friction_fwd": k, "friction_bwd": k}}.get(kind, {})
+                "trips": {"friction_fwd": k, "friction_bwd": k}}.get(name)
         got = {n: c for n, c in kern.items() if not n.endswith("_global")}
-        if replays and got != want:
-            raise AssertionError(f"[{tag}] {kind}[{k}]: kernels per replay "
-                                 f"{kern}, not {want}")
-    trips, eager = adjoint or (0, 0)
-    if (adj, pd + adj + eager, adj + eager) != (
-            trips, launches["friction_fwd"], launches["friction_bwd"]):
+        if want is not None and got != want:
+            raise AssertionError(f"[{tag}] {name}[{k}]: kernels per body "
+                                 f"run {kern}, not {want}")
+    if graph_launches(sim)[1]:
+        return
+    derived = {}
+    for g in sim.graphs:
+        for p in g.summary().values():
+            for name, c in p["kernels"].items():
+                derived[name] = derived.get(name, 0) + c * p["launches"]
+            for lp in p["loops"]:
+                for name, c in lp["kernels"].items():
+                    derived[name] = derived.get(name, 0) + c * lp["runs"]
+    got = {k: v for k, v in launches.items() if v}
+    derived = {k: v for k, v in derived.items() if v}
+    trips = sum(runs * k for (name, k), (runs, _, _) in rows.items()
+                if name == "trips")
+    if derived != got or (adjoint is not None and trips != adjoint):
         raise AssertionError(
-            f"[{tag}] the blocks derive {pd} + {adj} forward and {adj} "
-            f"backward sweeps, {eager} ran outside them; counted {launches}"
-            f", the adjoint's trips {trips}")
+            f"[{tag}] the programs derive {derived} launches and {trips} "
+            f"trips; counted {got}, the adjoint's trips {adjoint}")
 
 
 def _equal_outputs(tag, ref, out):
@@ -2994,11 +3073,11 @@ def phase_graphs(card):
                                      f"{st}, the first run's {ref[1]} "
                                      f"{ref[2]}")
             if g is None:
-                check_graph_counts(name, sim, launches, st and (
-                    st["trips"], st["gmres_matvecs"] + st["residual_vjps"]))
-                if i >= 2 and not any(r for _, r, _ in
-                                      graph_blocks(sim).values()):
-                    raise AssertionError(f"[graphs] {name}: no replay")
+                check_graph_counts(name, sim, launches,
+                                   st and st["trips"])
+                if i >= 2 and not graph_launches(sim)[0]:
+                    raise AssertionError(f"[graphs] {name}: no program "
+                                         f"launch")
             if i >= 2:
                 rates[g].append(units / wall)
             log(f"[graphs] {name}, run {i} "
@@ -3032,22 +3111,337 @@ def phase_graphs(card):
             div, per = ((sweeps, "PD sweep") if st is None
                         else (prof_steps, "step"))
             hosted = host_launches(prof)
-            replays = sum(r for _, r, _ in graph_blocks(sim).values())
+            replays = graph_launches(sim)[0]
             log(f"[graphs-profile] {name}, {prof_steps} steps x B={B} "
                 f"({'graphed' if g is None else 'uncaptured'}) on {card}: "
                 f"wall {wall_ms:.1f} ms (inflated by the profiler), device "
-                f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f} %); per "
+                f"busy (as the profiler sees it) {busy:.1f} ms "
+                f"({100 * busy / wall_ms:.1f} %); per "
                 f"{per} ({div}): "
                 f"{sum(c for _, _, c in ops) / div:.1f} device launches, "
                 + (f"{hosted / div:.1f}" if hosted else "(not measured)")
-                + f" host launches; {replays / prof_steps:.2f} graph "
-                f"replays per step")
+                + f" host launches; {replays / prof_steps:.2f} program "
+                f"launches per step")
             del sim, run
         torch.cuda.empty_cache()
 
 
+CHUNKED_FLAGSHIP = (BATCH, 100, 25)         # B, steps, chunk
+CHUNKED_SPHERE = (SPHERE_BATCH, 60, 20)
+CHUNKED_REF_STEPS = 6                        # f64 card vs CPU, chunk 3
+# the profiled runs' depth and chunk (phase 19's profiling process; the
+# profiler's cost grows with its events)
+CHUNKED_PROFILE = (8, 4)
+# the CUDA runtime calls with which the host waits on the card
+HOST_SYNCS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D")
+
+
+def runtime_counts(prof) -> tuple:
+    """(host launches: kernels, graphs and async copies / sets; host waits:
+    {synchronizing runtime call: count}) among a profile's CUDA runtime
+    events."""
+    launches, syncs = 0, {}
+    for e in prof.key_averages():
+        key = e.key.split("_v")[0]
+        if key in HOST_LAUNCHES or key in ("cudaMemcpyAsync",
+                                           "cudaMemsetAsync"):
+            launches += e.count
+        elif key in HOST_SYNCS:
+            syncs[key] = syncs.get(key, 0) + e.count
+    return launches, syncs
+
+
+def program_busy(fn):
+    """(wall s, device busy s) of fn(): the device time of the step
+    programs it launches (CUDA events around each launch; the profiler sees
+    few or none of the kernels inside the programs' loop bodies, so its
+    sums cannot stand in), against the wall time."""
+    import torch
+    from diffcloth_tpu_torch.core import graphs as gr
+    torch.cuda.synchronize()
+    gr.TIMING = []
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy = sum(a.elapsed_time(b) for a, b in gr.TIMING) / 1e3
+    finally:
+        gr.TIMING = None
+    return wall, busy
+
+
+def chunked_cases():
+    """(name, (B, steps, chunk), make(steps) -> (sim, batched params,
+    loss_fn)) per path of phase 19."""
+    import torch
+    from diffcloth_tpu_torch.optim.helper import OptimizeHelper
+    from diffcloth_tpu_torch.tasks.setup import build_task
+
+    def flagship_case(steps):
+        sim = flagship(torch.float32, "cuda", steps)
+        params = episode_params(sim, CHUNKED_FLAGSHIP[0])
+        return sim, params, base_wind_target(sim, params)
+
+    def sphere_case(steps):
+        with demo_steps("sphere", steps):
+            task = build_task("sphere", device="cuda")
+        helper = OptimizeHelper(task.sim, task.mask, task.loss_fn(),
+                                param_base=task.param_base)
+        return (task.sim,
+                helper.stack_vecs(sphere_candidates(CHUNKED_SPHERE[0])),
+                task.loss_fn())
+
+    return (("flagship", CHUNKED_FLAGSHIP, flagship_case),
+            ("sphere", CHUNKED_SPHERE, sphere_case))
+
+
+def phase_chunked_path(name, shape, make, card):
+    """19 on one path: the gates, the rates both ways, device busy, host
+    launches and waits per step, the loops' body runs and peak memory."""
+    import torch
+    tag = f"chunked-{name}"
+    B, N, chunk = shape
+    sim, params, loss_fn = make(N)
+    vg_whole = sim.episode_value_and_grad(loss_fn)
+    vg_chunk = sim.episode_value_and_grad_chunked(loss_fn, chunk,
+                                                  batched=True)
+    whole = sim.rollout(params).steps       # warm-up and capture
+    reset_graphs(sim)
+    zero_counters()
+    t0 = time.perf_counter()
+    ch = sim.rollout_chunked(params, chunk).steps
+    torch.cuda.synchronize()
+    wall_fwd = time.perf_counter() - t0
+    launches = read_counters()
+    # the kernels' own counts against what the programs' launches and the
+    # loops' device-counted body runs predict
+    check_graph_counts(tag, sim, launches)
+    for k in ("x", "v", "x_fixed", "iters", "converged", "avg_deformation",
+              "max_deformation", "selfcol_overflow", "selfcol_pairs",
+              "selfcol_slots", "obstacle_contacts", "cg_iters"):
+        if not torch.equal(getattr(ch, k), getattr(whole, k)):
+            raise AssertionError(f"[{tag}] rollout_chunked's {k} differs "
+                                 f"from rollout's")
+    iters = ch.iters.cpu().numpy()
+    sweeps = int(pd_sweeps(iters, sim).sum())
+    # the kernels' counts against the sweeps the episodes' iteration
+    # counts imply
+    check_launches(tag, launches, N, sweeps)
+    L_whole = sim.episode_loss(loss_fn)(params)
+    L_chunk = sim.episode_loss_chunked(loss_fn, chunk, batched=True)(params)
+    if not torch.equal(L_whole, L_chunk):
+        raise AssertionError(f"[{tag}] chunked loss {L_chunk} != whole "
+                             f"{L_whole}")
+    Lw, gw = vg_whole(params)
+    reset_graphs(sim)
+    zero_counters()
+    sim.bwd_stats.reset()
+    Lc, gc = vg_chunk(params)
+    launches_g = read_counters()
+    st = sim.bwd_stats.summary()
+    check_launches(tag + "-gradient", launches_g, N, sweeps, st, passes=2)
+    check_graph_counts(tag + "-gradient", sim, launches_g, st["trips"])
+    if not torch.equal(Lw, Lc):
+        raise AssertionError(f"[{tag}] value-and-grad losses differ")
+    rel = grads_rel({k: v for k, v in gw.items()},
+                    {k: v for k, v in gc.items()})
+    if not all(np.isfinite(v) and v <= 1e-5 for v in rel.values()):
+        raise AssertionError(f"[{tag}] chunked gradient against whole: "
+                             f"{rel} of each class's largest entry")
+    log(f"[{tag}] {N} steps x B={B}, chunk {chunk} on {card}: "
+        f"rollout_chunked == rollout bit for bit (states, diagnostics), "
+        f"{sweeps} PD sweeps; launches {launches} (detection once per "
+        f"step, friction_fwd once per sweep); chunked loss == whole bit for "
+        f"bit; chunked value-and-grad launches {launches_g} (the forward "
+        f"twice: the backward recomputes each chunk), adjoint "
+        f"{st['trips']:.0f} trips, {st['fallback_lanes']:.0f} of "
+        f"{st['lane_steps']:.0f} episode-steps to the GMRES fallback; "
+        f"gradient against the whole episode's (tolerance 1e-5): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+
+    # the rates both ways: chunked, whole, whole, chunked
+    rates = {"chunked": [], "whole": []}
+    for way in ("chunked", "whole", "whole", "chunked"):
+        fwd = ((lambda: sim.rollout_chunked(params, chunk)) if way ==
+               "chunked" else (lambda: sim.rollout(params)))
+        vg = vg_chunk if way == "chunked" else vg_whole
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vg(params)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rates[way].append((B * N / (t1 - t0), B * N / (t2 - t1)))
+    for way, rs in rates.items():
+        log(f"[{tag}] {way}: " + "; ".join(
+            f"{f:.1f} PD steps/s, {g:.1f} episode-gradient steps/s"
+            for f, g in rs))
+    log(f"[{tag}] first forward (rollout_chunked after rollout's capture): "
+        f"{B * N / wall_fwd:.1f} PD steps/s")
+
+    # device busy, from CUDA events around every program launch; the
+    # loops' body runs over the chunked value-and-grad
+    p_inv, xfs = sim.p_inv(params), sim.x_fixed_seq(params)
+    for what, fn in (
+            ("forward", lambda: sim._chunk_forward(params, p_inv, xfs,
+                                                   chunk)),
+            ("value-and-grad", lambda: vg_chunk(params))):
+        reset_graphs(sim)
+        wall, busy = program_busy(fn)
+        log(f"[{tag}] {what}: wall {wall:.3f} s, the step programs busy on "
+            f"the device {busy:.3f} s ({100 * busy / wall:.1f} %)")
+    log(f"[{tag}] that chunked value-and-grad: {graph_line(sim)}; loops "
+        f"end on the device (no body is launched to be skipped)")
+
+    # host launches and waits per step, profiled in a fresh process (the
+    # profiler's runtime events then hold this path's calls alone); a
+    # profiling process that fails or leaves out a row fails the phase
+    prof = subprocess.run(
+        [sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
+         "--profile-chunked", name], capture_output=True, text=True,
+        timeout=600)
+    rows = [json.loads(ln) for ln in prof.stdout.splitlines()
+            if ln.startswith("{")]
+    if prof.returncode or [r["what"] for r in rows] != ["forward",
+                                                       "value-and-grad"]:
+        raise AssertionError(
+            f"[{tag}] the profiling process ended with rc "
+            f"{prof.returncode} and rows {[r['what'] for r in rows]}; its "
+            f"output ends:\n{prof.stdout[-1500:]}\n{prof.stderr[-3000:]}")
+    for row in rows:
+        log(f"[{tag}] {row['what']} ({row['steps']} steps, chunk "
+            f"{row['chunk']}; profiled in a fresh process): "
+            f"{row['launches'] / row['steps']:.1f} host launches and "
+            f"{row['waits'] / row['steps']:.2f} synchronizing runtime "
+            f"calls per step ({row['syncs']} in all, "
+            f"{row['base_syncs']} in an empty profiled region; a "
+            f"value-and-grad's come at its start and end: the host "
+            f"P^-1 and the forward / backward split)")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sim._chunk_forward(params, p_inv, xfs, chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[{tag}] the chunks' forward ran under PyTorch's sync debug mode "
+        f"'error': no synchronizing PyTorch call")
+
+
+    # peak memory of the two value-and-grads at the same depth
+    peaks = {}
+    for way, vg in (("whole", vg_whole), ("chunked", vg_chunk)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        vg(params)
+        torch.cuda.synchronize()
+        peaks[way] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    log(f"[{tag}] peak allocated memory over the call: whole episode "
+        f"{peaks['whole']:.1f} MiB, chunked {peaks['chunked']:.1f} MiB")
+    del sim
+    torch.cuda.empty_cache()
+
+
+def phase_chunked_reference():
+    """19c: the chunked value-and-grad of a small folded batch in f64 on
+    the card against the CPU (10 x 10 grid, B = 2, CHUNKED_REF_STEPS
+    steps, chunk 3): the loss to 1e-9 and each gradient class within 1e-6
+    of its largest entry."""
+    import dataclasses
+    import torch
+    from diffcloth_tpu_torch import losses
+    from diffcloth_tpu_torch.config import LossType
+    from diffcloth_tpu_torch.core.sim import ClothSim
+    from diffcloth_tpu_torch.geometry import builder as gb
+    from diffcloth_tpu_torch.geometry import states
+    from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
+
+    cfg = TSHIRT_GRID_STANDIN
+    cfg = dataclasses.replace(
+        cfg, step_num=CHUNKED_REF_STEPS, backward_convergence_thresh=1e-8,
+        fabric=dataclasses.replace(cfg.fabric, grid_num_x=10,
+                                   grid_num_y=10))
+    scene = gb.build_scene(cfg)
+    x0 = np.stack([states.folded_grid(scene, 5,
+                                      1.5 * float(scene.radii.mean())),
+                   scene.x_rest])
+    winds = np.array([[0.5, 0.05, 0.5], [0.2, 0.0, 0.4]])
+    target = None
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sim = ClothSim(scene, device=dev, dtype=torch.float64)
+        t64 = lambda a: torch.as_tensor(a, dtype=torch.float64,  # noqa
+                                        device=sim.device)
+        p = sim.default_params().expand(2).replace(x0=t64(x0))
+        if target is None:
+            target = sim.rollout_chunked(p.replace(wind=t64(winds)),
+                                         3).full_x()
+        loss_fn = losses.make_loss_fn(
+            LossType.MATCH_TRAJECTORY,
+            losses.LossInfo(target_x=target.to(sim.device)))
+        L, g = sim.episode_value_and_grad_chunked(loss_fn, 3, batched=True)(
+            p.replace(wind=t64(winds * 0.7)))
+        out[dev] = (L.cpu(), {k: v.cpu() for k, v in g.items()})
+    (Lc, gc), (Lg, gg) = out["cpu"], out["cuda"]
+    rel = grads_rel(gc, gg)
+    if max(rel.values()) > 1e-6 or not torch.allclose(Lg, Lc, rtol=1e-9,
+                                                      atol=0):
+        raise AssertionError(f"[chunked-reference] card vs CPU loss {Lg} vs "
+                             f"{Lc}, gradient {rel}")
+    log(f"[chunked-reference] 10x10 folded grid, {CHUNKED_REF_STEPS} steps, "
+        f"chunk 3, f64, B=2: card vs CPU loss {Lg.tolist()} vs "
+        f"{Lc.tolist()}; gradient max error per class / its largest entry "
+        f"(tolerance 1e-6): " + ", ".join(f"{k} {v:.1e}"
+                                          for k, v in rel.items()))
+
+
+def profile_chunked(name):
+    """`--profile-chunked NAME`: phase 19's path NAME cut to
+    CHUNKED_PROFILE (steps, chunk), its chunked forward and value-and-grad
+    each warmed up, then profiled (torch.profiler, the CUDA runtime's
+    events); one JSON line each: host launches, synchronizing calls, and
+    those of an empty profiled region."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    make = dict((n, m) for n, _, m in chunked_cases())[name]
+    steps, chunk = CHUNKED_PROFILE
+    sim, params, loss_fn = make(steps)
+    vg = sim.episode_value_and_grad_chunked(loss_fn, chunk, batched=True)
+    p_inv, xfs = sim.p_inv(params), sim.x_fixed_seq(params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+    base = sum(runtime_counts(prof)[1].values())
+    for what, fn in (("forward",
+                      lambda: sim._chunk_forward(params, p_inv, xfs, chunk)),
+                     ("value-and-grad", lambda: vg(params))):
+        fn()                        # warm-ups and captures
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches, syncs = runtime_counts(prof)
+        print(json.dumps(dict(what=what, steps=steps, chunk=chunk,
+                              launches=launches, syncs=syncs,
+                              base_syncs=base,
+                              waits=sum(syncs.values()) - base)), flush=True)
+
+
+def phase_chunked(card, timed):
+    """Phase 19, the chunked episode."""
+    for name, shape, make in chunked_cases():
+        with timed(f"chunked {name}"):
+            phase_chunked_path(name, shape, make, card)
+    with timed("chunked reference"):
+        phase_chunked_reference()
+
+
 PATHS = ("flagship", "sphere", "large", "dress", "multistage", "ladder",
-         "obstacles", "precision", "control", "graphs")
+         "obstacles", "precision", "control", "graphs", "chunked")
 
 
 def main():
@@ -3055,6 +3449,8 @@ def main():
     ap.add_argument("--steps", type=int, default=FLAGSHIP_STEPS,
                     help="the flagship's episode length (default "
                          f"{FLAGSHIP_STEPS} of its 250)")
+    ap.add_argument("--profile-chunked", default=None,
+                    help=argparse.SUPPRESS)   # phase 19's profiling process
     ap.add_argument("--only", default=",".join(PATHS),
                     help="comma-separated paths to run while iterating "
                          f"(default, the acceptance run: all of "
@@ -3070,6 +3466,9 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from diffcloth_tpu_torch.core import cuda_build
+    if args.profile_chunked:
+        profile_chunked(args.profile_chunked)
+        return 0
 
     card = nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch "
@@ -3101,8 +3500,12 @@ def main():
         with timed("forward reference"):
             phase_reference(10)
         with timed("gradient path"):
-            launches["friction_bwd"] = phase_gradient(
-                sim, BATCH, card, launches["friction_fwd"])["friction_bwd"]
+            grad_launches = phase_gradient(sim, BATCH, card,
+                                           launches["friction_fwd"])
+            launches["friction_bwd"] = grad_launches["friction_bwd"]
+        with timed("lstsq kernel"):
+            lstsq = phase_lstsq_kernel(BATCH,
+                                       grad_launches["hessenberg_lstsq"], rng)
         with timed("gradient profile"):
             phase_profile_gradient("profile-grad", prof_sim, prof_params,
                                    base_wind_target(prof_sim, prof_params),
@@ -3114,6 +3517,7 @@ def main():
             phase_gradient_reference(10)
         for k in kernels:
             k["launches"] = launches[k["name"]]
+        kernels.append(lstsq)      # its launches: the gradient path's
     if "sphere" in only:
         run_sphere(card, timed)
     if "large" in only:
@@ -3137,6 +3541,8 @@ def main():
     if "graphs" in only:
         with timed("graphs"):
             phase_graphs(card)
+    if "chunked" in only:
+        phase_chunked(card, timed)
     torch.cuda.empty_cache()
     log(f"[time] all phases {timed.total:.1f} s")
 

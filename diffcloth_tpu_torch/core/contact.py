@@ -12,6 +12,7 @@ kernel too.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -76,14 +77,23 @@ def empty_primitive_set(dtype=torch.float32, device=None) -> PrimitiveSet:
         kinematic=np.zeros((0,), bool))
 
 
+@functools.lru_cache(maxsize=None)
+def _kinematic_mask(kinematic: bytes, device: torch.device) -> torch.Tensor:
+    """(P, 1) bool on the device, made once per primitive set: a step's
+    prologue runs inside a captured graph, which holds no host copy."""
+    return torch.as_tensor(np.frombuffer(kinematic, bool).copy(),
+                           device=device)[:, None]
+
+
 def prims_at_time(prims: PrimitiveSet, t) -> PrimitiveSet:
     """center(t) = c0 + t v for the kinematic primitives (contact.py:61-77:
-    the single-advance semantics); static sets are returned untouched."""
+    the single-advance semantics); static sets are returned untouched.  t
+    a number or a 0-dim tensor on the primitives' device."""
     if (prims.n == 0 or prims.kinematic is None
             or not bool(np.any(prims.kinematic))):
         return prims
-    kin = torch.as_tensor(prims.kinematic,
-                          device=prims.center.device)[:, None]
+    kin = _kinematic_mask(np.asarray(prims.kinematic, bool).tobytes(),
+                          prims.center.device)
     center_t = prims.center + torch.where(kin, t * prims.velocity, 0.0)
     return prims.replace(center=center_t)
 
@@ -123,8 +133,8 @@ def _sphere_test(prims: PrimitiveSet, j, pos):
     normal = _safe_normalize(rel)
     hit = dist < 0.1
     if bool(prims.rotates[j]):
-        up = torch.tensor([0.0, 1.0, 0.0], dtype=pos.dtype,
-                          device=pos.device).expand_as(normal)
+        up = torch.zeros_like(normal)
+        up[..., 1] = 1.0
         v_out = prims.velocity[j] + torch.cross(up, normal, dim=-1) * 8.0
     else:
         v_out = prims.velocity[j].expand(pos.shape)
@@ -163,8 +173,7 @@ def _capsule_test(prims: PrimitiveSet, j, pos):
     r = prims.radius[j]
     rot = prims.axis_rot[j]
     base = prims.center[j]
-    tip = rot @ (torch.tensor([0.0, 1.0, 0.0], dtype=pos.dtype,
-                              device=pos.device) * L)
+    tip = rot[:, 1] * L      # rot @ (0, L, 0)
     rel = pos - base
     t = _dot(rel, tip) / torch.clamp(torch.sum(tip * tip), min=1e-30)
     in_window = (t >= -r / L) & (t <= 1.0 + r / L)
@@ -204,8 +213,8 @@ def detect_obstacle_contacts(prims: PrimitiveSet, x: torch.Tensor,
     and x + v h (contact.py:180-217; reference isInContactWithObstacle,
     Simulation.cpp:153-191): for one primitive the first sample that hits
     sets the normal and v_out; the earliest enabled primitive in index
-    order wins.  `t` (time of the step being produced) advances kinematic
-    primitives.  x, v (..., n, 3)."""
+    order wins.  `t` (time of the step being produced, a number or a
+    device scalar) advances kinematic primitives.  x, v (..., n, 3)."""
     cs = empty_contact_set(x)
     if prims.n == 0:
         return cs

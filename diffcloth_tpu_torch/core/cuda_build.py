@@ -24,7 +24,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
 # every kernel source of the port
-KERNELS = ("selfcol_detect", "friction_fwd", "friction_bwd")
+KERNELS = ("selfcol_detect", "friction_fwd", "friction_bwd", "hessenberg_lstsq",
+           "graph_program")
 
 # --fmad=false: no multiply-add contraction, so a kernel's f32 arithmetic
 # rounds op for op like its plain PyTorch version (detection hits at the

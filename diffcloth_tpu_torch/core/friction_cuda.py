@@ -28,6 +28,7 @@ import functools
 import torch
 
 from diffcloth_tpu_torch.core import cuda_build
+from diffcloth_tpu_torch.core import launch_count as lc
 
 MU_CLOTH = 0.1
 EPS = 1e-12       # constraints.EPS (safe_norm guard)
@@ -309,6 +310,12 @@ def _check_call(name: str, t: torch.Tensor, shape: tuple,
                          f"{tuple(t.shape)} on {t.device}")
 
 
+# each kernel's launch count (`launch_count`), by route
+_SLOT = {(k, "shared"): k for k in ("friction_fwd", "friction_bwd")}
+_SLOT.update({(k, "global"): k + "_global"
+              for k in ("friction_fwd", "friction_bwd")})
+
+
 @functools.lru_cache(maxsize=None)
 def _load_kernel(name: str, route: str, n_args: int):
     """A sweep kernel's C entry point for a route (`name`, or
@@ -327,28 +334,23 @@ def _load_kernel(name: str, route: str, n_args: int):
     return fn
 
 
+@lc.counted("friction_fwd")
 def friction_sweep(fr, ops: SweepOperands):
     """One layered self-friction sweep on batched slot data: the CUDA
     kernel of the operands' route for CUDA tensors, the plain version for
-    CPU tensors.  fr (B, n, 3) f32 -> (fr', vals (B, 6, TC)).  Counts
-    every launch in `launches`, the global-state route's also in
-    `global_launches`."""
+    CPU tensors.  fr (B, n, 3) f32 -> (fr', vals (B, 6, TC)).  The kernel
+    counts its launches on the device: `launches` reads them, and
+    `global_launches` the global-state route's (`launch_count`)."""
     _check_call("friction_sweep: fr", fr, ops.state_shape, ops)
     if not fr.is_cuda:
         return friction_sweep_plain(fr, ops.geom, *ops.masses, ops.budgets)
     out = torch.empty_like(fr)
     vals = fr.new_empty(ops.vals_shape)
-    cuda_build.check(_load_kernel("friction_fwd", ops.route, 4)(
+    cuda_build.check(_load_kernel("friction_fwd", ops.route, 5)(
         ops.args, fr.data_ptr(), out.data_ptr(), vals.data_ptr(),
+        lc.address(_SLOT["friction_fwd", ops.route], fr.device),
         torch.cuda.current_stream(fr.device).cuda_stream), "friction_fwd")
-    friction_sweep.launches += 1
-    if ops.route == "global":
-        friction_sweep.global_launches += 1
     return out, vals
-
-
-friction_sweep.launches = 0
-friction_sweep.global_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -430,12 +432,13 @@ def friction_sweep_bwd_plain(g, geom: KernelGeom, kred, imr, imp, vals,
     return g, ck, ci, cp
 
 
+@lc.counted("friction_bwd")
 def friction_sweep_bwd(g, vals, ops: SweepOperands):
     """The backward sweep on batched slot data: the CUDA kernel of the
     operands' route for CUDA tensors, the plain version for CPU tensors.
     g (B, n, 3) f32, vals (B, 6, TC) the forward's selects.  Returns (g',
-    c_kred, c_imr, c_imp) as `friction_sweep_bwd_plain` does.  Counts as
-    `friction_sweep` does."""
+    c_kred, c_imr, c_imp) as `friction_sweep_bwd_plain` does.  Counted as
+    `friction_sweep` is."""
     _check_call("friction_sweep_bwd: g", g, ops.state_shape, ops)
     _check_call("friction_sweep_bwd: vals", vals, ops.vals_shape, ops)
     if not g.is_cuda:
@@ -444,18 +447,11 @@ def friction_sweep_bwd(g, vals, ops: SweepOperands):
     B, _, TC = ops.vals_shape
     out = torch.empty_like(g)
     ck = g.new_empty((3, B, TC))
-    cuda_build.check(_load_kernel("friction_bwd", ops.route, 5)(
+    cuda_build.check(_load_kernel("friction_bwd", ops.route, 6)(
         ops.args, g.data_ptr(), vals.data_ptr(), out.data_ptr(),
-        ck.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream),
-        "friction_bwd")
-    friction_sweep_bwd.launches += 1
-    if ops.route == "global":
-        friction_sweep_bwd.global_launches += 1
+        ck.data_ptr(), lc.address(_SLOT["friction_bwd", ops.route], g.device),
+        torch.cuda.current_stream(g.device).cuda_stream), "friction_bwd")
     return (out,) + ck.unbind(0)
-
-
-friction_sweep_bwd.launches = 0
-friction_sweep_bwd.global_launches = 0
 
 
 class FrictionSweep(torch.autograd.Function):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from diffcloth_tpu_torch.core import cuda_build
+from diffcloth_tpu_torch.core import launch_count as lc
 from diffcloth_tpu_torch.core.selfcol import layer_tables_from_partners
 
 SEGMENT = 512     # column segment of the TPU kernel; n_pad is a multiple
@@ -95,18 +96,24 @@ def detect_partners_plain(geom: torch.Tensor, allowed: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """The kernel's C entry point, loaded and typed once."""
-    fn = cuda_build.load("selfcol_detect").selfcol_detect
+    """The kernel's C entry point, loaded, configured (its shared-memory
+    attribute, once) and typed once."""
+    lib = cuda_build.load("selfcol_detect")
+    lib.selfcol_detect_init.restype = ctypes.c_int
+    cuda_build.check(lib.selfcol_detect_init(), "selfcol_detect_init")
+    fn = lib.selfcol_detect
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+        ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
+@lc.counted("selfcol_detect")
 def detect_partners(geom: torch.Tensor, allowed: torch.Tensor,
                     k_partners: int) -> torch.Tensor:
     """Symmetric-mode partner detection: the CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor.  Shapes as detect_partners_plain."""
+    the plain version for a CPU tensor.  Shapes as detect_partners_plain.
+    The kernel counts its launches on the device (`launches`)."""
     if not geom.is_cuda:
         return detect_partners_plain(geom, allowed, k_partners)
     single = geom.dim() == 2
@@ -132,12 +139,10 @@ def detect_partners(geom: torch.Tensor, allowed: torch.Tensor,
                       device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     cuda_build.check(fn(g.data_ptr(), allowed.data_ptr(), out.data_ptr(),
-                        B, n_pad, k_partners, stream), "selfcol_detect")
-    detect_partners.launches += 1
+                        B, n_pad, k_partners,
+                        lc.address("selfcol_detect", g.device), stream),
+                     "selfcol_detect")
     return out[0] if single else out
-
-
-detect_partners.launches = 0
 
 
 def detect_tables(allowed_sym: torch.Tensor, radii: torch.Tensor,

@@ -5,14 +5,16 @@ Counterpart of `diffcloth_tpu/core/sim.py`, with or without obstacles,
 with one attachment stage or several:
 `scene_to_device`, `stage_to_device`, `ClothSim.default_params`, `p_inv`,
 `x_fixed_seq` (the splines and the dress twirl), `simulate` / `rollout`
-with the explosion freeze, `rollout_chunked`, `episode_loss` and
-`episode_value_and_grad`.  The JAX `lax.scan` over steps is a Python loop;
-`vmap` over a population of episodes is a leading batch dim on the
-`SimParams` (one shared P^{-1}, as the JAX package's batched paths share
-it).  A step's loops run as CUDA graphs of a few iterations each
-(`core/graphs.py`), no device program spans a step, so the JAX package's
-`_chunked` variants (bounded device executions of `chunk` steps) fold into
-these single functions.
+with the explosion freeze, `episode_loss` and `episode_value_and_grad`,
+and their chunked variants `rollout_chunked`, `episode_loss_chunked` and
+`episode_value_and_grad_chunked` (sim.py:475-775): the horizon in chunks
+of `chunk` steps, the backward recomputing each chunk's forward from its
+saved start, so a gradient holds one chunk's step residuals.  The JAX
+`lax.scan` over steps is a Python loop; `vmap` over a population of
+episodes is a leading batch dim on the `SimParams` (one shared P^{-1}, as
+the JAX package's batched paths share it).  On the card a step is one
+launch of its captured device programs (`core/graphs.py`), whose loops end
+on the device: inside a chunk the host waits on nothing.
 
 A scene of several attachment stages (reference: one `sysMat` per stage,
 switched by frame, Simulation.h:361-405, Simulation.cpp:1053-1068) gets
@@ -166,12 +168,12 @@ class ClothSim:
     core/step.make_step; the tensor-parallel solve of parallel/mesh.py).
 
     `cuda_graphs`, the counterpart of the JAX package's jit: None runs each
-    step's loop blocks (PD sweeps, fixed-point trips, CG iterations) as
-    CUDA graphs on a CUDA device and uncaptured on the CPU or with a
-    `solve_fn`; True raises on the CPU or with a `solve_fn`; False runs
-    the same blocks uncaptured on the card (`jax.disable_jit()`).  The
-    choice is `self.cuda_graphs`; each stage's step keeps its graphs
-    (`self.graphs`), dropped with the sim.
+    step's forward and adjoint as captured device programs whose loops end
+    on the device (`core/graphs.py`) on a CUDA device, and uncaptured on
+    the CPU or with a `solve_fn`; True raises on the CPU or with a
+    `solve_fn`; False runs the same segments uncaptured on the card
+    (`jax.disable_jit()`).  The choice is `self.cuda_graphs`; each stage's
+    step keeps its programs (`self.graphs`), dropped with the sim.
     Not ported, and raising: the gather/scatter operator path
     (dense_ops=False with sparse_ops=False); the JAX ClothSim's TPU
     self-collision tuning options (`self_ablate`, `self_friction_unroll`,
@@ -439,6 +441,60 @@ class ClothSim:
 
     # ---------------------------------------------------------------- episode
 
+    def _times(self):
+        """(N,) step times i h and (N,) int64 step indices i, i = 1..N, on
+        the device: a step reads its time and index from device scalars,
+        so one captured step serves every step of an episode."""
+        if getattr(self, "_ts", None) is None:
+            N = self.n_steps
+            self._ts = torch.arange(1, N + 1, dtype=self.dtype,
+                                    device=self.device) * self.h
+            self._idxs = torch.arange(1, N + 1, dtype=torch.int64,
+                                      device=self.device)
+        return self._ts, self._idxs
+
+    def _run_steps(self, x, v, frozen, pb: SimParams, p_invs, xfs, lo: int,
+                   hi: int, record_forces: bool):
+        """Frames lo..hi-1 (1-based) of a batched episode from (x, v), with
+        xfs (B, hi - lo, F, 3) their clip positions and `frozen` (B,) the
+        explosion freeze so far: once an episode explodes its remaining
+        steps pass the state through unchanged (Simulation.cpp:1415-1424).
+        Returns (x, v, frozen, the stacked (B, hi - lo, ...) records)."""
+        ts, idxs = self._times()
+        cols = {k: [] for k in ("x", "v", "f", "r") + DIAG_KEYS}
+        for i in range(lo, hi):
+            s = self._stage_of_frame[i - 1]
+            F_s = len(self.stages_host[s].particle_idx)
+            x2, v2, aux = self.steps[s](x, v, pb, xfs[:, i - lo, :F_s],
+                                        p_invs[s], ts[i - 1], idxs[i - 1])
+            frozen = frozen | diag.is_exploded(x2, v2)
+            fz = frozen[:, None, None]
+            x2 = torch.where(fz, x, x2)
+            v2 = torch.where(fz, v, v2)
+            cols["x"].append(x2)
+            cols["v"].append(v2)
+            if record_forces:
+                cols["f"].append(aux.f)
+                cols["r"].append(aux.r)
+            for k in DIAG_KEYS:
+                cols[k].append(getattr(aux, k))
+            x, v = x2, v2
+        return x, v, frozen, {k: torch.stack(c, dim=1)
+                              for k, c in cols.items() if c}
+
+    def _records(self, params: SimParams, xfs, cols: dict) -> EpisodeRecords:
+        """Records of single or batched params from batched columns and
+        clip positions xfs (B, N, F, 3) (f / r zero-filled, as a stride-0
+        view, where they were not recorded)."""
+        st = dict(cols)
+        if "f" not in st:   # a stride-0 view: no (B, N, n, 3) storage
+            st["f"] = st["r"] = st["x"].new_zeros(()).expand(st["x"].shape)
+        st["x_fixed"] = xfs
+        steps = StepRecord(**st)
+        if params.batch_size is None:
+            steps = StepRecord(**{k: getattr(steps, k)[0] for k in st})
+        return EpisodeRecords(x0=params.x0, v0=params.v0, steps=steps)
+
     def simulate(self, params: SimParams, p_inv,
                  x_fixed_seq: torch.Tensor,
                  record_forces: bool = True) -> EpisodeRecords:
@@ -453,56 +509,63 @@ class ClothSim:
             raise ValueError(_BATCHED_MULTISTAGE)
         pb = params.as_batched()
         xfs = x_fixed_seq if batched else x_fixed_seq[None]
-        B = pb.x0.shape[0]
         p_invs = p_inv if self.n_stages > 1 else (p_inv,)
-        x, v = pb.x0, pb.v0
-        frozen = torch.zeros(B, dtype=torch.bool, device=x.device)
-        diag_keys = ("converged", "iters", "avg_deformation",
-                     "max_deformation", "selfcol_overflow", "selfcol_pairs",
-                     "selfcol_slots", "obstacle_contacts", "cg_iters")
-        cols = {k: [] for k in ("x", "v", "f", "r") + diag_keys}
-        for i in range(1, self.n_steps + 1):
-            t = torch.tensor(float(i), dtype=self.dtype,
-                             device=self.device) * self.h
-            s = self._stage_of_frame[i - 1]
-            F_s = len(self.stages_host[s].particle_idx)
-            x2, v2, aux = self.steps[s](x, v, pb, xfs[:, i - 1, :F_s],
-                                        p_invs[s], t, i)
-            frozen = frozen | diag.is_exploded(x2, v2)
-            fz = frozen[:, None, None]
-            x2 = torch.where(fz, x, x2)
-            v2 = torch.where(fz, v, v2)
-            cols["x"].append(x2)
-            cols["v"].append(v2)
-            if record_forces:
-                cols["f"].append(aux.f)
-                cols["r"].append(aux.r)
-            for k in diag_keys:
-                cols[k].append(getattr(aux, k))
-            x, v = x2, v2
-        st = {k: torch.stack(c, dim=1) for k, c in cols.items() if c}
-        if not record_forces:   # a stride-0 view: no (B, N, n, 3) storage
-            st["f"] = st["r"] = st["x"].new_zeros(()).expand(st["x"].shape)
-        st["x_fixed"] = xfs
-        steps = StepRecord(**st)
-        if not batched:
-            steps = StepRecord(**{k: getattr(steps, k)[0]
-                                  for k in st})
-        return EpisodeRecords(x0=params.x0, v0=params.v0, steps=steps)
+        frozen = torch.zeros(pb.x0.shape[0], dtype=torch.bool,
+                             device=pb.x0.device)
+        _, _, _, cols = self._run_steps(pb.x0, pb.v0, frozen, pb, p_invs,
+                                        xfs, 1, self.n_steps + 1,
+                                        record_forces)
+        return self._records(params, xfs, cols)
 
     def rollout(self, params: SimParams) -> EpisodeRecords:
         """Refactorize + trajectory + simulate; params single or batched."""
         return self.simulate(params, self.p_inv(params),
                              self.x_fixed_seq(params))
 
-    def rollout_chunked(self, params: SimParams) -> EpisodeRecords:
-        """`rollout` whose records leave f / r zero-filled, as the JAX
-        package's chunked rollout does (no consumer outside the viewer
-        overlays reads them), saving their (N, n, 3) storage.  It takes no
-        chunk length: no device program spans a step, so there is nothing
-        to split."""
-        return self.simulate(params, self.p_inv(params),
-                             self.x_fixed_seq(params), record_forces=False)
+    # --------------------------------------------------------- chunked episode
+
+    def _chunk_size(self, chunk: int) -> int:
+        """The largest divisor of the episode length that is at most
+        `chunk`: every chunk of a pass has one length (JAX sim.py:475-480)."""
+        N = self.n_steps
+        return next(c for c in range(min(chunk, N), 0, -1) if N % c == 0)
+
+    def _chunk_forward(self, pb: SimParams, p_inv, xfs, chunk: int):
+        """The horizon of batched params as chunks of `chunk` steps, without
+        gradient: (the stacked (B, N, ...) records but f / r, each chunk's
+        start (x, v, frozen)).  Inside a chunk the host waits on nothing:
+        on the card each step is one launch of its captured programs, whose
+        loops end on the device."""
+        x, v = pb.x0, pb.v0
+        frozen = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+        starts, parts = [], []
+        with torch.no_grad():
+            for lo in range(1, self.n_steps + 1, chunk):
+                starts.append((x, v, frozen))
+                x, v, frozen, cols = self._run_steps(
+                    x, v, frozen, pb, (p_inv,), xfs[:, lo - 1:lo - 1 + chunk],
+                    lo, lo + chunk, record_forces=False)
+                parts.append(cols)
+        return ({k: torch.cat([c[k] for c in parts], dim=1)
+                 for k in parts[0]}, starts)
+
+    def rollout_chunked(self, params: SimParams,
+                        chunk: int = 50) -> EpisodeRecords:
+        """`rollout` as chunks of `chunk` steps (the largest divisor of the
+        episode length at most `chunk`), the counterpart of the JAX
+        package's bounded device executions (sim.py:583-597).  Records
+        match `rollout`'s bit for bit except f / r (the pre-friction and the
+        friction force), which are zero-filled, as there (no consumer
+        outside the viewer overlays reads them).  Single or batched params;
+        a scene of several stages runs `rollout`."""
+        if self.n_stages > 1:
+            return self.rollout(params)
+        xfs = self.x_fixed_seq(params)
+        if params.batch_size is None:
+            xfs = xfs[None]
+        cols, _ = self._chunk_forward(params.as_batched(), self.p_inv(params),
+                                      xfs, self._chunk_size(chunk))
+        return self._records(params, xfs, cols)
 
     def episode_loss(self, loss_fn):
         """Forward-only loss: params (single or batched) -> loss (a scalar,
@@ -510,7 +573,30 @@ class ClothSim:
         maps records to losses (see losses.py)."""
         def value(params: SimParams):
             with torch.no_grad():
-                return loss_fn(self.rollout_chunked(params))
+                return loss_fn(self.simulate(params, self.p_inv(params),
+                                             self.x_fixed_seq(params),
+                                             record_forces=False))
+        return value
+
+    def episode_loss_chunked(self, loss_fn, chunk: int = 50,
+                             batched: bool = False):
+        """Forward-only chunked loss (JAX sim.py:599-672): params -> loss
+        through `rollout_chunked`, so it agrees with
+        `episode_value_and_grad_chunked` bit for bit, freeze included.
+        batched=True evaluates a population: params with a leading batch
+        dim -> (B,) losses (one P^{-1}, from sample 0, shared: k_pertype and
+        density must agree across the batch).  A scene of several stages
+        evaluates the whole episode."""
+        if self.n_stages > 1:
+            def value_multistage(params: SimParams):
+                with torch.no_grad():
+                    return loss_fn(self.rollout(params))
+            return value_multistage
+
+        def value(params: SimParams):
+            _check_batched(params, batched)
+            with torch.no_grad():
+                return loss_fn(self.rollout_chunked(params, chunk))
         return value
 
     def episode_value_and_grad(self, loss_fn):
@@ -552,6 +638,114 @@ class ClothSim:
 
         value_and_grad.split = None
         return value_and_grad
+
+    def episode_value_and_grad_chunked(self, loss_fn, chunk: int = 50,
+                                       batched: bool = False):
+        """`episode_value_and_grad` with both passes in chunks of `chunk`
+        steps (JAX sim.py:674-775): the forward runs chunk after chunk
+        without gradient, keeping only each chunk's start; the loss gives
+        the cotangents of every frame; the backward runs the chunks in
+        reverse, each recomputing its forward under autograd from its saved
+        start and taking its VJP, the cotangents of its end state passed
+        from the chunk after it.  So a value-and-grad holds one chunk's
+        step residuals, not the whole horizon's.  The result equals the
+        whole-episode gradient up to the order of its sums.  batched=True:
+        params with a leading batch dim ((B,) losses, per-episode
+        gradients, one shared P^{-1}).  A scene of several stages runs
+        `episode_value_and_grad`.  `.split` holds the forward (with the
+        loss) and backward wall seconds of the last call."""
+        if self.n_stages > 1:
+            return self.episode_value_and_grad(loss_fn)
+        chunk = self._chunk_size(chunk)
+
+        def value_and_grad(params: SimParams):
+            _check_batched(params, batched)
+            p_inv = self.p_inv(params)
+            leaves = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in params.items()}
+            p = SimParams(**leaves)
+            t0 = time.perf_counter()
+            with torch.enable_grad():
+                xfs = self.x_fixed_seq(p)
+                xfs_b = xfs if batched else xfs[None]
+                pb = p.as_batched()
+            pb_const = SimParams(**{k: v.detach() for k, v in pb.items()})
+            cols, starts = self._chunk_forward(pb_const, p_inv,
+                                               xfs_b.detach(), chunk)
+            with torch.enable_grad():
+                X = cols["x"].requires_grad_(True)
+                V = cols["v"].requires_grad_(True)
+                recs = self._records(p, xfs_b.detach(), dict(cols, x=X, v=V))
+                loss = loss_fn(recs)
+                g = torch.autograd.grad(loss.sum(), [X, V] + list(
+                    leaves.values()), allow_unused=True)
+            _sync(self.device)
+            t1 = time.perf_counter()
+            # a loss of the positions alone gives the velocities no
+            # cotangent (and the reverse)
+            dX = torch.zeros_like(X) if g[0] is None else g[0]
+            dV = torch.zeros_like(V) if g[1] is None else g[1]
+            grads = dict(zip(leaves, g[2:]))
+            cot_x = torch.zeros_like(starts[-1][0])
+            cot_v = torch.zeros_like(cot_x)
+            g_xfs = torch.zeros_like(xfs_b)
+            for c in reversed(range(len(starts))):
+                x_in, v_in, frozen_in = starts[c]
+                sl = slice(c * chunk, (c + 1) * chunk)
+                with torch.enable_grad():
+                    xi = x_in.detach().requires_grad_(True)
+                    vi = v_in.detach().requires_grad_(True)
+                    xf_c = xfs_b[:, sl].detach().requires_grad_(True)
+                    xN, vN, _, cc = self._run_steps(
+                        xi, vi, frozen_in, pb, (p_inv,), xf_c,
+                        c * chunk + 1, (c + 1) * chunk + 1,
+                        record_forces=False)
+                    gc = torch.autograd.grad(
+                        [xN, vN, cc["x"], cc["v"]],
+                        [xi, vi, xf_c] + list(leaves.values()),
+                        [cot_x, cot_v, dX[:, sl], dV[:, sl]],
+                        allow_unused=True)
+                cot_x, cot_v = gc[0], gc[1]
+                if gc[2] is not None:
+                    g_xfs[:, sl] += gc[2]
+                for k, gk in zip(leaves, gc[3:]):
+                    if gk is not None:
+                        grads[k] = gk if grads[k] is None else grads[k] + gk
+            if xfs.requires_grad:     # the clips follow the splines
+                with torch.enable_grad():
+                    gx = torch.autograd.grad(
+                        xfs, list(leaves.values()),
+                        g_xfs if batched else g_xfs[0], allow_unused=True)
+                for k, gk in zip(leaves, gx):
+                    if gk is not None:
+                        grads[k] = gk if grads[k] is None else grads[k] + gk
+            for k, cot in (("x0", cot_x), ("v0", cot_v)):
+                cot = cot if batched else cot[0]
+                grads[k] = cot if grads[k] is None else grads[k] + cot
+            _sync(self.device)
+            value_and_grad.split = {"forward_s": t1 - t0,
+                                    "backward_s": time.perf_counter() - t1}
+            return loss.detach(), SimParams(**{
+                k: torch.zeros_like(leaves[k]) if gk is None else gk
+                for k, gk in grads.items()})
+
+        value_and_grad.split = None
+        return value_and_grad
+
+
+DIAG_KEYS = ("converged", "iters", "avg_deformation", "max_deformation",
+             "selfcol_overflow", "selfcol_pairs", "selfcol_slots",
+             "obstacle_contacts", "cg_iters")
+
+
+def _check_batched(params: SimParams, batched: bool) -> None:
+    """The chunked functions take batched params exactly when built with
+    batched=True, as the JAX package's vmapped and plain executables do."""
+    if (params.batch_size is not None) != batched:
+        raise ValueError(
+            f"built with batched={batched}: params "
+            f"{'with' if params.batch_size is not None else 'without'} a "
+            f"leading batch dim")
 
 
 _BATCHED_MULTISTAGE = (

@@ -85,7 +85,6 @@ import dataclasses
 import types
 from typing import Optional
 
-import numpy as np
 import torch
 
 from diffcloth_tpu_torch.config import (GRAVITY, SimFlags, WindConfig,
@@ -94,6 +93,7 @@ from diffcloth_tpu_torch.core import contact as ct
 from diffcloth_tpu_torch.core import dense_ops as dn
 from diffcloth_tpu_torch.core import friction_cuda as fc
 from diffcloth_tpu_torch.core import graphs as gr
+from diffcloth_tpu_torch.core import lstsq_cuda as lq
 from diffcloth_tpu_torch.core import selfcol as sc
 from diffcloth_tpu_torch.core import selfcol_cuda as scd
 from diffcloth_tpu_torch.core import sparse_ops as spo
@@ -174,58 +174,66 @@ def _frob(a):
     return torch.sqrt(torch.sum(a * a, dim=(-2, -1)))
 
 
-@dataclasses.dataclass
+STAT_FIELDS = (
+    "trips",            # fixed-point sweeps over the batch, masked included
+    "gmres_matvecs",    # (dK/dv)^T products of GMRES (either mode)
+    "gmres_cycles",     # GMRES cycles over the batch (mode "gmres")
+    "residual_vjps",    # VJPs of the residual
+    "lane_steps",       # (episode, step) pairs with a nonzero cotangent
+    "lane_trips",       # their fixed-point trips (GMRES cycles)
+    "fallback_lanes",   # of them that fell to the GMRES fallback
+    "slot_launches",    # active friction slots over all launches
+    "cg_solves",        # CG solves over the batch (solve_mode "cg")
+    "cg_iters")         # their iterations, summed over the episodes (a
+#                         trip's only where the episode is active)
+_STAT = {k: i for i, k in enumerate(STAT_FIELDS)}
+
+
 class BackwardStats:
-    """Counters of the adjoint, summed over `step_bwd` calls since the last
-    `reset()`.  Every (dK/dv)^T product (a fixed-point trip or a GMRES
-    matvec) and every residual VJP launches the forward and the backward
-    friction sweep once each for the whole batch when self-collision is
-    on.  `trips` counts the trips the blocks ran, masked ones included."""
-    trips: int = 0           # fixed-point sweeps over the batch
-    gmres_matvecs: int = 0   # (dK/dv)^T products of GMRES (either mode)
-    gmres_cycles: int = 0    # GMRES cycles over the batch (mode "gmres")
-    residual_vjps: int = 0   # VJPs of the residual
-    lane_steps: object = 0   # (episode, step) pairs with a nonzero cotangent
-    lane_trips: object = 0   # their fixed-point trips (GMRES cycles)
-    fallback_lanes: object = 0   # of them that fell to the GMRES fallback
-    slot_launches: object = 0    # active friction slots over all launches
-    cg_solves: int = 0       # CG solves over the batch (solve_mode "cg")
-    cg_iters: object = 0     # their iterations, summed over the episodes
-    #                          (a trip's only where the episode is active)
+    """Counters of the adjoint (STAT_FIELDS), summed over `step_bwd` calls
+    since the last `reset()`.  They are counted on the device, by the
+    adjoint's own segments, so that a captured adjoint counts what it ran
+    (a loop's iterations are known only there).  Every (dK/dv)^T product
+    (a fixed-point trip or a GMRES matvec) and every residual VJP launches
+    the forward and the backward friction sweep once each for the whole
+    batch when self-collision is on.  `trips` counts the trips the blocks
+    ran, masked ones included."""
+
+    def __init__(self):
+        self.vec = None     # (len(STAT_FIELDS),) f64 on the sim's device
+
+    def vector(self, device) -> torch.Tensor:
+        if self.vec is None:
+            self.vec = torch.zeros(len(STAT_FIELDS), dtype=torch.float64,
+                                   device=device)
+        return self.vec
 
     def reset(self):
-        for f in dataclasses.fields(self):
-            setattr(self, f.name, 0)
+        if self.vec is not None:
+            self.vec.zero_()
 
     def summary(self) -> dict:
         """Host numbers (one device read)."""
-        out = {f.name: float(getattr(self, f.name))
-               for f in dataclasses.fields(self)}
+        vals = (self.vec.tolist() if self.vec is not None
+                else [0.0] * len(STAT_FIELDS))
+        out = dict(zip(STAT_FIELDS, vals))
         out["launches"] = (out["trips"] + out["gmres_matvecs"]
                            + out["residual_vjps"])
         return out
 
 
-def _lstsq_host(H: torch.Tensor, e1: torch.Tensor, eps: float):
-    """Least squares min |e1 - H y| per episode, on the host in f64 by SVD
-    (numpy's gelsd), with the cutoff rcond = eps * max(H.shape) that
-    jnp.linalg.lstsq applies in the simulation dtype.  A rank-deficient H
-    (a happy breakdown) is fine; an episode with non-finite H or e1 gets a
-    NaN y, which the caller replaces by zeros as the JAX package does."""
-    Hn = H.detach().cpu().double().numpy()
-    en = e1.detach().cpu().double().numpy()
-    y = np.full((Hn.shape[0], Hn.shape[2]), np.nan)
-    rcond = eps * max(Hn.shape[1:])
-    for b in range(Hn.shape[0]):
-        if np.isfinite(Hn[b]).all() and np.isfinite(en[b]).all():
-            y[b] = np.linalg.lstsq(Hn[b], en[b], rcond=rcond)[0]
-    return torch.as_tensor(y).to(device=H.device, dtype=H.dtype)
+def _count(st: dict, name: str, value) -> None:
+    """Add `value` to the adjoint counter `name` (st["stats"], the step's
+    BackwardStats vector)."""
+    st["stats"][_STAT[name]] += value
 
 
 def _gmres_cycle(op, b, x0, m: int):
     """One GMRES(m) cycle on op(u) = b from x0, for each episode of the batch
     (step.py:97-140): Arnoldi with modified Gram-Schmidt, then the
-    (m+1, m) Hessenberg least squares on the host.  b, x0 (B, n, 3)."""
+    (m+1, m) Hessenberg least squares (`lstsq_cuda.hessenberg_lstsq`, with
+    the cutoff rcond = eps * (m+1) that jnp.linalg.lstsq applies in the
+    simulation dtype).  b, x0 (B, n, 3)."""
     B = x0.shape[0]
     shape = x0.shape
     r0 = (b - op(x0)).reshape(B, -1)
@@ -245,24 +253,8 @@ def _gmres_cycle(op, b, x0, m: int):
         V[:, j + 1] = w / torch.clamp(hnext, min=1e-30)[:, None]
     e1 = torch.zeros((B, m + 1), dtype=r0.dtype, device=r0.device)
     e1[:, 0] = beta
-    y = _lstsq_host(H, e1, torch.finfo(r0.dtype).eps)
+    y = lq.hessenberg_lstsq(H, e1, torch.finfo(r0.dtype).eps * (m + 1))
     return x0 + torch.einsum("bm,bmn->bn", y, V[:, :m]).reshape(shape)
-
-
-def _run_blocks(total: int, run_block, active=None) -> int:
-    """Run `total` masked iterations as blocks of CHECK_EVERY (the last one
-    shorter when CHECK_EVERY does not divide `total`): run_block(k) runs k
-    of them.  Between blocks the host reads active() (a (B,) bool tensor)
-    and stops when no episode is active; active None (inside a captured
-    block, where no host read may sit) runs every block.  The extra
-    iterations of a finished episode are masked no-ops, so either way the
-    iterates and counts are those of the JAX package's while_loop.  Returns
-    the iterations run, masked ones included."""
-    for k in range(0, total, CHECK_EVERY):
-        if k and active is not None and not bool(active().any()):
-            return k
-        run_block(min(CHECK_EVERY, total - k))
-    return total
 
 
 def _cg_start(op, b, diag_inv, rtol: float) -> dict:
@@ -316,8 +308,9 @@ def pcg(op, b, diag_inv, max_iters: int, rtol: float, checked: bool = True):
     captured block) skips the host's check between them.  Returns (x,
     iterations (B,) int32)."""
     st = _cg_start(op, b, diag_inv, rtol)
-    _run_blocks(max_iters, lambda k: _cg_block(op, st, k, max_iters),
-                (lambda: st["active"]) if checked else None)
+    gr.run_blocks(max_iters, CHECK_EVERY,
+                  lambda k: _cg_block(op, st, k, max_iters),
+                  (lambda: st["active"]) if checked else None)
     return st["x"], st["it"]
 
 
@@ -339,14 +332,14 @@ class StepFn(torch.autograd.Function):
     implicit adjoint.  P^{-1}, t and the step index are constants (P^{-1}
     only preconditions; gradients to k and density flow through the
     operator-form residual), as are the step's diagnostics and its
-    `Frozen` contacts."""
+    `Frozen` contacts (kept only when a backward may follow)."""
 
     @staticmethod
-    def forward(ctx, step_def, p_inv, t, step_idx, x_n, v_n, x_fixed,
+    def forward(ctx, step_def, keep, p_inv, t, step_idx, x_n, v_n, x_fixed,
                 *param_tensors):
         params = SimParams(**dict(zip(PARAM_FIELDS, param_tensors)))
         x_new, v_new, aux, frozen = step_def.forward(
-            x_n, v_n, params, x_fixed, p_inv, t, step_idx)
+            x_n, v_n, params, x_fixed, p_inv, t, step_idx, keep)
         ctx.save_for_backward(x_n, v_n, v_new, x_fixed, *param_tensors)
         ctx.step_def, ctx.frozen = step_def, frozen
         ctx.p_inv, ctx.t, ctx.step_idx = p_inv, t, step_idx
@@ -359,18 +352,26 @@ class StepFn(torch.autograd.Function):
         x_n, v_n, v_new, x_fixed, *param_tensors = ctx.saved_tensors
         params = SimParams(**dict(zip(PARAM_FIELDS, param_tensors)))
         wanted = tuple(k for k, need in zip(PARAM_FIELDS,
-                                            ctx.needs_input_grad[7:]) if need)
+                                            ctx.needs_input_grad[8:]) if need)
         gx, gv, gxf, gp = ctx.step_def.backward(
             x_n, v_n, v_new, params, x_fixed, ctx.frozen, ctx.p_inv, ctx.t,
             ctx.step_idx, x_bar, v_bar, wanted)
-        return (None, None, None, None, gx, gv, gxf) + tuple(
+        return (None, None, None, None, None, gx, gv, gxf) + tuple(
             gp.get(k) for k in PARAM_FIELDS)
 
 
 # the loops' carries, written back in place by their blocks
 PD_CARRY = ("x_now", "v_now", "best_x", "best_v", "min_xd", "it", "cg_it",
             "done", "strict", "since", "f", "r")
-TRIP_CARRY = ("lam", "it", "done", "bad", "cg_sum")
+TRIP_CARRY = ("lam", "it", "done", "bad", "cg_sum", "n_kdv")
+# the SimParams fields a step reads (x0, v0 and the splines it does not)
+STEP_PARAMS = ("k_pertype", "density", "mu", "wind", "wind_freq",
+               "wind_phase", "wind_perstep", "force_field")
+# the frozen contacts' entries (contact set, slot geometry)
+CONTACT_ENTRIES = ("c_mask", "c_normal", "c_v_out", "c_prim")
+GEOM_ENTRIES = ("idx_row", "idx_part", "normalT", "counts", "area_row",
+                "area_part")
+AUX_ENTRIES = tuple("aux_" + f.name for f in dataclasses.fields(StepAux))
 
 
 def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
@@ -385,7 +386,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     """Build the batched differentiable PD step for one attachment stage:
 
         step(x (B,n,3), v, params (batched SimParams), x_fixed (B,F,3),
-             p_inv, t (0-dim tensor), step_idx (int))
+             p_inv, t (0-dim tensor), step_idx (int or 0-dim int tensor))
           -> (x_new, v_new, StepAux)
 
     and the residual R(v_new, x_n, v_n, params, x_fixed, frozen, t,
@@ -397,10 +398,19 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     P^{-1}).  `prims` are the scene's obstacles (an empty set for none).
     `step.bwd_stats` counts the adjoint's work (into `stats` when given,
     shared by the steps of a scene's stages).  `cuda_graphs`
-    (`graphs.resolve`): None runs the loops' blocks as CUDA graphs on a
-    CUDA scene without `solve_fn` and uncaptured otherwise, True insists
-    on graphs, False runs the same blocks uncaptured; `step.graphs` holds
-    the step's blocks and graphs."""
+    (`graphs.resolve`): None runs the step's forward and its adjoint as
+    captured device programs on a CUDA scene without `solve_fn` and
+    uncaptured otherwise, True insists on them, False runs the same
+    segments uncaptured; `step.graphs` holds the step's programs.
+
+    The forward is the program [prologue, the PD loop, epilogue]: the
+    prologue detects the step's contacts (obstacles at the step's time t,
+    a device scalar, and self-collision: detection, layering, slot
+    geometry and masses) and starts the loop's carry; the epilogue reverts
+    to the best iterate and makes the diagnostics.  The adjoint is [its
+    start (w, the first solve), the fixed-point trips, the fallback's
+    start, the GMRES fallback's cycles, the residual VJP] in mode "fp", or
+    [its start, the GMRES cycles, the residual VJP] in mode "gmres"."""
     if flags.adjoint_mode not in ("fp", "gmres"):
         raise NotImplementedError(
             f"adjoint_mode {flags.adjoint_mode!r}: the port has 'fp' (the "
@@ -412,6 +422,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     if solve_mode not in ("dense", "cg"):
         raise ValueError(f"solve_mode {solve_mode!r}: 'dense' or 'cg'")
     n = int(scene.area.shape[0])
+    dev = scene.area.device
     max_iter = (max_forward_iters or flags.max_forward_iters
                 or pd_total_iters(eps_forward))
     max_back = flags.max_backward_iters
@@ -427,15 +438,15 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     if use_self:
         cap_pairs = self_cfg.cap_pairs or max(128, n // 2)
     stats = stats if stats is not None else BackwardStats()
-    graphs = gr.BlockGraphs(gr.resolve(cuda_graphs, scene.area.device,
-                                       solve_fn))
-    # a captured block holds no host read: a CG inside it runs to its cap
-    # (its extra iterations masked no-ops)
+    graphs = gr.BlockGraphs(gr.resolve(cuda_graphs, dev, solve_fn))
+    # a captured segment holds no host read: a CG inside it runs to its
+    # cap (its extra iterations masked no-ops)
     block_checks = not graphs.enabled
+    gravity = torch.as_tensor(GRAVITY, dtype=scene.area.dtype, device=dev)
 
     def wind_factor(params: SimParams, t, step_idx):
         """(sin(freq t + phase) + 1)/2 and friends (fillForces,
-        Simulation.cpp:62-85), (B,)."""
+        Simulation.cpp:62-85), (B,); step_idx a 0-dim int64 tensor."""
         if wind_config in (WindConfig.WIND_SIN,
                            WindConfig.WIND_SIN_AND_FALLOFF):
             return (torch.sin(params.wind_freq * t + params.wind_phase)
@@ -443,17 +454,16 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         if wind_config == WindConfig.NO_WIND:
             return torch.zeros_like(params.wind_freq)
         if wind_config == WindConfig.WIND_FACTOR_PER_STEP:
-            return params.wind_perstep[:, int(step_idx)]
+            return params.wind_perstep.index_select(
+                1, step_idx.reshape(1))[:, 0]
         return torch.ones_like(params.wind_freq)   # WIND_CONSTANT
 
     def external_force(params: SimParams, mass, t, step_idx):
-        """f_ext per particle (fillForces, Simulation.cpp:55-116), computed
-        before the blocks (`wind_factor` indexes by the step)."""
+        """f_ext per particle (fillForces, Simulation.cpp:55-116)."""
         f = torch.zeros(mass.shape + (3,), dtype=mass.dtype,
                         device=mass.device)
         if flags.gravity_enabled:
-            g = torch.as_tensor(GRAVITY, dtype=mass.dtype, device=mass.device)
-            f = f + g * mass[..., None]
+            f = f + gravity.to(mass.dtype) * mass[..., None]
         if flags.wind_enabled and wind_config != WindConfig.NO_WIND:
             wind_f = params.wind * wind_factor(params, t, step_idx)[:, None]
             if wind_config in (WindConfig.WIND_SIN_AND_FALLOFF,
@@ -506,7 +516,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
 
     def cg_op(st):
         """u -> P u = m u + C u with st's masses and stiffness."""
-        return lambda q: st["m"][..., None] * q + apply_C(st["k"], q)
+        return lambda q: st["m"][..., None] * q + apply_C(st["k_pertype"], q)
 
     def solve(st, rhs, checked: bool):
         """The global solve P^{-1} rhs -> (u, CG iterations (B,) or None)
@@ -521,27 +531,6 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         return pcg(cg_op(st), rhs, st["p_inv"], cg_max_iters, cg_rtol,
                    checked)
 
-    def solve_alone(st, rhs):
-        """`solve` outside the loops' blocks (the adjoint's first solve and
-        its GMRES): with graphs and solve_mode "cg", the CG iterations run
-        as replayed CG blocks."""
-        if not (graphs.enabled and uses_cg):
-            return solve(st, rhs, True)
-        name = ("cg", rhs.shape[0], rhs.dtype)
-        cst = graphs.bind(name, dict(_cg_start(cg_op(st), rhs, st["p_inv"],
-                                               cg_rtol),
-                                     m=st["m"], k=st["k"]))
-        _run_blocks(cg_max_iters,
-                    lambda k: graphs.run(name + (k,), lambda s: _cg_block(
-                        cg_op(s), s, k, cg_max_iters), cst),
-                    lambda: cst["active"])
-        return cst["x"].clone(), cst["it"].clone()
-
-    def sweep_ops(geom, params: SimParams):
-        """The step's slot operands, validated once for all its sweeps."""
-        return fc.sweep_operands(geom, fc.slot_masses(geom, params.density),
-                                 self_cfg.budgets, n)
-
     def friction(f, contact, ops, mu, m):
         """Obstacle friction first (layer 0), then the layered self-contact
         sweep on f + r_obstacle (step.py:349-385); ops: the step's sweep
@@ -554,52 +543,126 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
             r = fc.self_friction(f, ops, r)
         return r
 
-    def frozen_entries(contact, ops) -> dict:
-        """The frozen contacts' tensors, as entries of a block's dict."""
-        d = {}
-        if use_obstacles:
-            d.update(c_mask=contact.mask, c_normal=contact.normal,
-                     c_v_out=contact.v_out, c_prim=contact.prim_id)
-        if use_self:
-            kred, imr, imp = ops.masses
-            d.update(idx_row=ops.geom.idx_row, idx_part=ops.geom.idx_part,
-                     normalT=ops.geom.normalT, counts=ops.geom.counts,
-                     kred=kred, imr=imr, imp=imp)
-        return d
+    def params_of(st) -> SimParams:
+        """The step's SimParams fields out of st (the rest unused)."""
+        return SimParams(**{k: st.get(k) for k in PARAM_FIELDS})
 
-    def bind_frozen(st, ops) -> None:
-        """st["contact"] and st["ops"] over st's frozen entries: the step's
-        own sweep operands uncaptured; captured, operands over the slot
-        buffers, whose kernel argument struct points at them (validated
-        once per dict)."""
-        if use_obstacles:
-            st["contact"] = ct.ContactSet(st["c_mask"], st["c_normal"],
-                                          st["c_v_out"], st["c_prim"])
+    def bind_inputs(name, x_n, v_n, x_fixed, p_inv, t, step_idx, params,
+                    **more) -> dict:
+        """Bind a program's inputs: the parameters and P^{-1} copied only
+        when they change (a chunk's steps share them)."""
+        t = torch.as_tensor(t, dtype=x_n.dtype, device=x_n.device)
+        step_idx = torch.as_tensor(step_idx, dtype=torch.int64,
+                                   device=x_n.device)
+        st = graphs.bind(name, dict(
+            x_n=x_n, v_n=v_n, x_fixed=x_fixed, t=t, step_idx=step_idx,
+            **more))
+        graphs.bind(name, dict(p_inv=p_inv, **{
+            k: getattr(params, k) for k in STEP_PARAMS}),
+            once=("p_inv",) + STEP_PARAMS)
+        st["stats"] = stats.vector(x_n.device)
+        return st
+
+    def contact_of(st):
+        if not use_obstacles:
+            return None
+        return ct.ContactSet(*(st[k] for k in CONTACT_ENTRIES))
+
+    def geom_of(st):
         if not use_self:
-            return
-        if not graphs.enabled:
-            st["ops"] = ops
-        elif "ops" not in st:
-            geom = fc.KernelGeom(
-                idx_row=st["idx_row"], idx_part=st["idx_part"],
-                normalT=st["normalT"], area_row=None, area_part=None,
-                counts=st["counts"], overflow=None)
-            st["ops"] = fc.sweep_operands(geom, (st["kred"], st["imr"],
-                                                 st["imp"]),
+            return None
+        return fc.KernelGeom(**{k: st[k] for k in GEOM_ENTRIES},
+                             overflow=None)
+
+    def bind_ops(st) -> None:
+        """st["ops"]: the sweep operands over st's slot geometry and masses,
+        validated once per dict when captured (their kernel argument struct
+        points at the static buffers), once per call uncaptured."""
+        if use_self and (not graphs.enabled or "ops" not in st):
+            st["ops"] = fc.sweep_operands(geom_of(st), (st["kred"], st["imr"],
+                                                        st["imp"]),
                                           self_cfg.budgets, n)
 
-    def y_entries(x_n) -> dict:
-        return {f"y{i}": y for i, y in enumerate(apply_A(x_n))}
+    def start_entries(st, params: SimParams) -> dict:
+        """What the forward's and the adjoint's loops read besides their
+        carry: masses, f_ext, A x_n and the slot masses."""
+        m = masses(params)
+        out = dict(m=m, f_ext=external_force(params, m, st["t"],
+                                             st["step_idx"]))
+        out.update({f"y{i}": y for i, y in enumerate(apply_A(st["x_n"]))})
+        if use_self:
+            out.update(zip(("kred", "imr", "imp"),
+                           fc.slot_masses(geom_of(st), params.density)))
+        return out
 
     def y_of(st) -> tuple:
         return tuple(st[f"y{i}"] for i in range(4))
 
-    # -- forward PD loop ----------------------------------------------------
+    # -- forward: prologue, PD loop, epilogue ------------------------------
+
+    def pd_prologue(st) -> None:
+        """Contacts once per step and the loop's start (step.py:468-557)."""
+        x_n, v_n, params = st["x_n"], st["v_n"], params_of(st)
+        B = x_n.shape[0]
+        m = masses(params)
+        f_ext = external_force(params, m, st["t"], st["step_idx"])
+        s_n = x_n + h * v_n + h2 * f_ext / m[..., None]
+        v_iter0 = (s_n - x_n) / h
+        out = {}
+        n_contacts = torch.zeros(B, dtype=torch.int64, device=x_n.device)
+        if use_obstacles:
+            # once per step, at the time of the step being produced
+            # (step.py:472-479)
+            contact = ct.detect_obstacle_contacts(prims, x_n, v_iter0, h,
+                                                  t=st["t"])
+            out.update(zip(CONTACT_ENTRIES, (contact.mask, contact.normal,
+                                             contact.v_out, contact.prim_id)))
+            n_contacts = contact.mask.sum(dim=1)
+        overflow = torch.zeros(B, dtype=torch.bool, device=x_n.device)
+        pairs = torch.zeros(B, dtype=torch.int64, device=x_n.device)
+        slots = torch.zeros(B, dtype=torch.int32, device=x_n.device)
+        if use_self:
+            if self_cfg.method == "sweep":
+                cs = sc.detect_self_collisions_sweep(
+                    self_cfg.allowed, scene.radii, x_n, v_iter0, h,
+                    self_cfg.window, cap_pairs)
+                cs = sc.assign_layers(cs, n, self_cfg.max_layers)
+                tables = sc.build_layer_tables(cs, n, self_cfg.max_layers)
+                overflow = cs.overflow
+            else:
+                tables, overflow = scd.detect_tables(
+                    self_cfg.allowed, scene.radii, x_n, v_iter0, h,
+                    self_cfg.k_partners, self_cfg.max_layers)
+            geom = fc.build_kernel_geom(tables, scene.area, n,
+                                        self_cfg.budgets, x=x_n)
+            overflow = (overflow | geom.overflow
+                        | (tables.n_layers > len(self_cfg.budgets)))
+            pairs = (tables.partner >= 0).sum(dim=(1, 2)) // 2
+            slots = geom.counts.sum(dim=1, dtype=torch.int32)
+            out.update({k: getattr(geom, k) for k in GEOM_ENTRIES})
+            out.update(zip(("kred", "imr", "imp"),
+                           fc.slot_masses(geom, params.density)))
+        zeros = lambda dt: torch.zeros(B, dtype=dt, device=x_n.device)  # noqa
+        out.update(
+            m=m, f_ext=f_ext,
+            **{f"y{i}": y for i, y in enumerate(apply_A(x_n))},
+            # the carry: the loop starts from the inertia target
+            # (Simulation.cpp:1154-1160)
+            x_now=s_n, v_now=v_iter0, best_x=x_n.clone(), best_v=v_n.clone(),
+            min_xd=_frob(s_n - x_n) / n, it=zeros(torch.int32),
+            cg_it=zeros(torch.int32), done=zeros(torch.bool),
+            strict=zeros(torch.bool), since=zeros(torch.int32),
+            f=torch.zeros_like(x_n), r=torch.zeros_like(x_n),
+            go=~zeros(torch.bool), aux_selfcol_overflow=overflow,
+            aux_selfcol_pairs=pairs, aux_selfcol_slots=slots,
+            aux_obstacle_contacts=n_contacts)
+        graphs.store(st, out)
+        bind_ops(st)
 
     def pd_block(st, k: int) -> None:
         """k masked PD sweeps (the body of step.py:626's while_loop, per
         episode) on the loop's carry in st, written back in place."""
-        x_n, v_n, m, kp = st["x_n"], st["v_n"], st["m"], st["k"]
+        x_n, v_n, m, kp = st["x_n"], st["v_n"], st["m"], st["k_pertype"]
         y_n = y_of(st)
         c = {name: st[name] for name in PD_CARRY}
         for _ in range(k):
@@ -608,8 +671,8 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                                y_n)
             if has_contact:
                 f_k = btilde - apply_C(kp, v_now)
-                r_k = friction(f_k, st.get("contact"), st.get("ops"),
-                               st["mu"], m)
+                r_k = friction(f_k, contact_of(st), st.get("ops"), st["mu"],
+                               m)
             else:
                 f_k = r_k = torch.zeros_like(x_n)
             v_new, cg_k = solve(st, btilde + r_k, block_checks)
@@ -638,89 +701,48 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                 act, strict_k | (since_k >= plateau_window), c["done"])
         for name in PD_CARRY:
             st[name].copy_(c[name])
+        st["go"].copy_(~c["done"])
 
-    def pd_forward(x_n, v_n, params: SimParams, x_fixed, p_inv, t,
-                   step_idx):
-        B = x_n.shape[0]
-        dev = x_n.device
-        m = masses(params)
-        f_ext = external_force(params, m, t, step_idx)
-        s_n = x_n + h * v_n + h2 * f_ext / m[..., None]
-        v_iter0 = (s_n - x_n) / h
-        contact = None
-        n_contacts = torch.zeros(B, dtype=torch.int64, device=dev)
-        if use_obstacles:
-            # once per step, at the time of the step being produced
-            # (step.py:472-479)
-            contact = ct.detect_obstacle_contacts(prims, x_n, v_iter0, h,
-                                                  t=t)
-            n_contacts = contact.mask.sum(dim=1)
-
-        overflow = torch.zeros(B, dtype=torch.bool, device=dev)
-        pairs = torch.zeros(B, dtype=torch.int64, device=dev)
-        slots = torch.zeros(B, dtype=torch.int32, device=dev)
-        geom = ops = None
-        if use_self:
-            if self_cfg.method == "sweep":
-                cs = sc.detect_self_collisions_sweep(
-                    self_cfg.allowed, scene.radii, x_n, v_iter0, h,
-                    self_cfg.window, cap_pairs)
-                cs = sc.assign_layers(cs, n, self_cfg.max_layers)
-                tables = sc.build_layer_tables(cs, n, self_cfg.max_layers)
-                overflow = cs.overflow
-            else:
-                tables, overflow = scd.detect_tables(
-                    self_cfg.allowed, scene.radii, x_n, v_iter0, h,
-                    self_cfg.k_partners, self_cfg.max_layers)
-            geom = fc.build_kernel_geom(tables, scene.area, n,
-                                        self_cfg.budgets, x=x_n)
-            overflow = (overflow | geom.overflow
-                        | (tables.n_layers > len(self_cfg.budgets)))
-            pairs = (tables.partner >= 0).sum(dim=(1, 2)) // 2
-            slots = geom.counts.sum(dim=1, dtype=torch.int32)
-            ops = sweep_ops(geom, params)
-        frozen = Frozen(contact=contact, geom=geom)
-
-        name = ("pd", B, x_n.dtype, ops.route if use_self else None)
-        zeros = lambda dt: torch.zeros(B, dtype=dt, device=dev)  # noqa: E731
-        st = graphs.bind(name, dict(
-            x_n=x_n, v_n=v_n, x_fixed=x_fixed, f_ext=f_ext, m=m,
-            k=params.k_pertype, mu=params.mu, p_inv=p_inv,
-            **y_entries(x_n), **frozen_entries(contact, ops),
-            # the carry: the loop starts from the inertia target
-            # (Simulation.cpp:1154-1160)
-            x_now=s_n, v_now=v_iter0, best_x=x_n.clone(),
-            best_v=v_n.clone(), min_xd=_frob(s_n - x_n) / n,
-            it=zeros(torch.int32), cg_it=zeros(torch.int32),
-            done=zeros(torch.bool), strict=zeros(torch.bool),
-            since=zeros(torch.int32), f=torch.zeros_like(x_n),
-            r=torch.zeros_like(x_n)), once=("p_inv",))
-        bind_frozen(st, ops)
-        _run_blocks(max_iter,
-                    lambda k: graphs.run(name + (k,),
-                                         lambda s: pd_block(s, k), st),
-                    lambda: ~st["done"])
-        # strict convergence keeps the last iterate; plateau / cap exit
-        # reverts to the best iterate (Simulation.cpp:1357-1367)
+    def pd_epilogue(st) -> None:
+        """Strict convergence keeps the last iterate; a plateau or cap exit
+        reverts to the best iterate (Simulation.cpp:1357-1367); the step's
+        diagnostics."""
         s3 = st["strict"][:, None, None]
         x_new = torch.where(s3, st["x_now"], st["best_x"])
         v_new = torch.where(s3, st["v_now"], st["best_v"])
-        r = st["r"].clone()
-        if has_contact:
-            f = st["f"].clone()
-        else:
+        f = st["f"]
+        if not has_contact:
             # the pre-friction force record, reconstructed once post-loop
-            kp = params.k_pertype
-            f = (btilde_of(kp, m, f_ext, v_n, x_new, x_fixed, y_of(st))
-                 - apply_C(kp, v_new))
+            kp = st["k_pertype"]
+            f = (btilde_of(kp, st["m"], st["f_ext"], st["v_n"], x_new,
+                           st["x_fixed"], y_of(st)) - apply_C(kp, v_new))
         avg_def, max_def = deformation(scene, x_new)
-        aux = StepAux(f=f, r=r, converged=st["done"].clone(),
-                      iters=st["it"].clone(), avg_deformation=avg_def,
-                      max_deformation=max_def, selfcol_overflow=overflow,
-                      selfcol_pairs=pairs, selfcol_slots=slots,
-                      obstacle_contacts=n_contacts,
-                      cg_iters=st["cg_it"].clone())
-        return x_new, v_new, aux, frozen
+        graphs.store(st, dict(
+            x_new=x_new, v_new=v_new, aux_f=f, aux_r=st["r"],
+            aux_converged=st["done"], aux_iters=st["it"],
+            aux_avg_deformation=avg_def, aux_max_deformation=max_def,
+            aux_cg_iters=st["cg_it"]))
+
+    def pd_forward(x_n, v_n, params: SimParams, x_fixed, p_inv, t,
+                   step_idx, keep_frozen: bool = True):
+        """The forward program; returns (x_new, v_new, StepAux, the Frozen
+        contacts or None when not `keep_frozen`)."""
+        key = ("pd", x_n.shape[0], x_n.dtype)
+        st = bind_inputs(key, x_n, v_n, x_fixed, p_inv, t, step_idx, params)
+        graphs.program(key, (pd_prologue, gr.Loop(pd_block, max_iter,
+                                                  CHECK_EVERY, "pd"),
+                             pd_epilogue), st)
+        take = graphs.take
+        aux = StepAux(*(take(st[k]) for k in AUX_ENTRIES))
+        frozen = None
+        if keep_frozen:
+            frozen = Frozen(
+                contact=(ct.ContactSet(*(take(st[k]) for k in
+                                         CONTACT_ENTRIES))
+                         if use_obstacles else None),
+                geom=(fc.KernelGeom(**{k: take(st[k]) for k in GEOM_ENTRIES},
+                                    overflow=None) if use_self else None))
+        return take(st["x_new"]), take(st["v_new"]), aux, frozen
 
     # -- the residual and the K map ------------------------------------------
 
@@ -732,6 +754,8 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         (slot masses included) are recomputed from params.density here, so
         dL/drho flows through them, and mu[prim_id] from params.mu; the
         frozen contacts (normals, v_out, slot geometry) are constants."""
+        step_idx = torch.as_tensor(step_idx, dtype=torch.int64,
+                                   device=x_n.device)
         m = masses(params)
         f_ext = external_force(params, m, t, step_idx)
         kp = params.k_pertype
@@ -740,37 +764,112 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         Cv = apply_C(kp, v_new)
         R = m[..., None] * v_new + Cv - btilde
         if has_contact:
-            ops = sweep_ops(frozen.geom, params) if use_self else None
+            ops = None
+            if use_self:
+                ops = fc.sweep_operands(
+                    frozen.geom, fc.slot_masses(frozen.geom, params.density),
+                    self_cfg.budgets, n)
             R = R - friction(btilde - Cv, frozen.contact, ops, params.mu, m)
         return R
 
     def k_map(vn, st):
         """K(v) = b~(x_n + h v) + r(f(v)), so that P - dR/dv = dK/dv
         (step.py:683-692): the fixed point needs only K's VJP."""
-        kp, m = st["k"], st["m"]
+        kp, m = st["k_pertype"], st["m"]
         btilde = btilde_of(kp, m, st["f_ext"], st["v_n"], st["x_n"] + h * vn,
                            st["x_fixed"], y_of(st))
         if not has_contact:
             return btilde
-        return btilde + friction(btilde - apply_C(kp, vn), st.get("contact"),
+        return btilde + friction(btilde - apply_C(kp, vn), contact_of(st),
                                  st.get("ops"), st["mu"], m)
 
     def vjp_k(st, u):
         """(dK/dv)^T u at the step's v_new.  K's forward is recomputed for
         each product (one forward friction sweep beside the backward one),
-        so that a captured block holds both: autograd cannot replay inside
-        a graph the backward of a forward recorded outside it."""
+        so that a captured segment holds both: autograd cannot replay
+        inside a graph the backward of a forward recorded outside it."""
         with torch.enable_grad():
             vn = st["v_new"].detach().requires_grad_(True)
             return torch.autograd.grad(k_map(vn, st), vn, u)[0]
 
     # -- the implicit adjoint ------------------------------------------------
 
+    def adjoint_ops(st):
+        """(P^{-1}, (dR/dv)^T, P^{-1} (dR/dv)^T) on st, and a list whose
+        length counts the (dK/dv)^T products made (by each segment run)."""
+        made = []
+
+        def P_inv(rhs):
+            u, cg_k = solve(st, rhs, block_checks)
+            if cg_k is not None:
+                _count(st, "cg_solves", 1)
+                _count(st, "cg_iters", cg_k.sum())
+            return u
+
+        def vjp_v(u):
+            """(dR/dv)^T u = P u - (dK/dv)^T u."""
+            made.append(1)
+            return (st["m"][..., None] * u + apply_C(st["k_pertype"], u)
+                    - vjp_k(st, u))
+
+        return P_inv, vjp_v, (lambda u: P_inv(vjp_v(u))), made
+
+    def count_matvecs(st, made) -> None:
+        if made:
+            _count(st, "gmres_matvecs", len(made))
+            st["n_kdv"] += len(made)
+
+    def adj_start(st) -> None:
+        """w, the loops' inputs, b_pre = P^{-1} w and the start of the fixed
+        point (mode "fp") or of the GMRES cycles (mode "gmres")."""
+        params = params_of(st)
+        # total cotangent on v_new: x_new = x_n + h v_new
+        w = st["v_bar"] + h * st["x_bar"]
+        if flags.gradient_clipping:
+            # the reference clips the folded gradient dL_dx = w/h at
+            # threshold * n_particles (Simulation.cpp:1460-1466)
+            norm = _frob(w) / h
+            cap = flags.gradient_clipping_threshold * n
+            scale = torch.where(norm > cap,
+                                cap / torch.clamp(norm, min=1e-30), 1.0)
+            w = w * scale[:, None, None]
+        w_norm = _frob(w)
+        # zero-cotangent lanes: a frozen (exploded) step receives zero
+        # cotangents through the episode's freeze select; lambda = 0 is
+        # exact there, and the residual at the exploded state would turn
+        # 0 * NaN into NaN, so their outputs are selected away
+        live = w_norm > 0
+        B = w.shape[0]
+        graphs.store(st, dict(start_entries(st, params), w=w,
+                              w_norm=w_norm, live=live))
+        bind_ops(st)
+        P_inv, vjp_v, op_pre, made = adjoint_ops(st)
+        b_pre = P_inv(w)
+        out = dict(b_pre=b_pre, n_kdv=torch.zeros((), dtype=torch.int64,
+                                                   device=w.device))
+        if flags.adjoint_mode == "gmres":
+            r0 = _frob(P_inv(w - vjp_v(b_pre)))
+            best_res = torch.where(torch.isfinite(r0), r0, float("inf"))
+            stop = (best_res / nh < eps_backward) | ~live
+            out.update(lam=b_pre.clone(), best_res=best_res, stop=stop,
+                       go=~stop,
+                       cycles=torch.zeros(B, dtype=torch.int32,
+                                          device=w.device))
+        else:
+            out.update(lam=b_pre.clone(),
+                       it=torch.ones(B, dtype=torch.int32, device=w.device),
+                       done=~live, bad=torch.zeros_like(live),
+                       go=live.clone(),
+                       cg_sum=torch.zeros(B, dtype=torch.int32,
+                                          device=w.device))
+        graphs.store(st, out)
+        count_matvecs(st, made)
+
     def trip_block(st, k: int) -> None:
         """k masked fixed-point trips (the body of step.py:774's
         while_loop, per episode) on the adjoint's carry in st, written back
         in place."""
-        lam, it, done, bad, cg_sum = (st[name] for name in TRIP_CARRY)
+        lam, it, done, bad, cg_sum, n_kdv = (st[name] for name in TRIP_CARRY)
         for _ in range(k):
             act = ~(done | bad)
             lam_next, cg_k = solve(st, st["w"] + vjp_k(st, lam),
@@ -784,174 +883,159 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
             bad = torch.where(act, bad_k, bad)
             if cg_k is not None:
                 cg_sum = cg_sum + torch.where(act, cg_k, 0)
-        for name, val in zip(TRIP_CARRY, (lam, it, done, bad, cg_sum)):
+        for name, val in zip(TRIP_CARRY, (lam, it, done, bad, cg_sum,
+                                          n_kdv + k)):
             st[name].copy_(val)
+        st["go"].copy_(~(done | bad))
+        _count(st, "trips", k)
+        if uses_cg:
+            _count(st, "cg_solves", k)
+
+    def fallback_start(st) -> None:
+        """The fixed point's counts; the episodes it left unconverged go to
+        the GMRES fallback (step.py:782-798)."""
+        live, it, done, bad = st["live"], st["it"], st["done"], st["bad"]
+        if uses_cg:
+            _count(st, "cg_iters", st["cg_sum"].sum())
+        _count(st, "lane_steps", live.sum())
+        _count(st, "lane_trips", torch.where(live, it - 1, 0).sum())
+        need = ~(done & ~bad) & live
+        _count(st, "fallback_lanes", need.sum())
+        graphs.store(st, dict(need=need, go=need.clone()))
+
+    def fallback_block(st, k: int) -> None:
+        """k GMRES(16) fallback cycles for the episodes in need."""
+        _, _, op_pre, made = adjoint_ops(st)
+        lam, need = st["lam"], st["need"]
+        for _ in range(k):
+            x0 = torch.where(torch.isfinite(lam), lam, 0.0)
+            sol = _gmres_cycle(op_pre, st["b_pre"], x0, GMRES_M)
+            sol = torch.where(torch.isfinite(sol), sol, 0.0)
+            res = _frob(st["b_pre"] - op_pre(sol)) / nh
+            lam = torch.where(need[:, None, None], sol, lam)
+            need = need & ((res >= eps_backward) | ~torch.isfinite(res))
+        st["lam"].copy_(lam)
+        st["need"].copy_(need)
+        st["go"].copy_(need)
+        count_matvecs(st, made)
+
+    def gmres_block(st, k: int) -> None:
+        """k cycles of restarted preconditioned GMRES as the primary solver
+        (step.py:704-757): a cycle budget of max_back // (M + 2), each
+        cycle judged by its TRUE preconditioned residual (the free
+        Hessenberg estimate is not trusted), restarted from the best
+        iterate; an episode stops on convergence, on a cycle that does not
+        improve, or on one that gains under 10 %."""
+        P_inv, vjp_v, op_pre, made = adjoint_ops(st)
+        lam, best_res, stop, cycles = (st[name] for name in (
+            "lam", "best_res", "stop", "cycles"))
+        for _ in range(k):
+            act = ~stop
+            sol = _gmres_cycle(op_pre, st["b_pre"], lam,
+                               flags.adjoint_gmres_m)
+            res = _frob(P_inv(st["w"] - vjp_v(sol)))
+            better = (torch.isfinite(res)
+                      & torch.isfinite(sol).all(dim=(-2, -1))
+                      & (res < best_res))
+            new_res = torch.where(better, res, best_res)
+            stop_k = ((new_res / nh < eps_backward) | ~better
+                      | (res > 0.9 * best_res))
+            lam = torch.where((act & better)[:, None, None], sol, lam)
+            best_res = torch.where(act, new_res, best_res)
+            stop = torch.where(act, stop_k, stop)
+            cycles = cycles + act.to(torch.int32)
+        for name, val in zip(("lam", "best_res", "stop", "cycles"),
+                             (lam, best_res, stop, cycles)):
+            st[name].copy_(val)
+        st["go"].copy_(~stop)
+        _count(st, "gmres_cycles", k)
+        count_matvecs(st, made)
+
+    def adj_finish(wanted):
+        def finish(st) -> None:
+            """One VJP of the residual for x_n, v_n, x_fixed and the wanted
+            params, lambda zero on the lanes without a cotangent."""
+            live = st["live"]
+            if flags.adjoint_mode == "gmres":
+                _count(st, "lane_steps", live.sum())
+                _count(st, "lane_trips", st["cycles"].sum())
+            lam = torch.where(live[:, None, None], st["lam"], 0.0)
+            params = params_of(st)
+            with torch.enable_grad():
+                leaves = {"x_n": st["x_n"], "v_n": st["v_n"],
+                          "x_fixed": st["x_fixed"]}
+                leaves.update({k: getattr(params, k) for k in wanted})
+                leaves = {k: v.detach().clone().requires_grad_(True)
+                          for k, v in leaves.items()}
+                pr = params.replace(**{k: leaves[k] for k in wanted})
+                R = residual(st["v_new"], leaves["x_n"], leaves["v_n"], pr,
+                             leaves["x_fixed"], Frozen(contact_of(st),
+                                                       geom_of(st)),
+                             st["t"], st["step_idx"])
+                grads = torch.autograd.grad(R, list(leaves.values()), lam,
+                                            allow_unused=True)
+            _count(st, "residual_vjps", 1)
+            if use_self:
+                # every (dK/dv)^T product and the residual VJP sweep once
+                _count(st, "slot_launches",
+                       st["counts"].sum() * (st["n_kdv"] + 1))
+            g = {}
+            for k, gr_, leaf in zip(leaves, grads, leaves.values()):
+                gr_ = torch.zeros_like(leaf) if gr_ is None else gr_
+                g[k] = torch.where(live.view((-1,) + (1,) * (gr_.dim() - 1)),
+                                   gr_, 0.0)
+            graphs.store(st, dict(
+                g_x=st["x_bar"] - g.pop("x_n"), g_v=-g.pop("v_n"),
+                g_xf=-g.pop("x_fixed"), **{"g_" + k: -v
+                                           for k, v in g.items()}))
+        return finish
 
     def step_bwd(x_n, v_n, v_new, params: SimParams, x_fixed,
                  frozen: Frozen, p_inv, t, step_idx, x_bar, v_bar, wanted):
         """Cotangents of (x_new, v_new) -> those of x_n, v_n and x_fixed,
-        and a dict of those of the SimParams fields named in `wanted`."""
-        B = x_n.shape[0]
-        params = SimParams(**{k: v.detach() for k, v in params.items()})
-        x_n, v_n, v_new, x_fixed = (a.detach()
-                                    for a in (x_n, v_n, v_new, x_fixed))
-        # total cotangent on v_new: x_new = x_n + h v_new
-        w = v_bar + h * x_bar
-        if flags.gradient_clipping:
-            # the reference clips the folded gradient dL_dx = w/h at
-            # threshold * n_particles (Simulation.cpp:1460-1466)
-            norm = _frob(w) / h
-            cap = flags.gradient_clipping_threshold * n
-            scale = torch.where(norm > cap,
-                                cap / torch.clamp(norm, min=1e-30), 1.0)
-            w = w * scale[:, None, None]
-        w_norm = _frob(w)
-        # zero-cotangent short-circuit: a frozen (exploded) step receives
-        # zero cotangents through the episode's freeze select; lambda = 0
-        # is exact there, and evaluating the residual at the exploded state
-        # would turn 0 * NaN into NaN, so its outputs are selected away
-        live = w_norm > 0
-        if not bool(live.any()):
-            return (x_bar, torch.zeros_like(v_n), torch.zeros_like(x_fixed),
-                    {k: torch.zeros_like(getattr(params, k))
-                     for k in wanted})
-
-        m = masses(params)
-        ops = sweep_ops(frozen.geom, params) if use_self else None
-        name = ("adj", B, x_n.dtype, ops.route if use_self else None)
-        st = graphs.bind(name, dict(
-            x_n=x_n, v_n=v_n, v_new=v_new, x_fixed=x_fixed,
-            f_ext=external_force(params, m, t, step_idx), m=m,
-            k=params.k_pertype, mu=params.mu, p_inv=p_inv, w=w,
-            w_norm=w_norm, **y_entries(x_n),
-            **frozen_entries(frozen.contact, ops)), once=("p_inv",))
-        bind_frozen(st, ops)
-        matvecs = 0     # (dK/dv)^T products outside the trip blocks
-
-        def P_inv(rhs):
-            u, cg_k = solve_alone(st, rhs)
-            if cg_k is not None:
-                stats.cg_solves += 1
-                stats.cg_iters = stats.cg_iters + cg_k.sum()
-            return u
-
-        def vjp_v(u):
-            """(dR/dv)^T u = P u - (dK/dv)^T u."""
-            nonlocal matvecs
-            matvecs += 1
-            return m[..., None] * u + apply_C(params.k_pertype, u) - vjp_k(
-                st, u)
-
-        def op_pre(u):
-            """P^{-1} (dR/dv)^T u, the GMRES operator."""
-            return P_inv(vjp_v(u))
-
-        b_pre = P_inv(w)
-        trips = 0
-        if flags.adjoint_mode == "gmres":
-            # ---- restarted preconditioned GMRES as the primary solver
-            # (step.py:704-757): a cycle budget of max_back // (M + 2),
-            # each cycle judged by its TRUE preconditioned residual (the
-            # free Hessenberg estimate is not trusted), restarted from the
-            # best iterate; an episode stops on convergence, on a cycle
-            # that does not improve, or on one that gains under 10 %
-            M = flags.adjoint_gmres_m
-
-            def true_res(u):
-                return _frob(P_inv(w - vjp_v(u)))
-
-            r0 = true_res(b_pre)
-            best_res = torch.where(torch.isfinite(r0), r0, float("inf"))
-            lam = b_pre
-            stop = (best_res / nh < eps_backward) | ~live
-            cycles = torch.zeros(B, dtype=torch.int32, device=w.device)
-            for _ in range(max(1, max_back // (M + 2))):
-                act = ~stop
-                if not bool(act.any()):
-                    break
-                sol = _gmres_cycle(op_pre, b_pre, lam, M)
-                res = true_res(sol)
-                better = (torch.isfinite(res)
-                          & torch.isfinite(sol).all(dim=(-2, -1))
-                          & (res < best_res))
-                new_res = torch.where(better, res, best_res)
-                stop_k = ((new_res / nh < eps_backward) | ~better
-                          | (res > 0.9 * best_res))
-                lam = torch.where((act & better)[:, None, None], sol, lam)
-                best_res = torch.where(act, new_res, best_res)
-                stop = torch.where(act, stop_k, stop)
-                cycles = cycles + act.to(torch.int32)
-                stats.gmres_cycles += 1
-            stats.lane_steps = stats.lane_steps + live.sum()
-            stats.lane_trips = stats.lane_trips + cycles.sum()
-        else:
-            # ---- the reference's fixed point (Simulation.cpp:1569-1599)
-            graphs.bind(name, dict(
-                lam=b_pre.clone(),
-                it=torch.ones(B, dtype=torch.int32, device=w.device),
-                done=~live, bad=torch.zeros_like(live),
-                cg_sum=torch.zeros(B, dtype=torch.int32, device=w.device)))
-            trips = _run_blocks(
-                max_back - 1,
-                lambda k: graphs.run(name + (k,),
-                                     lambda s: trip_block(s, k), st),
-                lambda: ~(st["done"] | st["bad"]))
-            lam, it, done, bad = (st[k].clone()
-                                  for k in ("lam", "it", "done", "bad"))
-            stats.trips += trips
-            if uses_cg:
-                stats.cg_solves += trips
-                stats.cg_iters = stats.cg_iters + st["cg_sum"].sum()
-            stats.lane_steps = stats.lane_steps + live.sum()
-            stats.lane_trips = stats.lane_trips + torch.where(live, it - 1,
-                                                              0).sum()
-
-            # ---- GMRES(16) fallback, up to 3 cycles, for the episodes
-            # whose fixed point did not converge (step.py:782-798)
-            need = ~(done & ~bad) & live
-            stats.fallback_lanes = stats.fallback_lanes + need.sum()
-            for _ in range(GMRES_CYCLES):
-                if not bool(need.any()):
-                    break
-                x0 = torch.where(torch.isfinite(lam), lam, 0.0)
-                sol = _gmres_cycle(op_pre, b_pre, x0, GMRES_M)
-                sol = torch.where(torch.isfinite(sol), sol, 0.0)
-                res = _frob(b_pre - op_pre(sol)) / nh
-                lam = torch.where(need[:, None, None], sol, lam)
-                need = need & ((res >= eps_backward) | ~torch.isfinite(res))
-        stats.gmres_matvecs += matvecs
-        lam = torch.where(live[:, None, None], lam, 0.0)
-
-        # ---- one VJP of the residual for x_n, v_n, x_fixed and params
-        with torch.enable_grad():
-            leaves = {"x_n": x_n, "v_n": v_n, "x_fixed": x_fixed}
-            leaves.update({k: getattr(params, k) for k in wanted})
-            leaves = {k: v.clone().requires_grad_(True)
-                      for k, v in leaves.items()}
-            pr = params.replace(**{k: leaves[k] for k in wanted})
-            R = residual(v_new, leaves["x_n"], leaves["v_n"], pr,
-                         leaves["x_fixed"], frozen, t, step_idx)
-            grads = torch.autograd.grad(R, list(leaves.values()), lam,
-                                        allow_unused=True)
-        stats.residual_vjps += 1
+        and a dict of those of the SimParams fields named in `wanted` that
+        the step reads (the others get none): the adjoint program."""
+        wanted = tuple(k for k in wanted if k in STEP_PARAMS)
+        key = ("adj", x_n.shape[0], x_n.dtype, wanted)
+        more = dict(v_new=v_new, x_bar=x_bar, v_bar=v_bar)
+        if use_obstacles:
+            more.update(zip(CONTACT_ENTRIES, (
+                frozen.contact.mask, frozen.contact.normal,
+                frozen.contact.v_out, frozen.contact.prim_id)))
         if use_self:
-            # every (dK/dv)^T product and the residual VJP sweep once
-            stats.slot_launches = (stats.slot_launches
-                                   + frozen.geom.counts.sum()
-                                   * (trips + matvecs + 1))
-        g = {}
-        for k, gr_, leaf in zip(leaves, grads, leaves.values()):
-            gr_ = torch.zeros_like(leaf) if gr_ is None else gr_
-            g[k] = torch.where(live.view((-1,) + (1,) * (gr_.dim() - 1)),
-                               gr_, 0.0)
-        return (x_bar - g.pop("x_n"), -g.pop("v_n"), -g.pop("x_fixed"),
-                {k: -v for k, v in g.items()})
+            more.update({k: getattr(frozen.geom, k) for k in GEOM_ENTRIES})
+        st = bind_inputs(key, *(a.detach() for a in (x_n, v_n, x_fixed)),
+                         p_inv, t, step_idx,
+                         SimParams(**{k: v.detach()
+                                      for k, v in params.items()}),
+                         **{k: v.detach() for k, v in more.items()})
+        if flags.adjoint_mode == "gmres":
+            cycles = max(1, max_back // (flags.adjoint_gmres_m + 2))
+            segments = (adj_start, gr.Loop(gmres_block, cycles, 1, "gmres"),
+                        adj_finish(wanted))
+        else:
+            segments = (adj_start,
+                        gr.Loop(trip_block, max_back - 1, CHECK_EVERY,
+                                "trips"),
+                        fallback_start,
+                        gr.Loop(fallback_block, GMRES_CYCLES, 1, "fallback"),
+                        adj_finish(wanted))
+        graphs.program(key, segments, st)
+        take = graphs.take
+        return (take(st["g_x"]), take(st["g_v"]), take(st["g_xf"]),
+                {k: take(st["g_" + k]) for k in wanted})
 
     step_def = types.SimpleNamespace(forward=pd_forward, backward=step_bwd)
 
     def step(x_n, v_n, params: SimParams, x_fixed, p_inv, t, step_idx):
-        out = StepFn.apply(step_def, p_inv, t, step_idx, x_n, v_n, x_fixed,
-                           *(getattr(params, k) for k in PARAM_FIELDS))
+        tensors = (x_n, v_n, x_fixed) + tuple(getattr(params, k)
+                                              for k in PARAM_FIELDS)
+        # the frozen contacts are kept only for a backward that may follow
+        keep = torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in tensors)
+        out = StepFn.apply(step_def, keep, p_inv, t, step_idx, x_n, v_n,
+                           x_fixed, *(getattr(params, k)
+                                      for k in PARAM_FIELDS))
         return out[0], out[1], StepAux(*out[2:])
 
     step.bwd_stats = stats

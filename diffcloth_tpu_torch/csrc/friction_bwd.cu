@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
+#include "launch_count.cuh"
 #include "staging.cuh"
 
 namespace {
@@ -62,8 +63,10 @@ __global__ void __launch_bounds__(kThreads)
 friction_bwd_kernel(const friction::SweepGeom g,
                     const float* __restrict__ g_in,
                     const float* __restrict__ vals_in,
-                    float* g_out, float* __restrict__ ck_out) {
+                    float* g_out, float* __restrict__ ck_out,
+                    unsigned long long* launches) {
   extern __shared__ __align__(16) unsigned char smem[];
+  count_launch(launches);
   const friction::Smem m =
       friction::smem_layout(g, kGlobalState ? 0 : g.n, 14, 3, 2);
   const int b = blockIdx.x, TC = g.TC, L = g.L;
@@ -190,15 +193,16 @@ int init(int max_smem) {
 
 template <bool kGlobalState>
 int launch(const friction::SweepGeom* g, const float* g_in, const float* vals,
-           float* g_out, float* ck_out, void* stream) {
+           float* g_out, float* ck_out, unsigned long long* launches,
+           void* stream) {
   if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1 ||
-      g_in == g_out)
+      g_in == g_out || !launches)
     return (int)cudaErrorInvalidValue;
   const int smem =
       friction::smem_layout(*g, kGlobalState ? 0 : g->n, 14, 3, 2).bytes;
   friction_bwd_kernel<kGlobalState>
       <<<g->B, kThreads, smem, (cudaStream_t)stream>>>(*g, g_in, vals, g_out,
-                                                         ck_out);
+                                                         ck_out, launches);
   return (int)cudaGetLastError();
 }
 
@@ -213,13 +217,15 @@ extern "C" int friction_bwd_global_init(int max_smem) {
 
 // g: the step's slot operands; g_in / g_out (B, n, 3) f32, not the same
 // buffer; vals (B, 6, TC) the forward's saved q and p; ck_out (3, B, TC)
-// f32, the cotangents of kred, imr and imp.  The shared memory it needs,
+// f32, the cotangents of kred, imr and imp; launches the kernel's launch count
+// (device memory, core/launch_count.py), one added per launch.  The shared
+// memory it needs,
 // friction::smem_layout(g, n, 14, 3, 2), must not exceed what
 // friction_bwd_init allowed.
 extern "C" int friction_bwd(const friction::SweepGeom* g, const float* g_in,
                             const float* vals, float* g_out, float* ck_out,
-                            void* stream) {
-  return launch<false>(g, g_in, vals, g_out, ck_out, stream);
+                            unsigned long long* launches, void* stream) {
+  return launch<false>(g, g_in, vals, g_out, ck_out, launches, stream);
 }
 
 // The global-state route, the same arguments; its shared memory,
@@ -227,6 +233,6 @@ extern "C" int friction_bwd(const friction::SweepGeom* g, const float* g_in,
 extern "C" int friction_bwd_global(const friction::SweepGeom* g,
                                    const float* g_in, const float* vals,
                                    float* g_out, float* ck_out,
-                                   void* stream) {
-  return launch<true>(g, g_in, vals, g_out, ck_out, stream);
+                                   unsigned long long* launches, void* stream) {
+  return launch<true>(g, g_in, vals, g_out, ck_out, launches, stream);
 }

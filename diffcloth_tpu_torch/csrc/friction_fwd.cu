@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
+#include "launch_count.cuh"
 #include "staging.cuh"
 
 namespace {
@@ -60,8 +61,10 @@ using friction::kThreads;
 template <bool kGlobalState>
 __global__ void __launch_bounds__(kThreads)
 friction_kernel(const friction::SweepGeom g, const float* __restrict__ fr_in,
-                float* fr_out, float* __restrict__ vals_out) {
+                float* fr_out, float* __restrict__ vals_out,
+                unsigned long long* launches) {
   extern __shared__ __align__(16) unsigned char smem[];
+  count_launch(launches);
   const friction::Smem m =
       friction::smem_layout(g, kGlobalState ? 0 : g.n, 8, 6, 1);
   const int b = blockIdx.x, TC = g.TC, L = g.L;
@@ -165,15 +168,15 @@ int init(int max_smem) {
 
 template <bool kGlobalState>
 int launch(const friction::SweepGeom* g, const float* fr_in, float* fr_out,
-           float* vals, void* stream) {
+           float* vals, unsigned long long* launches, void* stream) {
   if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1 ||
-      fr_in == fr_out)
+      fr_in == fr_out || !launches)
     return (int)cudaErrorInvalidValue;
   const int smem =
       friction::smem_layout(*g, kGlobalState ? 0 : g->n, 8, 6, 1).bytes;
   friction_kernel<kGlobalState>
       <<<g->B, kThreads, smem, (cudaStream_t)stream>>>(*g, fr_in, fr_out,
-                                                         vals);
+                                                         vals, launches);
   return (int)cudaGetLastError();
 }
 
@@ -187,18 +190,21 @@ extern "C" int friction_fwd_global_init(int max_smem) {
 }
 
 // g: the step's slot operands; fr_in / fr_out (B, n, 3) f32, not the same
-// buffer; vals (B, 6, TC) f32.  The shared memory it needs,
-// friction::smem_layout(g, n, 8, 6, 1), must not exceed what
+// buffer; vals (B, 6, TC) f32; launches the kernel's launch count (device
+// memory, core/launch_count.py), one added per launch.  The shared memory
+// it needs, friction::smem_layout(g, n, 8, 6, 1), must not exceed what
 // friction_fwd_init allowed.
 extern "C" int friction_fwd(const friction::SweepGeom* g, const float* fr_in,
-                            float* fr_out, float* vals, void* stream) {
-  return launch<false>(g, fr_in, fr_out, vals, stream);
+                            float* fr_out, float* vals,
+                            unsigned long long* launches, void* stream) {
+  return launch<false>(g, fr_in, fr_out, vals, launches, stream);
 }
 
 // The global-state route, the same arguments; its shared memory,
 // friction::smem_layout(g, 0, 8, 6, 1), holds no state.
 extern "C" int friction_fwd_global(const friction::SweepGeom* g,
                                    const float* fr_in, float* fr_out,
-                                   float* vals, void* stream) {
-  return launch<true>(g, fr_in, fr_out, vals, stream);
+                                   float* vals, unsigned long long* launches,
+                                   void* stream) {
+  return launch<true>(g, fr_in, fr_out, vals, launches, stream);
 }

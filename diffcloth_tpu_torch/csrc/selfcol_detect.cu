@@ -58,6 +58,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
 #include "staging.cuh"
 
 namespace {
@@ -173,8 +174,9 @@ __device__ __forceinline__ void stage_segment(Shared& sm, const float* g,
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 detect_kernel(const float* __restrict__ geom,
               const int8_t* __restrict__ allowed, int* __restrict__ out,
-              int n_pad, int k) {
+              int n_pad, int k, unsigned long long* launches) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  count_launch(launches);
   Shared& sm = *reinterpret_cast<Shared*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -334,24 +336,32 @@ detect_kernel(const float* __restrict__ geom,
 
 }  // namespace
 
+// Called once when the library is loaded: lets a launch use the kernel's
+// shared memory (above the 48 KB default when it is larger), so that a
+// launch, which may sit in a captured graph, sets no attribute.
+extern "C" int selfcol_detect_init() {
+  const int smem = (int)sizeof(Shared);
+  if (smem <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(
+      detect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
 // geom (B, 8, n_pad) f32 rows [x, y, z, x+hv, y+hv, z+hv, r, pad], 16-byte
 // aligned; allowed (n_pad, n_pad) int8, 16-byte aligned; out (B, n_pad,
-// k + 1) int32.  Returns the launch's cudaError_t.
+// k + 1) int32; launches the kernel's launch count (device memory,
+// core/launch_count.py), one added per launch.  selfcol_detect_init must
+// have run.  Returns the launch's cudaError_t.
 extern "C" int selfcol_detect(const float* geom, const int8_t* allowed,
                               int* out, int B, int n_pad, int k,
-                              void* stream) {
-  if (B < 1 || B > 65535 || k < 1 || k > kMaxK || n_pad < kSegment ||
+                              unsigned long long* launches, void* stream) {
+  if (!launches || B < 1 || B > 65535 || k < 1 || k > kMaxK ||
+      n_pad < kSegment ||
       n_pad % kSegment || reinterpret_cast<uintptr_t>(geom) % 16 ||
       reinterpret_cast<uintptr_t>(allowed) % 16)
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Shared);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        detect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const dim3 grid(n_pad / kRowsPerBlock, B);
   detect_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      geom, allowed, out, n_pad, k);
+      geom, allowed, out, n_pad, k, launches);
   return (int)cudaGetLastError();
 }

@@ -59,10 +59,16 @@ class OptimizeHelper:
     `param_base` holds the fields the optimizer does not touch.  A batched
     base (B episodes) gives the population evaluations of
     `batched_loss` / `batched_loss_and_grad` (B candidates) one base
-    episode each, e.g. each its own initial state."""
+    episode each, e.g. each its own initial state.
+
+    `chunked` (None: past 250 steps or 2000 vertices, the JAX helper's
+    rule, helper.py:66-76) routes `loss` / `loss_and_grad` through the
+    sim's chunked episode functions, `chunk` steps per chunk; the
+    population evaluations always take them (helper.py:253-279)."""
 
     def __init__(self, sim, mask: GradMask, loss_fn,
-                 param_base: Optional[SimParams] = None):
+                 param_base: Optional[SimParams] = None,
+                 chunked: Optional[bool] = None, chunk: int = 50):
         self.sim = sim
         self.mask = mask
         self.loss_fn = loss_fn
@@ -72,8 +78,20 @@ class OptimizeHelper:
                      else self.base)
         self._slots: List[_Slot] = []
         self._build_slots()
-        self._vg = sim.episode_value_and_grad(loss_fn)
-        self._loss_eval = sim.episode_loss(loss_fn)
+        if chunked is None:
+            chunked = sim.n_steps > 250 or sim.n > 2000
+        self.chunked, self.chunk = chunked, chunk
+        if chunked:
+            self._vg = sim.episode_value_and_grad_chunked(loss_fn, chunk)
+            self._loss_eval = sim.episode_loss_chunked(loss_fn, chunk)
+        else:
+            self._vg = sim.episode_value_and_grad(loss_fn)
+            self._loss_eval = sim.episode_loss(loss_fn)
+        self._batched_vg = sim.episode_value_and_grad_chunked(
+            loss_fn, chunk, batched=True)
+        self._batched_loss_eval = sim.episode_loss_chunked(
+            loss_fn, chunk, batched=True)
+        self._last_vg = self._vg
         self.eval_count = 0
         self.history: List[Tuple[float, np.ndarray]] = []
 
@@ -166,7 +184,7 @@ class OptimizeHelper:
     @property
     def last_split(self):
         """Forward and backward wall seconds of the last gradient call."""
-        return self._vg.split
+        return self._last_vg.split
 
     def grads_to_vec(self, grads: SimParams) -> np.ndarray:
         return self.params_to_vec(grads)
@@ -217,6 +235,7 @@ class OptimizeHelper:
 
     def loss_and_grad(self, x: np.ndarray) -> Tuple[float, np.ndarray]:
         L, grads = self._vg(self.vec_to_params(x))
+        self._last_vg = self._vg
         self.eval_count += 1
         self.history.append((float(L), np.array(x)))
         return float(L), self.grads_to_vec(grads)
@@ -243,20 +262,21 @@ class OptimizeHelper:
                             for k, _ in plist[0].items()})
 
     def batched_loss(self, X: np.ndarray) -> np.ndarray:
-        """(P, D) -> (P,) losses from one batched forward episode (the
-        restart filter)."""
-        return _host(self._loss_eval(self.stack_vecs(X)))
+        """(P, D) -> (P,) losses from one batched chunked forward episode
+        (the restart filter)."""
+        return _host(self._batched_loss_eval(self.stack_vecs(X)))
 
     def batched_loss_and_grad(self, X: np.ndarray
                               ) -> Tuple[np.ndarray, np.ndarray]:
-        """(P, D) -> ((P,), (P, D)): one batched episode value-and-grad over
-        the whole population (the lockstep multi-start L-BFGS inner loop,
-        optim.lbfgsb.minimize_lbfgsb_population)."""
+        """(P, D) -> ((P,), (P, D)): one batched chunked episode
+        value-and-grad over the whole population (the lockstep multi-start
+        L-BFGS inner loop, optim.lbfgsb.minimize_lbfgsb_population)."""
         if not self.can_batch:
             raise ValueError("population evaluation shares one "
                              "prefactorization: stiffness/density cannot "
                              "vary across candidates")
-        L, grads = self._vg(self.stack_vecs(X))
+        L, grads = self._batched_vg(self.stack_vecs(X))
+        self._last_vg = self._batched_vg
         L = _host(L)
         P = L.shape[0]
         G = np.stack([self.grads_to_vec(grads.sample(i)) for i in range(P)])

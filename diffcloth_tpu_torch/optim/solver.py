@@ -207,7 +207,9 @@ def solve_demo_tau_ladder(demo: str, *, taus=(2.0, 0.5, 0.1, 0.0),
                       keypoint_tau=taus[0])
     hard_fn = losses_mod.make_loss_fn(
         task.loss_type, dataclasses.replace(task.loss_info, keypoint_tau=0.0))
-    hard_eval = task.sim.episode_loss(hard_fn)
+    # the rungs' hard-loss reports through the chunked episode
+    # (solver.py:214-217, :245)
+    hard_eval = task.sim.episode_loss_chunked(hard_fn)
 
     def rung_helper(tau):
         loss_fn = losses_mod.make_loss_fn(
@@ -226,6 +228,7 @@ def solve_demo_tau_ladder(demo: str, *, taus=(2.0, 0.5, 0.1, 0.0),
     if population > 0:
         X = np.stack([x] + [helper.random_param(base_seed + 1 + i)
                             for i in range(population - 1)])
+        hard_eval_b = task.sim.episode_loss_chunked(hard_fn, batched=True)
 
     t0 = time.time()
     rungs = []
@@ -243,7 +246,7 @@ def solve_demo_tau_ladder(demo: str, *, taus=(2.0, 0.5, 0.1, 0.0),
                 helper.batched_loss_and_grad, X, helper.lower_bound,
                 helper.upper_bound, maxiter=it, callback=cb)
             X = pop.X
-            hards = np.asarray(hard_eval(helper.stack_vecs(X)).detach()
+            hards = np.asarray(hard_eval_b(helper.stack_vecs(X)).detach()
                                .cpu().numpy(), np.float64)
             b = int(np.argmin(np.where(np.isfinite(hards), hards, np.inf)))
             res = LbfgsResult(
