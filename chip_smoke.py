@@ -144,23 +144,35 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      bounded.
  17. control (the closed-loop hat controller on `registry.hat_grid_standin`:
      HAT_SCENE's physics, bust and clips on a 25 x 25 grid, n = 625):
-     a. kernels: phase 2's checks at its shapes (B = 4: a controller start
-        pose, the grid folded, the hat on the bust in the head sphere's
+     a. kernels: phase 2's checks at its shapes (B = 8: controller start
+        poses, the grid folded, the hat on the bust in the head sphere's
         contact band, the folded grid there too);
      b. facade and bridge, f64 on the card and the CPU: 20
         `SimulationAPI.step_nn` steps and one `step_backward_nn`, then
         `PySim` over 5 steps with a scalar loss; states and cotangents
         within 1e-6;
-     c. training: `hat_controller.train` for 3 epochs, B = 4 poses, 2
-        validation poses, seed 0, 100 of the hat's 400 steps; per epoch the
-        losses, gradient norms and episode-gradient steps/s; then one
-        `loss_and_grad` with the counters zeroed just before and read just
-        after (detection once per step, the forward sweep once per PD
-        sweep plus once per trip, GMRES matvec and residual VJP, the
-        backward sweep once per each of those); every gradient finite; and its
-        profile over 10 steps;
+     c. training at the app's defaults: `hat_controller.train` for 3
+        epochs, B = 8 poses, 4 validation poses, seed 0, all 400 steps in
+        chunks of 50; per epoch the losses, gradient norms and
+        episode-gradient steps/s; then one `loss_and_grad` with the
+        counters zeroed just before and read just after (detection once
+        per step and the forward sweep once per PD sweep, both twice: the
+        chunks' backward recomputes their forward; the forward sweep once
+        more per trip, GMRES matvec and residual VJP, the backward sweep
+        once per each of those); every gradient finite; and its profile
+        over 10 steps;
      d. eval: one 400-step closed-loop episode of the trained controller
-        rendered to a GIF, its loss;
+        in chunks, rendered to a GIF, its loss;
+     g. the chunks against the whole episode: the trained controller's
+        `loss_and_grad` at 400 steps, B = 8, chunked and as one autograd
+        graph in the order chunked, whole, whole, chunked (each route's
+        runs bit for bit alike): the loss equal bit for bit, the
+        gradients and per-sample norms within 1e-5 of their largest
+        entries; the rates; the chunks' forward equal to the whole
+        episode's states and free of synchronizing calls (sync debug mode
+        "error"); device busy (CUDA events around the programs); peak
+        memory; host launches and synchronizing calls per step from a
+        fresh profiling process (`--profile-control`, 8 steps, chunk 4);
      e. the GMRES adjoint: the flagship stand-in's batched value-and-grad
         (B = 4, half folded, 10 steps, GradMask(f_wind=True)) in "gmres"
         against "fp", f32 (trips, matvecs, cosine: reported, not bounded);
@@ -168,7 +180,9 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         bounded as 12e);
      f. parallel: `parallel/mesh.py` on a world-size-1 NCCL group: the
         dp = 1 objective equal to the plain batched one and the tp = 1
-        row-sharded solve equal to the dense P^{-1} product, exactly.
+        row-sharded solve equal to the dense P^{-1} product, exactly; a
+        step given that tp solve captured against uncaptured, the losses
+        and gradients bit for bit.
 
  18. graphs (the compiled step): every earlier phase runs its sims as they
      default, each step's forward and adjoint one launch of a device
@@ -314,14 +328,14 @@ OBSTACLE_REF_STEPS = 6
 PRECISION_STEPS = 3
 SPHERE_PRECISION_STEPS = 20
 # phase 17 (the control path, the hat stand-in): the training batch, the
-# validation poses, the epochs and the horizon (of the hat's 400 steps);
-# the facade's steps and the bridge's; the GMRES comparison's depth and
-# batch (the flagship stand-in) and its f64 reference's depth; the
-# world-size-1 NCCL objective's depth
-HAT_BATCH = 4
-HAT_VAL = 2
+# validation poses, the epochs and the horizon (None: the hat's 400 steps;
+# the app's defaults, its chunk too); the facade's steps and the bridge's; the GMRES comparison's depth and batch (the flagship
+# stand-in) and its f64 reference's depth; the world-size-1 NCCL
+# objective's depth
+HAT_BATCH = 8
+HAT_VAL = 4
 HAT_EPOCHS = 3
-HAT_STEPS = 100
+HAT_STEPS = None
 CONTROL_PROFILE_STEPS = 10
 FACADE_STEPS = 20
 BRIDGE_STEPS = 5
@@ -2482,18 +2496,19 @@ def hat_task(dtype, device, **sim_kw):
 
 
 def control_states(prob, rng):
-    """17a's (4, n, 3) positions: a controller start pose (sample_pose),
-    the grid folded half over half, the hat on the bust (the loss's
-    target: inside the head sphere's contact band) and the folded grid
-    moved there too."""
+    """17a's (HAT_BATCH, n, 3) positions, by fours: a controller start pose
+    (sample_pose, another in each four), the grid folded half over half,
+    the hat on the bust (the loss's target: inside the head sphere's
+    contact band) and the folded grid moved there too."""
     import torch
     from diffcloth_tpu_torch.apps import hat_controller as hc
     sim = prob.sim
     folded = initial_states(sim, 1)[0]
     shift = (prob.target - prob.x0).mean(dim=0).cpu().numpy()
-    pose = hc.sample_pose(prob, rng)[0].cpu().numpy()
     target = prob.target.to(torch.float64).cpu().numpy()
-    return np.stack([pose, folded, target, folded + shift])
+    return np.stack([x for _ in range(HAT_BATCH // 4) for x in (
+        hc.sample_pose(prob, rng)[0].cpu().numpy(), folded, target,
+        folded + shift)])
 
 
 def phase_control_facade(card):
@@ -2566,14 +2581,16 @@ def phase_control_facade(card):
 
 def phase_control_train(card):
     """17c: `train()` on the hat stand-in, f32 on the card, HAT_EPOCHS
-    epochs of HAT_BATCH poses (HAT_VAL validation poses, seed 0) over
-    HAT_STEPS of the hat's 400 steps; each epoch's episode-gradient
-    steps/s and shares.  Then the trained controller's `loss_and_grad`
-    once more with the counters zeroed just before and read just after:
-    detection once per step, the forward sweep once per PD sweep plus once
-    per adjoint trip, GMRES matvec and residual VJP, the backward sweep
-    once per each of those.  Returns (launches, the controller, the
-    temporary directory holding controller.pkl)."""
+    epochs of HAT_BATCH poses (HAT_VAL validation poses, seed 0) over the
+    hat's 400 steps in chunks of 50 (the app's defaults); each
+    epoch's episode-gradient steps/s and shares.  Then the trained
+    controller's `loss_and_grad` once more with the counters zeroed just
+    before and read just after: detection once per step and the forward
+    sweep once per PD sweep, both twice (the chunks' backward recomputes
+    each chunk's forward), the forward sweep once more per adjoint trip,
+    GMRES matvec and residual VJP, the backward sweep once per each of
+    those.  Returns (launches, the controller, the temporary directory
+    holding controller.pkl)."""
     import tempfile
     import torch
     from diffcloth_tpu_torch.apps import hat_controller as hc
@@ -2608,7 +2625,8 @@ def phase_control_train(card):
             for e in hist):
         raise AssertionError(f"the training log {hist}")
     log(f"[control-train] hat stand-in (n = {sim.n}, {prob.n_steps} of "
-        f"{sim.n_steps} steps, B = {HAT_BATCH}, {HAT_VAL} validation poses) "
+        f"{sim.n_steps} steps in chunks of {hc.CHUNK}, B = {HAT_BATCH}, "
+        f"{HAT_VAL} validation poses) "
         f"on {card}: {HAT_EPOCHS} epochs in {wall:.1f} s; train loss "
         + " -> ".join(f"{e['train']:.5f}" for e in hist) + "; val "
         + " -> ".join(f"{e['val']:.5f}" for e in hist))
@@ -2625,9 +2643,9 @@ def phase_control_train(card):
     if not all(bool(torch.isfinite(g).all()) for g in pg.grads):
         raise AssertionError("a non-finite policy gradient")
     sweeps = int(pd_sweeps(pg.iters.cpu().numpy(), sim).sum())
-    check_launches("control", launches, prob.n_steps, sweeps, st)
+    check_launches("control", launches, prob.n_steps, sweeps, st, passes=2)
     log(f"[control] loss_and_grad of the trained controller, {prob.n_steps} "
-        f"steps x B={HAT_BATCH} on {card}: {wall:.2f} s, "
+        f"steps x B={HAT_BATCH}, chunk {hc.CHUNK} on {card}: {wall:.2f} s, "
         f"{HAT_BATCH * prob.n_steps / wall:.1f} episode-gradient steps/s "
         f"(forward {pg.forward_s:.2f} s, backward {pg.backward_s:.2f} s); "
         f"loss {float(pg.loss):.5f}, per-sample gradient norms "
@@ -2636,7 +2654,8 @@ def phase_control_train(card):
         f"per step; adjoint {st['lane_trips'] / max(st['lane_steps'], 1):.2f}"
         f" trips per episode-step, {st['fallback_lanes']:.0f} of "
         f"{st['lane_steps']:.0f} to GMRES ({st['gmres_matvecs']:.0f} "
-        f"matvecs); launches {launches}")
+        f"matvecs); launches {launches} (detection and the forward sweeps "
+        f"twice: the chunks' backward recomputes their forward)")
     return launches, res["controller"], tmp
 
 
@@ -2675,7 +2694,7 @@ def phase_control_profile(card, ctrl):
 
 def phase_control_eval(card, pkl):
     """17d: one full 400-step closed-loop episode of the trained
-    controller (`evaluate`), rendered to a GIF."""
+    controller (`evaluate`, in chunks), rendered to a GIF."""
     import torch
     from diffcloth_tpu_torch.apps import hat_controller as hc
     prob = hc.make_problem(hat_task(torch.float32, "cuda"))
@@ -2686,9 +2705,196 @@ def phase_control_eval(card, pkl):
     if not (np.isfinite(res["loss"]) and np.isfinite(res["frames"]).all()
             and res["frames"].shape == (prob.n_steps + 1, prob.sim.n, 3)):
         raise AssertionError(f"the eval episode: loss {res['loss']}")
-    log(f"[control-eval] {prob.n_steps}-step episode on {card} and its GIF "
+    log(f"[control-eval] {prob.n_steps}-step episode in chunks of "
+        f"{hc.CHUNK} on {card} and its GIF "
         f"({os.path.getsize(gif)} bytes, every 8th frame) in "
         f"{time.perf_counter() - t0:.1f} s; loss {res['loss']:.5f}")
+
+
+def control_case(steps, cuda_graphs=None, seed=0):
+    """The control path at HAT_BATCH poses (seed 3) of the hat stand-in cut
+    to `steps` (None: its 400): (problem, poses, clip targets, a
+    controller of seeded random weights)."""
+    import torch
+    from diffcloth_tpu_torch.apps import hat_controller as hc
+    prob = hc.make_problem(hat_task(torch.float32, "cuda",
+                                    cuda_graphs=cuda_graphs), steps)
+    feat = hc.featurize(prob, prob.x0[None], torch.zeros_like(prob.x0)[None])
+    ctrl = hc.Controller([feat.shape[1], *hc.HIDDEN,
+                          3 * prob.clip0.shape[0]], prob.sim.dtype,
+                         prob.sim.device,
+                         generator=torch.Generator().manual_seed(seed))
+    xs, aas = hc.stack_poses(prob, np.random.RandomState(3), HAT_BATCH)
+    return prob, xs, aas, ctrl
+
+
+def phase_control_chunked(card, ctrl):
+    """17g: the trained controller's `loss_and_grad` over the hat's 400
+    steps at B = HAT_BATCH, chunked (the default, 50) against the
+    whole episode as one autograd graph (chunk=None), after a warm-up of
+    both on a 2-step horizon of the same problem: chunked, whole, whole,
+    chunked, each route's two runs equal bit for bit; the loss of the two
+    routes equal bit for bit, the gradients and per-sample norms within
+    1e-5 of each layer's (the norms') largest entry, the same samples
+    dropped; the chunks' forward (`rollout_chunked`) equal to the whole
+    episode's states bit for bit and free of synchronizing calls (sync
+    debug mode "error"); device busy (CUDA events around the step and
+    controller programs); host launches and synchronizing runtime calls
+    per step from a fresh profiling process; peak memory."""
+    import dataclasses
+    import torch
+    from diffcloth_tpu_torch.apps import hat_controller as hc
+    prob, xs, aas, _ = control_case(HAT_STEPS)
+    units = HAT_BATCH * prob.n_steps
+    ways = {"chunked": hc.CHUNK, "whole": None}
+    short = dataclasses.replace(prob, n_steps=2)
+    for chunk in ways.values():     # warm-ups and captures
+        hc.loss_and_grad(short, ctrl, xs, aas, chunk=chunk)
+    rates, first = {w: [] for w in ways}, {}
+    for way in ("chunked", "whole", "whole", "chunked"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pg = hc.loss_and_grad(prob, ctrl, xs, aas, chunk=ways[way])
+        torch.cuda.synchronize()
+        rates[way].append(units / (time.perf_counter() - t0))
+        if way not in first:
+            first[way] = pg
+            continue
+        a = first[way]
+        if not (torch.equal(a.loss, pg.loss) and all(
+                torch.equal(g, h) for g, h in zip(a.grads, pg.grads))):
+            raise AssertionError(f"[control-chunked] {way}: two runs differ")
+    c, w = first["chunked"], first["whole"]
+    rel = {f"layer{i}": float((g - h).abs().max())
+           / max(float(h.abs().max()), 1e-30)
+           for i, (g, h) in enumerate(zip(c.grads, w.grads))}
+    rel["gnorms"] = float(np.abs(c.sample_gnorms - w.sample_gnorms).max()
+                          / max(np.abs(w.sample_gnorms).max(), 1e-30))
+    if not torch.equal(c.loss, w.loss) or not torch.equal(c.iters, w.iters) \
+            or not np.array_equal(c.dropped, w.dropped) or not all(
+                np.isfinite(v) and v <= 1e-5 for v in rel.values()):
+        raise AssertionError(f"[control-chunked] chunked against whole: loss "
+                             f"{c.loss} vs {w.loss}, gradient {rel}, dropped "
+                             f"{c.dropped} vs {w.dropped}")
+    log(f"[control-chunked] loss_and_grad, {prob.n_steps} steps x "
+        f"B={HAT_BATCH}, chunk {hc.CHUNK} against the whole episode on "
+        f"{card}: loss {float(c.loss):.6f} equal bit for bit, PD sweeps per "
+        f"step equal; gradient max error / largest entry (tolerance 1e-5): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in rel.items())
+        + f"; dropped {int(c.dropped.sum())} in both")
+    log(f"[control-chunked] episode-gradient steps/s (chunked, whole, whole, "
+        f"chunked): chunked " + ", ".join(f"{r:.1f}" for r in
+                                          rates["chunked"])
+        + "; whole " + ", ".join(f"{r:.1f}" for r in rates["whole"])
+        + f"; chunked / whole {np.mean(rates['chunked']) / np.mean(rates['whole']):.2f}x")
+
+    # the chunks' forward against the whole episode's, and with no
+    # synchronizing call once built
+    ws = ctrl.layers()
+    v0 = torch.zeros_like(xs)
+    with torch.no_grad():
+        whole = hc.closed_loop_rollout(prob, ws, xs, v0, aas, record=True)
+        hc.rollout_chunked(short, ws, xs, v0, aas, hc.CHUNK)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ch, _ = hc.rollout_chunked(prob, ws, xs, v0, aas, hc.CHUNK,
+                                       record=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for k in ("x", "v", "a", "clip_traj", "iters", "states"):
+        if not torch.equal(getattr(ch, k), getattr(whole, k)):
+            raise AssertionError(f"[control-chunked] rollout_chunked's {k} "
+                                 f"differs from closed_loop_rollout's")
+    log(f"[control-chunked] the chunks' forward ({prob.n_steps} steps, "
+        f"states, clips, actions, sweeps) equals the whole episode's bit for "
+        f"bit and ran under PyTorch's sync debug mode 'error'")
+
+    # device busy from CUDA events around every program launch: the step's
+    # forward and adjoint and, chunked, the controller's
+    for way, chunk in ways.items():
+        wall, busy = program_busy(
+            lambda: hc.loss_and_grad(prob, ctrl, xs, aas, chunk=chunk))
+        log(f"[control-chunked] {way}: wall {wall:.3f} s, the programs busy "
+            f"on the device {busy:.3f} s ({100 * busy / wall:.1f} %)"
+            + ("" if chunk else "; the controller and autograd's glue run "
+               "outside the programs and are not counted"))
+    peaks = {}
+    for way, chunk in ways.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        hc.loss_and_grad(prob, ctrl, xs, aas, chunk=chunk)
+        torch.cuda.synchronize()
+        peaks[way] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    log(f"[control-chunked] peak allocated memory over a loss_and_grad: "
+        f"whole episode {peaks['whole']:.1f} MiB, chunked "
+        f"{peaks['chunked']:.1f} MiB "
+        f"({100 * peaks['chunked'] / peaks['whole']:.0f} %)")
+    del prob, whole, ch
+    torch.cuda.empty_cache()
+
+    # host launches and waits per step, in a fresh process
+    prof = subprocess.run(
+        [sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
+         "--profile-control"], capture_output=True, text=True, timeout=600)
+    rows = [json.loads(ln) for ln in prof.stdout.splitlines()
+            if ln.startswith("{")]
+    want = ["chunked forward", "chunked loss_and_grad",
+            "whole loss_and_grad"]
+    if prof.returncode or [r["what"] for r in rows] != want:
+        raise AssertionError(
+            f"[control-chunked] the profiling process ended with rc "
+            f"{prof.returncode} and rows {[r['what'] for r in rows]}; its "
+            f"output ends:\n{prof.stdout[-1500:]}\n{prof.stderr[-3000:]}")
+    for row in rows:
+        log(f"[control-chunked] {row['what']} ({row['steps']} steps x "
+            f"B={HAT_BATCH}, chunk {row['chunk']}; profiled in a fresh "
+            f"process): {row['launches'] / row['steps']:.1f} host launches "
+            f"and {row['waits'] / row['steps']:.2f} synchronizing runtime "
+            f"calls per step ({row['syncs']} in all, {row['base_syncs']} in "
+            f"an empty profiled region)")
+
+
+def profile_control():
+    """`--profile-control`: the control path cut to CHUNKED_PROFILE (steps,
+    chunk), B = HAT_BATCH, a seeded random controller: the chunked forward,
+    the chunked and the whole loss_and_grad, each warmed up, then
+    profiled (the CUDA runtime's events); one JSON line each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from diffcloth_tpu_torch.apps import hat_controller as hc
+    steps, chunk = CHUNKED_PROFILE
+    prob, xs, aas, ctrl = control_case(steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+    base = sum(runtime_counts(prof)[1].values())
+
+    def forward():
+        with torch.no_grad():
+            hc.rollout_chunked(prob, ctrl.layers(), xs, torch.zeros_like(xs),
+                               aas, chunk)
+
+    for what, fn, c in (
+            ("chunked forward", forward, chunk),
+            ("chunked loss_and_grad",
+             lambda: hc.loss_and_grad(prob, ctrl, xs, aas, chunk=chunk),
+             chunk),
+            ("whole loss_and_grad",
+             lambda: hc.loss_and_grad(prob, ctrl, xs, aas, chunk=None),
+             None)):
+        fn()
+        fn()                        # warm-ups and captures
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches, syncs = runtime_counts(prof)
+        print(json.dumps(dict(what=what, steps=steps, chunk=c,
+                              launches=launches, syncs=syncs,
+                              base_syncs=base,
+                              waits=sum(syncs.values()) - base)), flush=True)
 
 
 def gmres_sim(dtype, device, steps, mode, eps_backward=None,
@@ -2773,7 +2979,9 @@ def phase_control_parallel(card):
     """17f: parallel/mesh.py on a world-size-1 NCCL group on the one card:
     the dp = 1 `batched_value_and_grad` equal to the plain batched
     value-and-grad averaged over the batch, exactly; the tp = 1
-    `make_tp_solve` equal to the dense P^{-1} product, exactly."""
+    `make_tp_solve` equal to the dense P^{-1} product, exactly; a step
+    given the tp solve runs uncaptured (any `solve_fn` does), with losses
+    equal to the plain sim's, and `cuda_graphs=True` with it raises."""
     import socket
     import torch
     import torch.distributed as dist
@@ -2810,6 +3018,32 @@ def phase_control_parallel(card):
             f"the plain one exactly (losses {L.tolist()}, |dL/dwind| max "
             f"{float(g.wind.abs().max()):.4e}); the tp = 1 row-sharded solve "
             f"equals the dense P^-1 product exactly")
+        sim_tp = flagship(torch.float32, "cuda", PARALLEL_STEPS,
+                          solve_fn=pmesh.make_tp_solve(mesh.tp_group))
+        fn = pmesh.batched_value_and_grad(sim_tp, loss_fn, mesh,
+                                          reduce_grads=False,
+                                          p_inv_spec="tp")
+        L_tp, g_tp = fn(params, p_inv)
+        launches = sum(p["launches"] for gs in sim_tp.graphs
+                       for p in gs.summary().values())
+        if sim_tp.cuda_graphs or launches or not torch.equal(L_tp, L_ref) \
+                or not bool(torch.isfinite(g_tp.wind).all()):
+            raise AssertionError(f"[control-parallel] the tp step: captured "
+                                 f"{sim_tp.cuda_graphs}, {launches} program "
+                                 f"launches, losses {L_tp} vs plain {L_ref}")
+        del sim_tp, fn
+        try:
+            flagship(torch.float32, "cuda", PARALLEL_STEPS,
+                     solve_fn=pmesh.make_tp_solve(mesh.tp_group),
+                     cuda_graphs=True)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("[control-parallel] cuda_graphs=True with "
+                                 "the tp solve did not raise")
+        log(f"[control-parallel] tp = 1 step on NCCL ({PARALLEL_STEPS} "
+            f"steps, B = 2): uncaptured by default, losses equal the plain "
+            f"sim's bit for bit; cuda_graphs=True raises: {refused}")
     finally:
         dist.destroy_process_group()
 
@@ -2839,6 +3073,8 @@ def run_control(card, timed):
     with timed("control eval"):
         phase_control_eval(card, os.path.join(tmp.name, "controller.pkl"))
     tmp.cleanup()
+    with timed("control chunked"):
+        phase_control_chunked(card, ctrl)
     with timed("control gmres"):
         phase_control_gmres(card)
     with timed("control parallel"):
@@ -3004,15 +3240,7 @@ def graph_cases():
         return forward(sim, episode_params(sim, LARGE_BATCH))
 
     def control(g, steps):
-        prob = hc.make_problem(hat_task(torch.float32, "cuda",
-                                        cuda_graphs=g), steps)
-        feat = hc.featurize(prob, prob.x0[None],
-                            torch.zeros_like(prob.x0)[None])
-        ctrl = hc.Controller(
-            [feat.shape[1], *hc.HIDDEN, 3 * prob.clip0.shape[0]],
-            prob.sim.dtype, prob.sim.device,
-            generator=torch.Generator().manual_seed(0))
-        xs, aas = hc.stack_poses(prob, np.random.RandomState(3), HAT_BATCH)
+        prob, xs, aas, ctrl = control_case(steps, cuda_graphs=g)
 
         def run():
             zero_counters()
@@ -3451,6 +3679,8 @@ def main():
                          f"{FLAGSHIP_STEPS} of its 250)")
     ap.add_argument("--profile-chunked", default=None,
                     help=argparse.SUPPRESS)   # phase 19's profiling process
+    ap.add_argument("--profile-control", action="store_true",
+                    help=argparse.SUPPRESS)   # 17g's profiling process
     ap.add_argument("--only", default=",".join(PATHS),
                     help="comma-separated paths to run while iterating "
                          f"(default, the acceptance run: all of "
@@ -3468,6 +3698,9 @@ def main():
     from diffcloth_tpu_torch.core import cuda_build
     if args.profile_chunked:
         profile_chunked(args.profile_chunked)
+        return 0
+    if args.profile_control:
+        profile_control()
         return 0
 
     card = nvidia_smi_line()

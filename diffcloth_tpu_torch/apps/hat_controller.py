@@ -16,14 +16,26 @@ steps to put the hat on the bust.  Same command line and defaults:
 
 The pieces are importable: `featurize`, `Controller` (widths [feat, 64,
 64, 3F], orthogonal init with gains 5/3 and 5/3 * 0.001 from a seeded
-`torch.Generator`), `closed_loop_rollout`, `traj_loss`, `loss_and_grad`,
+`torch.Generator`), `control_action`, `closed_loop_rollout`, `chunk_roll`,
+`vjp_chunk`, `rollout_chunked`, `traj_loss`, `loss_and_grad`,
 `sample_pose`, `train` and `evaluate`; `main` is the command line.
 
+The episode runs as the JAX app's chunks of CHUNK = 50 steps (the largest
+divisor of the horizon at most `chunk`): `chunk_roll` runs a chunk's
+closed loop without gradient, `vjp_chunk` recomputes a chunk's forward
+from its saved start under autograd and takes its VJP, so `loss_and_grad`
+holds one chunk's step residuals, not the horizon's; `episode_loss` and
+`evaluate` run the no-gradient chunks.  Inside a chunk the host waits on
+nothing: on the card each step is two launches of captured device
+programs, the controller's (featurize, the MLP, the clip, the action
+update; `HatProblem.graphs`) and the step's forward.
+`loss_and_grad(..., chunk=None)` runs the whole episode as one autograd
+graph (`closed_loop_rollout`, with the controller inline), the route the
+chunks are held to.
+
 What differs from the JAX app, with the same arithmetic:
-  * one autograd graph per episode batch: the JAX app splits an episode
-    into 50-step device calls only for TPU execution limits;
   * per-sample policy gradients come from per-episode copies of the
-    weights, (B, ...) leaves applied with `torch.bmm`, so one backward pass
+    weights, (B, ...) leaves applied with `torch.bmm`, so each chunk's VJP
     yields all B of them (the JAX app vmaps a VJP);
   * the action-cotangent clamp is an autograd.Function that clamps each
     episode's cotangent norm, as the JAX custom_vjp does under vmap;
@@ -56,6 +68,8 @@ from torch import nn
 
 from diffcloth_tpu_torch.convert import (controller_from_numpy,
                                          controller_to_numpy)
+from diffcloth_tpu_torch.core import graphs as gr
+from diffcloth_tpu_torch.core.device import resolve_device
 from diffcloth_tpu_torch.tasks import registry
 from diffcloth_tpu_torch.tasks.setup import TaskSetup, build_task
 from diffcloth_tpu_torch.utils import checkpoint as ckpt
@@ -63,6 +77,7 @@ from diffcloth_tpu_torch.utils import checkpoint as ckpt
 V_MIN, V_MAX = -0.1, 0.1     # action-delta clamp (common.py:63)
 DIR_PAIRS = ((394, 562), (32, 108))   # CLIP_DIR_VERTEX_PAIR (:211)
 HIDDEN = (64, 64)            # hatController.py:232
+CHUNK = 50                   # steps per chunk (apps/hat_controller.py:134)
 
 
 @dataclasses.dataclass
@@ -82,16 +97,29 @@ class HatProblem:
     dir_pairs: torch.Tensor    # (2, 2) long
     clip_rest_dist: float
     n_steps: int
+    times: tuple               # (N,) step times i h, (N,) int64 indices i
+    graphs: gr.BlockGraphs     # the controller's device programs
+    _batched: dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False)
+
+    def batched_params(self, B: int):
+        """The task's parameters for B episodes, made once per B (a step
+        program binds them again only when they change)."""
+        if B not in self._batched:
+            self._batched[B] = self.params.expand(B)
+        return self._batched[B]
 
 
 def make_problem(task: TaskSetup, steps: Optional[int] = None
                  ) -> HatProblem:
     """The hat task's pieces; `steps` cuts the horizon (None: the scene's
-    400)."""
+    400).  The step times and indices are device vectors, as
+    `ClothSim._times()`'s, so no step makes a host tensor."""
     sim = task.sim
     params = task.param_base
     dev = sim.device
     clip0 = sim.stage_dev.fixed_pos_rest.to(sim.dtype)
+    n_steps = steps or sim.n_steps
     return HatProblem(
         sim=sim, params=params, p_inv=sim.p_inv(params),
         head_center=sim.prims.center[0].to(sim.dtype),
@@ -102,7 +130,11 @@ def make_problem(task: TaskSetup, steps: Optional[int] = None
         target=task.loss_info.x_init + task.loss_info.target_translation,
         dir_pairs=torch.as_tensor(DIR_PAIRS, dtype=torch.long, device=dev),
         clip_rest_dist=float(torch.linalg.vector_norm(clip0[1] - clip0[0])),
-        n_steps=steps or sim.n_steps)
+        n_steps=n_steps,
+        times=(torch.arange(1, n_steps + 1, dtype=sim.dtype, device=dev)
+               * sim.h,
+               torch.arange(1, n_steps + 1, dtype=torch.int64, device=dev)),
+        graphs=gr.BlockGraphs(sim.cuda_graphs))
 
 
 def featurize(prob: HatProblem, x, v):
@@ -126,11 +158,13 @@ class Controller(nn.Module):
     """tanh MLP h <- tanh(h @ w + b), the last layer linear
     (clothNN/controller.py); weights stored (in, out) as in the JAX app.
     `generator` given: orthogonal init with gain 5/3, the last layer's
-    5/3 * 0.001, zero biases; otherwise zeros (to be filled)."""
+    5/3 * 0.001, zero biases; otherwise zeros (to be filled).  On the
+    card unless `device` says otherwise."""
 
     def __init__(self, widths, dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = resolve_device(device)
         ps = []
         for i in range(len(widths) - 1):
             w = torch.zeros(widths[i], widths[i + 1], dtype=dtype)
@@ -191,27 +225,50 @@ class Rollout(NamedTuple):
     states: Optional[torch.Tensor]   # (B, N, n, 3) with record=True
 
 
-def closed_loop_rollout(prob: HatProblem, ws, x, v, a,
-                        action_grad_clamp: float = 0.0,
-                        record: bool = False) -> Rollout:
-    """`prob.n_steps` closed-loop steps (controller, then simulator) of a
-    batch of episodes from (x, v, a) (B, n/n/F, 3), with weights `ws` (see
-    `net`); differentiable in ws and the start through every step's
-    implicit adjoint.  action_grad_clamp > 0 clamps the cotangent reaching
-    each step's clip targets to that norm per episode."""
+def control_action(prob: HatProblem, ws, x, v, a):
+    """The controller's work for one step: the MLP on the features of
+    (x, v), clipped to [-1, 1] and mapped to a bounded delta of the clip
+    targets a (B, F, 3) -> the step's clip targets."""
+    out = torch.clamp(net(ws, featurize(prob, x, v)), -1.0, 1.0)
+    return a + ((out + 1.0) / 2.0 * (V_MAX - V_MIN) + V_MIN).reshape(
+        a.shape)
+
+
+def _captured_action(prob: HatProblem, ws, x, v, a):
+    """`control_action` without gradient as a device program: on the card
+    its captured graph, bound to the weights once per call (copied only
+    when they change) and to x, v, a per step; elsewhere the same segment,
+    called directly."""
+    g = prob.graphs
+    names = tuple(f"w{i}" for i in range(len(ws)))
+    key = ("control", x.shape[0], x.dtype, tuple(w.shape for w in ws))
+    st = g.bind(key, dict(x=x, v=v, a=a))
+    g.bind(key, dict(zip(names, ws)), once=names)
+
+    def segment(s):
+        g.store(s, {"a_new": control_action(prob, [s[k] for k in names],
+                                            s["x"], s["v"], s["a"])})
+
+    g.program(key, (segment,), st)
+    return g.take(st["a_new"])
+
+
+def _closed_loop(prob: HatProblem, ws, x, v, a, lo: int, hi: int, act,
+                 action_grad_clamp: float = 0.0,
+                 record: bool = False) -> Rollout:
+    """Closed-loop steps lo..hi-1 (1-based) from (x, v, a): act(prob, ws,
+    x, v, a) -> the step's clip targets, then the simulator's step at its
+    time and index, both read from `prob.times`."""
     sim = prob.sim
-    B = x.shape[0]
-    pb = prob.params.expand(B)
+    pb = prob.batched_params(x.shape[0])
+    ts, idxs = prob.times
     clips, iters, states = [], [], []
-    for i in range(1, prob.n_steps + 1):
-        out = torch.clamp(net(ws, featurize(prob, x, v)), -1.0, 1.0)
-        a = a + ((out + 1.0) / 2.0 * (V_MAX - V_MIN) + V_MIN).reshape(
-            B, -1, 3)
+    for i in range(lo, hi):
+        a = act(prob, ws, x, v, a)
         a_in = (_CotangentClamp.apply(a, action_grad_clamp)
                 if action_grad_clamp > 0 else a)
-        t = torch.tensor(float(i), dtype=sim.dtype, device=sim.device) \
-            * sim.h
-        x, v, aux = sim.step(x, v, pb, a_in, prob.p_inv, t, i)
+        x, v, aux = sim.step(x, v, pb, a_in, prob.p_inv, ts[i - 1],
+                             idxs[i - 1])
         clips.append(x[:, prob.attach_idx])
         iters.append(aux.iters)
         if record:
@@ -219,6 +276,77 @@ def closed_loop_rollout(prob: HatProblem, ws, x, v, a,
     return Rollout(x=x, v=v, a=a, clip_traj=torch.stack(clips, dim=1),
                    iters=torch.stack(iters, dim=1),
                    states=torch.stack(states, dim=1) if record else None)
+
+
+def closed_loop_rollout(prob: HatProblem, ws, x, v, a,
+                        action_grad_clamp: float = 0.0,
+                        record: bool = False) -> Rollout:
+    """`prob.n_steps` closed-loop steps (controller, then simulator) of a
+    batch of episodes from (x, v, a) (B, n/n/F, 3), with weights `ws` (see
+    `net`), the controller inline: the whole episode as one autograd
+    graph, differentiable in ws and the start through every step's
+    implicit adjoint.  action_grad_clamp > 0 clamps the cotangent reaching
+    each step's clip targets to that norm per episode."""
+    return _closed_loop(prob, ws, x, v, a, 1, prob.n_steps + 1,
+                        control_action, action_grad_clamp, record)
+
+
+def chunk_size(n_steps: int, chunk: int) -> int:
+    """The largest divisor of the horizon at most `chunk`, so every chunk
+    has one length (apps/hat_controller.py:222-225)."""
+    return next(c for c in range(min(chunk, n_steps), 0, -1)
+                if n_steps % c == 0)
+
+
+def chunk_roll(prob: HatProblem, ws, x, v, a, lo: int, chunk: int,
+               record: bool = False) -> Rollout:
+    """The JAX app's `chunk_roll` (apps/hat_controller.py:161-182): `chunk`
+    closed-loop steps lo..lo+chunk-1 from (x, v, a), without gradient; on
+    the card each step launches the controller's program and the step's
+    forward program, and the host waits on neither.  Returns the chunk's
+    final (x, v, a), its clipped vertices (B, chunk, F, 3) and, with
+    `record`, its states."""
+    with torch.no_grad():
+        return _closed_loop(prob, ws, x, v, a, lo, lo + chunk,
+                            _captured_action, record=record)
+
+
+def rollout_chunked(prob: HatProblem, ws, x, v, a, chunk: int = CHUNK,
+                    record: bool = False):
+    """The horizon as no-gradient chunks of `chunk_size(N, chunk)` steps:
+    (its Rollout, equal to `closed_loop_rollout`'s bit for bit, and each
+    chunk's start (x, v, a))."""
+    c = chunk_size(prob.n_steps, chunk)
+    starts, parts = [], []
+    for lo in range(1, prob.n_steps + 1, c):
+        starts.append((x, v, a))
+        r = chunk_roll(prob, ws, x, v, a, lo, c, record)
+        x, v, a = r.x, r.v, r.a
+        parts.append(r)
+
+    def cat(k):
+        return torch.cat([getattr(r, k) for r in parts], dim=1)
+
+    return Rollout(x=x, v=v, a=a, clip_traj=cat("clip_traj"),
+                   iters=cat("iters"),
+                   states=cat("states") if record else None), starts
+
+
+def vjp_chunk(prob: HatProblem, ws, x, v, a, lo: int, chunk: int, cots,
+              action_grad_clamp: float = 0.0) -> list:
+    """The JAX app's `vjp_chunk` (apps/hat_controller.py:186-192): the
+    chunk's forward recomputed under autograd from its start (x, v, a),
+    then its VJP for cots (cot_x, cot_v, cot_a, dclip) of its final
+    (x, v, a) and clipped vertices -> the cotangents of ws (per episode,
+    as ws is) and of x, v, a."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (*ws, x, v, a)]
+        r = _closed_loop(prob, leaves[:len(ws)], *leaves[len(ws):], lo,
+                         lo + chunk, control_action, action_grad_clamp)
+        g = torch.autograd.grad([r.x, r.v, r.a, r.clip_traj], leaves, cots,
+                                allow_unused=True)
+    return [torch.zeros_like(t) if gi is None else gi
+            for t, gi in zip(leaves, g)]
 
 
 def _smooth_l1(d):
@@ -266,26 +394,56 @@ def _sync(device):
 
 def loss_and_grad(prob: HatProblem, ctrl: Controller, xs, aas,
                   action_grad_clamp: float = 4.0,
-                  sample_gnorm_max: float = 1e3) -> PolicyGradient:
+                  sample_gnorm_max: float = 1e3,
+                  chunk: Optional[int] = CHUNK) -> PolicyGradient:
     """The mean episode loss over a batch of start poses (xs (B, n, 3),
     clip targets aas (B, F, 3), at rest) and its policy gradient.  Each
-    episode runs its own copy of the weights, so one backward pass gives
+    episode runs its own copy of the weights, so the backward pass gives
     every per-sample gradient (of the mean: each carries 1/B); a sample
     whose gradient norm exceeds `sample_gnorm_max` (> 0) is dropped, unless
     all would be (contact-stiff outlier rejection, hatController.py
-    :254-272), and the kept ones are summed."""
+    :254-272), and the kept ones are summed.
+
+    The JAX app's scheme (apps/hat_controller.py:227-272): the forward
+    chunk by chunk without gradient, keeping each chunk's start; the
+    loss's cotangents of the clip trajectory and of x_N; the chunks in
+    reverse (`vjp_chunk`), the per-episode weight gradients summed over
+    them.  chunk=None: the whole episode as one autograd graph
+    (`closed_loop_rollout`); the two agree up to the order of the
+    gradient's sums."""
     B = xs.shape[0]
     dev = prob.sim.device
-    ws = [p.detach().expand((B,) + p.shape).clone().requires_grad_(True)
-          for p in ctrl.layers()]
+    ws = [p.detach().expand((B,) + p.shape).clone() for p in ctrl.layers()]
+    v0 = torch.zeros_like(xs)
     t0 = time.perf_counter()
-    with torch.enable_grad():
-        roll = closed_loop_rollout(prob, ws, xs, torch.zeros_like(xs), aas,
-                                   action_grad_clamp=action_grad_clamp)
-        L = torch.mean(traj_loss(prob, roll.clip_traj, roll.x))
+    if not chunk:
+        ws = [w.requires_grad_(True) for w in ws]
+        with torch.enable_grad():
+            roll = closed_loop_rollout(prob, ws, xs, v0, aas,
+                                       action_grad_clamp=action_grad_clamp)
+            L = torch.mean(traj_loss(prob, roll.clip_traj, roll.x))
+            _sync(dev)
+            t1 = time.perf_counter()
+            gs = torch.autograd.grad(L, ws)
+    else:
+        roll, starts = rollout_chunked(prob, ws, xs, v0, aas, chunk)
+        with torch.enable_grad():
+            clip = roll.clip_traj.requires_grad_(True)
+            xN = roll.x.detach().requires_grad_(True)
+            L = torch.mean(traj_loss(prob, clip, xN))
+            dclip, dxN = torch.autograd.grad(L, [clip, xN])
         _sync(dev)
         t1 = time.perf_counter()
-        gs = torch.autograd.grad(L, ws)
+        c = chunk_size(prob.n_steps, chunk)
+        cot = [dxN, torch.zeros_like(roll.v), torch.zeros_like(roll.a)]
+        gs = None
+        for k in reversed(range(len(starts))):
+            g = vjp_chunk(prob, ws, *starts[k], 1 + k * c, c,
+                          cot + [dclip[:, k * c:(k + 1) * c]],
+                          action_grad_clamp)
+            cot = g[len(ws):]
+            gs = g[:len(ws)] if gs is None else [
+                a + b for a, b in zip(gs, g[:len(ws)])]
     _sync(dev)
     t2 = time.perf_counter()
     gn = torch.sqrt(sum(torch.sum(g.reshape(B, -1) ** 2, dim=1)
@@ -332,12 +490,14 @@ def stack_poses(prob: HatProblem, rng, count: int):
             torch.stack([p[1] for p in poses]))
 
 
-def episode_loss(prob: HatProblem, ctrl: Controller, xs, aas) -> float:
-    """The mean forward-only loss of a batch of start poses."""
-    with torch.no_grad():
-        roll = closed_loop_rollout(prob, ctrl.layers(), xs,
-                                   torch.zeros_like(xs), aas)
-        return float(torch.mean(traj_loss(prob, roll.clip_traj, roll.x)))
+def episode_loss(prob: HatProblem, ctrl: Controller, xs, aas,
+                 chunk: int = CHUNK) -> float:
+    """The mean forward-only loss of a batch of start poses (the JAX app's
+    `val_loss`, apps/hat_controller.py:312-322), in chunks of `chunk`
+    steps."""
+    roll, _ = rollout_chunked(prob, ctrl.layers(), xs, torch.zeros_like(xs),
+                              aas, chunk)
+    return float(torch.mean(traj_loss(prob, roll.clip_traj, roll.x)))
 
 
 def cosine_lr(lr: float, epoch: int, epochs: int,
@@ -486,20 +646,22 @@ def train(prob: HatProblem, cfg: TrainConfig, log=print,
 
 
 def evaluate(prob: HatProblem, controller_path: str, seed: int = 0,
-             gif: Optional[str] = None, log=print) -> dict:
+             gif: Optional[str] = None, log=print,
+             chunk: int = CHUNK) -> dict:
     """The trained controller on one pose (reference eval mode,
-    hatController.py:253-273): a closed-loop episode from the pose of
-    RandomState(seed + 1), its loss, and with `gif` its frames rendered
-    there (io/viewer.py, every 8th).  Returns {"loss", "frames"}."""
+    hatController.py:253-273; the JAX app's chunked eval rollout,
+    apps/hat_controller.py:332-358): a closed-loop episode from the pose of
+    RandomState(seed + 1) in chunks of `chunk` steps, its loss, and with
+    `gif` its frames rendered there (io/viewer.py, every 8th).  Returns
+    {"loss", "frames"}."""
     with open(controller_path, "rb") as fh:
         ctrl = controller_from_numpy(pickle.load(fh), prob.sim.device,
                                      prob.sim.dtype)
     x, a = sample_pose(prob, np.random.RandomState(seed + 1))
-    with torch.no_grad():
-        roll = closed_loop_rollout(prob, ctrl.layers(), x[None],
-                                   torch.zeros_like(x)[None], a[None],
-                                   record=True)
-        L = float(traj_loss(prob, roll.clip_traj, roll.x)[0])
+    roll, _ = rollout_chunked(prob, ctrl.layers(), x[None],
+                              torch.zeros_like(x)[None], a[None], chunk,
+                              record=True)
+    L = float(traj_loss(prob, roll.clip_traj, roll.x)[0])
     frames = torch.cat([x[None], roll.states[0]]).cpu().numpy()
     log(f"eval loss {L:.5f}")
     if gif:

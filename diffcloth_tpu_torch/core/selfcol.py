@@ -28,6 +28,8 @@ import dataclasses
 
 import torch
 
+from diffcloth_tpu_torch.core.device import resolve_device
+
 BIG_ID = torch.iinfo(torch.int64).max
 
 
@@ -278,7 +280,9 @@ def build_layer_tables(contacts: SelfContactSet, n_particles: int,
 
 def empty_self_contacts(cap_pairs: int, dtype=torch.float32,
                         device=None) -> SelfContactSet:
-    """A contact set with no active pair."""
+    """A contact set with no active pair, on the card unless `device` says
+    otherwise."""
+    device = resolve_device(device)
     return SelfContactSet(
         pair_i=torch.zeros(cap_pairs, dtype=torch.int64, device=device),
         pair_j=torch.zeros(cap_pairs, dtype=torch.int64, device=device),

@@ -1,5 +1,8 @@
 """The control path on the card against the CPU: the `PySim` autograd
-bridge and one hat-controller `loss_and_grad`, f64 on both devices.
+bridge and one hat-controller `loss_and_grad`, f64 on both devices; the
+controller's chunks: a warmed chunk forward with no synchronizing call,
+equal to the whole episode's, and the chunked `loss_and_grad` on the card
+against the CPU.
 
 These tests need an NVIDIA GPU (the kernels build at first use) and skip
 without one; run them there with
@@ -11,7 +14,9 @@ largest entry (no contact on the flat grid, so no f32 friction enters;
 the devices differ only in summation order); the controller's loss and
 per-sample gradient norms within rtol 1e-6 and its summed gradient
 within 1e-6 of its largest entry (the f32 friction sweep inside the f64
-simulation, as every card-against-CPU reference).
+simulation, as every card-against-CPU reference); the chunks' forward
+against the whole episode's on the card bit for bit (the same operations
+on the same values, the controller captured or inline).
 """
 import dataclasses
 import types
@@ -98,5 +103,59 @@ def test_controller_loss_and_grad_on_card_matches_cpu(dev):
     g, c = out[str(dev)], out["cpu"]
     np.testing.assert_allclose(float(g.loss), float(c.loss), rtol=1e-6)
     np.testing.assert_allclose(g.sample_gnorms, c.sample_gnorms, rtol=1e-6)
+    for a, b in zip(g.grads, c.grads):
+        assert close(a, b, 1e-6)
+
+
+def hat_case(device, dtype, steps, B=2):
+    """The hat stand-in cut to `steps`, B poses (seed 0) and a controller
+    of seeded numpy weights (a last layer large enough that the clips
+    move)."""
+    scene = dataclasses.replace(registry.hat_grid_standin(), step_num=steps)
+    prob = hc.make_problem(build_task("hat", dtype=dtype, device=device,
+                                      scene=scene))
+    feat = hc.featurize(prob, prob.x0[None], torch.zeros_like(prob.x0)[None])
+    widths = [feat.shape[1], 64, 64, 3 * prob.clip0.shape[0]]
+    rng = np.random.RandomState(7)
+    layers = [{"w": rng.randn(widths[i], widths[i + 1])
+               * (1.0 if i == 2 else 1.0 / np.sqrt(widths[i])),
+               "b": rng.randn(widths[i + 1]) * 0.1} for i in range(3)]
+    xs, aas = hc.stack_poses(prob, np.random.RandomState(0), B)
+    return prob, controller_from_numpy(layers, device, dtype), xs, aas
+
+
+def test_control_chunk_forward_holds_no_host_sync(dev):
+    """Once its programs are built, the controller's chunks make no
+    synchronizing call (PyTorch's sync debug mode raises on one), and they
+    equal the whole episode with the controller inline, bit for bit."""
+    prob, ctrl, xs, aas = hat_case(dev, torch.float32, 8)
+    ws = ctrl.layers()
+    v0 = torch.zeros_like(xs)
+    with torch.no_grad():
+        for _ in range(2):     # warm-ups and captures
+            hc.rollout_chunked(prob, ws, xs, v0, aas, 4)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ch, starts = hc.rollout_chunked(prob, ws, xs, v0, aas, 4,
+                                            record=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        whole = hc.closed_loop_rollout(prob, ws, xs, v0, aas, record=True)
+    assert prob.graphs.enabled and prob.graphs.summary()
+    for k in ("x", "v", "a", "clip_traj", "iters", "states"):
+        assert torch.equal(getattr(ch, k), getattr(whole, k)), k
+    assert len(starts) == 2
+
+
+def test_chunked_loss_and_grad_on_card_matches_cpu(dev):
+    out = {}
+    for device in (dev, "cpu"):
+        prob, ctrl, xs, aas = hat_case(device, F64, 6)
+        out[str(device)] = hc.loss_and_grad(prob, ctrl, xs, aas, chunk=2)
+    g, c = out[str(dev)], out["cpu"]
+    np.testing.assert_allclose(float(g.loss), float(c.loss), rtol=1e-6)
+    np.testing.assert_allclose(g.sample_gnorms, c.sample_gnorms, rtol=1e-6)
+    np.testing.assert_array_equal(g.dropped, c.dropped)
     for a, b in zip(g.grads, c.grads):
         assert close(a, b, 1e-6)

@@ -9,7 +9,9 @@ import torch
 
 from diffcloth_tpu_torch import config as tc
 from diffcloth_tpu_torch import convert
-from diffcloth_tpu_torch.core import contact, dense_ops, sim, solver, types
+from diffcloth_tpu_torch.apps import hat_controller
+from diffcloth_tpu_torch.core import (contact, dense_ops, selfcol, sim,
+                                      solver, types)
 from diffcloth_tpu_torch.core.device import resolve_device
 from diffcloth_tpu_torch.geometry import builder as gb
 from diffcloth_tpu_torch.tasks import setup
@@ -69,6 +71,10 @@ ENTRIES = {
     "prim_struct": lambda s, **kw: setup._prim_struct(SPHERE, **kw).center,
     "primitive_set_from_numpy": lambda s, **kw:
         convert.primitive_set_from_numpy(_prims_arrays(), **kw).radius,
+    "Controller": lambda s, **kw: hat_controller.Controller(
+        [4, 3, 2], **kw).weights[0],
+    "empty_self_contacts": lambda s, **kw: selfcol.empty_self_contacts(
+        8, **kw).pair_i,
 }
 
 

@@ -408,6 +408,23 @@ def test_step_given_solve_fn_runs_uncaptured():
     assert sim.graphs[0].summary() == {}
 
 
+def test_tp_solve_runs_uncaptured(tmp_path):
+    """The tensor-parallel solve is a solve_fn like any other: a step given
+    it runs uncaptured on a card by default, and `cuda_graphs=True` with
+    it raises, even on a group of one rank."""
+    import torch.distributed as dist
+    from diffcloth_tpu_torch.parallel import mesh as pmesh
+    pmesh.initialize_distributed("gloo", f"file://{tmp_path}/init", 1, 0)
+    try:
+        solve = pmesh.make_tp_solve()
+    finally:
+        dist.destroy_process_group()
+    assert gr.resolve(None, torch.device("cuda"), solve) is False
+    assert gr.resolve(False, torch.device("cuda"), solve) is False
+    with pytest.raises(ValueError, match="solve_fn"):
+        gr.resolve(True, torch.device("cuda"), solve)
+
+
 def test_bind_keeps_static_buffers():
     """Captured, a block's dict holds static buffers: the first bind
     copies, later binds copy in place (same storage), a `once` entry is

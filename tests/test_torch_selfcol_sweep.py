@@ -177,7 +177,7 @@ def test_layer_tables_match_jax():
     for lay in tt.partner.numpy():
         has = lay >= 0
         np.testing.assert_array_equal(lay[lay[has]], np.nonzero(has)[0])
-    empty = tsc.empty_self_contacts(32)
+    empty = tsc.empty_self_contacts(32, device="cpu")
     et = tsc.build_layer_tables(tsc.assign_layers(empty, n, L), n, L)
     assert int(et.n_layers) == 0 and bool((et.partner == -1).all())
 
