@@ -180,9 +180,18 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         bounded as 12e);
      f. parallel: `parallel/mesh.py` on a world-size-1 NCCL group: the
         dp = 1 objective equal to the plain batched one and the tp = 1
-        row-sharded solve equal to the dense P^{-1} product, exactly; a
-        step given that tp solve captured against uncaptured, the losses
-        and gradients bit for bit.
+        row-sharded solve equal to the dense P^{-1} product, exactly; the
+        step given that tp solve runs captured by default (its all-gather
+        the exchange kernels, `csrc/peer_exchange.cu`), equal bit for bit
+        to `cuda_graphs=False` (losses, gradients, the kernels' counts)
+        and its losses to the plain sim's, the kernels' own counts those
+        its programs predict; another `solve_fn` with `cuda_graphs=True`
+        raises; the exchange kernels against their plain version (NCCL's
+        all-gather) exactly at the flagship's and the dress's blocks, timed
+        beside it; then two processes sharing the card (gloo for the
+        handles), tp = 2: their exchange in a WHILE body and their
+        flagship tp step captured against uncaptured, bit for bit, the
+        ranks equal to each other.
 
  18. graphs (the compiled step): every earlier phase runs its sims as they
      default, each step's forward and adjoint one launch of a device
@@ -226,6 +235,11 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      Then the chunked value-and-grad in f64, card against CPU (a 10 x 10
      folded grid, B = 2, 6 steps, chunk 3) within 1e-6.
 
+The CPU sides of the f64 card-vs-CPU references of the sphere, dress,
+multistage and obstacle paths (10d, 12e, 13, 15) run in a process beside
+the card phases (`--cpu-references`, started after the build; a phase
+waits for its side, and the process's failure fails the phase).
+
 `--only PATH,...` runs some of the paths while iterating (flagship:
 phases 2-9, sphere, large, dress, multistage, ladder, obstacles,
 precision, control, graphs, chunked); the acceptance run takes no
@@ -236,7 +250,8 @@ on the path that runs it: the forward path for detection and the forward
 sweep, the gradient path for the backward sweep, phase 11 for the sweeps'
 global-state route, whose entries carry "state": "global", phase 12 for
 the dress stand-in's, named with "_dress", phase 17c's loss_and_grad for
-the control path's, named with "_control"), the nvidia-smi line, and last
+the control path's, named with "_control", and 17f's captured tp step for
+the exchange, which is not a TPU kernel), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Needs one card; imports nothing of JAX.
 """
 import argparse
@@ -289,6 +304,8 @@ BASE_WIND = [0.04, 0.004, 0.04]
 # linspace(0.05, 0.9), and their depth (of the demo's 350 steps)
 SPHERE_BATCH = 16
 SPHERE_STEPS = 250
+# the depth of the sphere path's f64 card-vs-CPU reference
+SPHERE_REF_STEPS = 60
 # steps of the wind demo's episodes in the trainer phase (of its 200), and
 # of the sphere demo's in its fit (of its 350)
 TRAINER_STEPS = 30
@@ -1396,52 +1413,61 @@ def phase_sphere_profile(B, steps, card, top=8, device=None):
                            task.loss_fn(), card, top)
 
 
-def phase_sphere_reference(steps, devices=("cpu", "cuda")):
+def sphere_reference_side(dev, steps=SPHERE_REF_STEPS):
+    """One device's side of `phase_sphere_reference`: the f64 episode and
+    the batched loss and dL/dmu at mu 0.1 and 0.5."""
+    import torch
+    from diffcloth_tpu_torch.optim.helper import OptimizeHelper
+    from diffcloth_tpu_torch.tasks.setup import build_task
+    X = np.array([[0.1], [0.5]])
+    with demo_steps("sphere", steps):
+        task = build_task("sphere", dtype=torch.float64, device=dev)
+    helper = OptimizeHelper(task.sim, task.mask, task.loss_fn(),
+                            param_base=task.param_base)
+    st = task.sim.rollout(helper.stack_vecs(X)).steps
+    L, G = helper.batched_loss_and_grad(X)
+    return dict(x=st.x.cpu(), iters=st.iters.cpu(),
+                converged=st.converged.cpu(),
+                obstacle_contacts=st.obstacle_contacts.cpu(), L=L, G=G)
+
+
+def phase_sphere_reference(steps=SPHERE_REF_STEPS):
     """The sphere scene cut to `steps` steps, B = 2 (mu 0.1 and 0.5, on
     both sides of the ground truth's 0.3), f64: the episode and dL/dmu on
     the card against the same calls on the CPU (the CPU path is held to the
-    JAX package by the tests).  The cloth reaches the sphere after about 10
+    JAX package by the tests; its side from the process beside the card
+    phases, `cpu_side`).  The cloth reaches the sphere after about 10
     steps and lies on it from then on: at 60 steps the CPU gives 5477
     particle-steps in contact and dL/dmu -3.0e-5 and 6.3e-6, so every
     lane's dL/dmu must exceed 1e-6 in size before the two are compared
     (within 1e-6 of the largest entry)."""
     import torch
-    from diffcloth_tpu_torch.optim.helper import OptimizeHelper
-    from diffcloth_tpu_torch.tasks.setup import build_task
-
-    X = np.array([[0.1], [0.5]])
-    out = []
-    for dev in devices:
-        with demo_steps("sphere", steps):
-            task = build_task("sphere", dtype=torch.float64, device=dev)
-        helper = OptimizeHelper(task.sim, task.mask, task.loss_fn(),
-                                param_base=task.param_base)
-        st = task.sim.rollout(helper.stack_vecs(X)).steps
-        L, G = helper.batched_loss_and_grad(X)
-        out.append((st, L, G))
-    (sc, Lc, Gc), (sg, Lg, Gg) = out
-    err = float((sg.x.cpu() - sc.x).abs().max())
-    d_it = int((sg.iters.cpu() - sc.iters).abs().max())
+    c = cpu_side("sphere-reference", lambda: sphere_reference_side("cpu",
+                                                                   steps))
+    g = sphere_reference_side("cuda", steps)
+    Lc, Gc, Lg, Gg = c["L"], c["G"], g["L"], g["G"]
+    err = float((g["x"] - c["x"]).abs().max())
+    d_it = int((g["iters"] - c["iters"]).abs().max())
     g_rel = float(np.abs(Gg - Gc).max() / max(np.abs(Gc).max(), 1e-300))
-    if int(sc.obstacle_contacts.sum()) == 0 or not (np.abs(Gc) > 1e-6).all():
+    contacts = int(c["obstacle_contacts"].sum())
+    if contacts == 0 or not (np.abs(Gc) > 1e-6).all():
         raise AssertionError(f"the reference episode lacks obstacle contact "
-                             f"({int(sc.obstacle_contacts.sum())} "
-                             f"particle-steps) or a dL/dmu above 1e-6 in "
-                             f"every lane ({Gc[:, 0]})")
+                             f"({contacts} particle-steps) or a dL/dmu above "
+                             f"1e-6 in every lane ({Gc[:, 0]})")
     if (err > 1e-6 or d_it > 1 or g_rel > 1e-6
-            or not torch.equal(sg.converged.cpu(), sc.converged)
-            or not torch.equal(sg.obstacle_contacts.cpu(),
-                               sc.obstacle_contacts)):
+            or not torch.equal(g["converged"], c["converged"])
+            or not torch.equal(g["obstacle_contacts"],
+                               c["obstacle_contacts"])):
         raise AssertionError(f"card vs CPU: max |dx| {err}, iters differ "
                              f"by {d_it}, dL/dmu {Gg[:, 0]} vs {Gc[:, 0]}")
     if not np.allclose(Lg, Lc, rtol=1e-9, atol=0):
         raise AssertionError(f"card vs CPU loss {Lg} vs {Lc}")
     log(f"[sphere-reference] {steps} steps, f64, B=2 (mu 0.1, 0.5): card vs "
         f"CPU max |dx| {err:.3e} (tolerance 1e-6), iters within {d_it}, "
-        f"obstacle contacts equal ({int(sc.obstacle_contacts.sum())} "
-        f"particle-steps); loss {Lg.tolist()} vs {Lc.tolist()}; dL/dmu "
-        f"{Gg[:, 0].tolist()} vs {Gc[:, 0].tolist()}, max error / largest "
-        f"entry {g_rel:.1e} (tolerance 1e-6)")
+        f"obstacle contacts equal ({contacts} particle-steps); loss "
+        f"{Lg.tolist()} vs {Lc.tolist()}; dL/dmu {Gg[:, 0].tolist()} vs "
+        f"{Gc[:, 0].tolist()}, max error / largest entry {g_rel:.1e} "
+        f"(tolerance 1e-6)")
 
 
 def phase_sphere_fit(card, steps=None, device=None):
@@ -1492,7 +1518,7 @@ def run_sphere(card, timed):
     with timed("sphere profile"):
         phase_sphere_profile(SPHERE_BATCH, 10, card)
     with timed("sphere reference"):
-        phase_sphere_reference(60)
+        phase_sphere_reference()
     with timed("sphere fit"):
         phase_sphere_fit(card, SPHERE_FIT_STEPS)
 
@@ -2027,61 +2053,148 @@ def grads_rel(g_ref, g):
     return out
 
 
+def card_vs_cpu_side(make, dev):
+    """One device's side of `phase_card_vs_cpu`: make(dev)'s f64 episode
+    and value-and-grad, on the host."""
+    sim, p, loss_fn = make(dev)
+    t0 = time.perf_counter()
+    st = sim.rollout(p).steps
+    L, g = sim.episode_value_and_grad(loss_fn)(p)
+    return dict(x=st.x.cpu(), iters=st.iters.cpu(),
+                obstacle_contacts=st.obstacle_contacts.cpu(),
+                selfcol_pairs=st.selfcol_pairs.cpu(), L=L.cpu(),
+                g={k: v.cpu() for k, v in g.items()},
+                seconds=time.perf_counter() - t0)
+
+
+# the process beside the card phases that computes the CPU sides of the
+# f64 references (`--cpu-references`): (process, its directory) once
+# started; its share of the host's threads
+CPU_REFS = None
+CPU_REF_THREADS = max(1, (os.cpu_count() or 2) // 2)
+
+
+def cpu_reference_jobs(only):
+    """[(tag, compute)]: the CPU sides of the f64 references of the paths
+    in `only` (sphere, dress, multistage, obstacles), in the order the
+    card phases reach them."""
+    jobs = []
+    if "sphere" in only:
+        jobs.append(("sphere-reference",
+                     lambda: sphere_reference_side("cpu")))
+    if "dress" in only:
+        jobs.append(("dress-reference",
+                     lambda: card_vs_cpu_side(dress_reference_make, "cpu")))
+    if "multistage" in only:
+        jobs.append(("multistage-reference",
+                     lambda: card_vs_cpu_side(multistage_reference_make,
+                                              "cpu")))
+    if "obstacles" in only:
+        for name, make in obstacle_scenes():
+            jobs.append((f"obstacles-{name}",
+                         lambda make=make: card_vs_cpu_side(
+                             obstacle_reference_make(make), "cpu")))
+    return jobs
+
+
+def start_cpu_references(only, out):
+    """Start the process beside the card phases (`--cpu-references out`)."""
+    global CPU_REFS
+    log_path = os.path.join(out, "cpu_references.log")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-references", out,
+         "--only", ",".join(only)],
+        stdout=open(log_path, "w"), stderr=subprocess.STDOUT)
+    CPU_REFS = (proc, out, {tag for tag, _ in cpu_reference_jobs(only)})
+
+
+def cpu_references(out, only):
+    """The process beside the card phases: each job's CPU side saved to
+    out/<tag>.pt as it is done."""
+    import torch
+    torch.set_num_threads(CPU_REF_THREADS)
+    for tag, compute in cpu_reference_jobs(only):
+        t0 = time.perf_counter()
+        res = compute()
+        res["seconds"] = time.perf_counter() - t0
+        path = os.path.join(out, tag + ".pt")
+        torch.save(res, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        log(f"[cpu-references] {tag}: {res['seconds']:.1f} s")
+
+
+def cpu_side(tag, compute):
+    """The CPU side of reference `tag`: from the process beside the card
+    phases where it computes it (waiting for it; its failure fails the
+    phase), else compute() here."""
+    import torch
+    if CPU_REFS is None or tag not in CPU_REFS[2]:
+        return compute()
+    proc, out, _ = CPU_REFS
+    path = os.path.join(out, tag + ".pt")
+    while not os.path.exists(path):
+        if proc.poll() is not None and not os.path.exists(path):
+            with open(os.path.join(out, "cpu_references.log")) as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError(f"[{tag}] the CPU references' process "
+                                 f"ended (rc {proc.returncode}) without it:"
+                                 f"\n{tail}")
+        time.sleep(0.2)
+    return torch.load(path, weights_only=False)
+
+
 def phase_card_vs_cpu(tag, make, tol=1e-6):
     """f64 on the card against the CPU (the CPU path is held to the JAX
-    package by the tests): make(device) -> (sim, single params, loss_fn),
-    its scene's adjoint run to REF_ADJOINT_EPS (as phase 9's), so that the
-    two devices' fixed points stop at the same trip; the episode within
-    `tol`, iterations within one sweep, the loss to 1e-9 and each gradient
-    class within `tol` of its largest entry."""
+    package by the tests; its side from the process beside the card phases
+    where that computes it, `cpu_side`): make(device) -> (sim, single
+    params, loss_fn), its scene's adjoint run to REF_ADJOINT_EPS (as phase
+    9's), so that the two devices' fixed points stop at the same trip; the
+    episode within `tol`, iterations within one sweep, the loss to 1e-9 and
+    each gradient class within `tol` of its largest entry."""
     import torch
-    out = {}
-    for dev in ("cuda", "cpu"):
-        sim, p, loss_fn = make(dev)
-        t0 = time.perf_counter()
-        st = sim.rollout(p).steps
-        L, g = sim.episode_value_and_grad(loss_fn)(p)
-        out[dev] = (st, L.cpu(), {k: v.cpu() for k, v in g.items()})
+    c = cpu_side(tag, lambda: card_vs_cpu_side(make, "cpu"))
+    g = card_vs_cpu_side(make, "cuda")
+    for dev, side in (("cuda", g), ("cpu", c)):
         log(f"[{tag}] f64 episode and value-and-grad on {dev}: "
-            f"{time.perf_counter() - t0:.1f} s")
-    (sg, Lg, gg), (sc, Lc, gc) = out["cuda"], out["cpu"]
-    err = float((sg.x.cpu() - sc.x).abs().max())
-    d_it = int((sg.iters.cpu() - sc.iters).abs().max())
-    rel = grads_rel(gc, gg)
+            f"{side['seconds']:.1f} s")
+    err = float((g["x"] - c["x"]).abs().max())
+    d_it = int((g["iters"] - c["iters"]).abs().max())
+    rel = grads_rel(c["g"], g["g"])
     if (err > tol or d_it > 1 or max(rel.values()) > tol
-            or not torch.allclose(Lg, Lc, rtol=1e-9, atol=0)
-            or not torch.equal(sg.obstacle_contacts.cpu(),
-                               sc.obstacle_contacts)):
+            or not torch.allclose(g["L"], c["L"], rtol=1e-9, atol=0)
+            or not torch.equal(g["obstacle_contacts"],
+                               c["obstacle_contacts"])):
         raise AssertionError(f"[{tag}] card vs CPU: max |dx| {err}, iters "
-                             f"within {d_it}, loss {Lg} vs {Lc}, gradient "
-                             f"{rel}")
+                             f"within {d_it}, loss {g['L']} vs {c['L']}, "
+                             f"gradient {rel}")
     log(f"[{tag}] f64 card vs CPU: max |dx| {err:.3e} (tolerance {tol}), "
         f"iters within {d_it}, obstacle contacts equal "
-        f"({int(sc.obstacle_contacts.sum())} particle-steps), self-contact "
-        f"pairs {int(sc.selfcol_pairs.sum())}; loss {float(Lg):.10e}; "
+        f"({int(c['obstacle_contacts'].sum())} particle-steps), self-contact "
+        f"pairs {int(c['selfcol_pairs'].sum())}; loss {float(g['L']):.10e}; "
         f"gradient max error / largest entry per class (tolerance {tol}): "
         + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
-    return sc
+    return c
+
+
+def dress_reference_make(dev):
+    """12e's scene: the dress stand-in in f64, DRESS_REF_STEPS steps,
+    started folded half over half (so that friction acts)."""
+    import torch
+    task = dress_task(DRESS_REF_STEPS, torch.float64, dev,
+                      backward_convergence_thresh=REF_ADJOINT_EPS)
+    sim = task.sim
+    if large_modes(sim) != ("dense", "sparse", "kernel"):
+        raise AssertionError(f"{dev}: {large_modes(sim)}")
+    x0 = torch.as_tensor(initial_states(sim, 1)[0], dtype=torch.float64,
+                         device=sim.device)
+    return sim, task.param_base.replace(x0=x0), task.loss_fn()
 
 
 def phase_dress_reference():
-    """12e: the dress stand-in in f64, DRESS_REF_STEPS steps, started folded
-    half over half (so that friction acts), on the card against the CPU:
-    the episode and the dress loss's gradient."""
-    import torch
-
-    def make(dev):
-        task = dress_task(DRESS_REF_STEPS, torch.float64, dev,
-                          backward_convergence_thresh=REF_ADJOINT_EPS)
-        sim = task.sim
-        if large_modes(sim) != ("dense", "sparse", "kernel"):
-            raise AssertionError(f"{dev}: {large_modes(sim)}")
-        x0 = torch.as_tensor(initial_states(sim, 1)[0], dtype=torch.float64,
-                             device=sim.device)
-        return sim, task.param_base.replace(x0=x0), task.loss_fn()
-
-    sc = phase_card_vs_cpu("dress-reference", make)
-    if int(sc.selfcol_pairs.sum()) == 0:
+    """12e: the dress stand-in in f64 on the card against the CPU: the
+    episode and the dress loss's gradient."""
+    c = phase_card_vs_cpu("dress-reference", dress_reference_make)
+    if int(c["selfcol_pairs"].sum()) == 0:
         raise AssertionError("the dress reference has no self-contact")
 
 
@@ -2224,18 +2337,20 @@ def phase_multistage(card):
         f"{bst['lane_trips'] / max(bst['lane_steps'], 1):.2f} trips per step, "
         f"{bst['fallback_lanes']:.0f} GMRES fallbacks; launches {launches}")
 
-    def make(dev):
-        # from the flat rest shape: the stage switch alone, without the
-        # self-contact whose f32 sweep inside f64 rounds a few slots apart
-        # on the two devices
-        s = multistage_sim(torch.float64, dev, MULTI_REF_STEPS,
-                           backward_convergence_thresh=REF_ADJOINT_EPS)
-        p = folded_params(s)
-        return s, p.replace(x0=s.scene_dev.x_rest.clone(), wind=torch.tensor(
-            [0.5, 0.05, 0.5], dtype=torch.float64,
-            device=s.device)), squared_positions
+    phase_card_vs_cpu("multistage-reference", multistage_reference_make)
 
-    phase_card_vs_cpu("multistage-reference", make)
+
+def multistage_reference_make(dev):
+    """13's f64 reference: from the flat rest shape, the stage switch
+    alone, without the self-contact whose f32 sweep inside f64 rounds a
+    few slots apart on the two devices."""
+    import torch
+    s = multistage_sim(torch.float64, dev, MULTI_REF_STEPS,
+                       backward_convergence_thresh=REF_ADJOINT_EPS)
+    p = folded_params(s)
+    return s, p.replace(x0=s.scene_dev.x_rest.clone(), wind=torch.tensor(
+        [0.5, 0.05, 0.5], dtype=torch.float64,
+        device=s.device)), squared_positions
 
 
 def sock_standin():
@@ -2388,11 +2503,15 @@ def phase_obstacles(card):
             f"{100 * share:.1f} % of the steps (max {int(contact.max())} "
             f"particles), self-contact pairs "
             f"{int(st.selfcol_pairs.sum())}; launches {launches}")
-        phase_card_vs_cpu(
-            f"obstacles-{name}",
-            lambda dev, make=make: make(torch.float64, dev,
-                                        OBSTACLE_REF_STEPS)
-            + (squared_positions,))
+        phase_card_vs_cpu(f"obstacles-{name}", obstacle_reference_make(make))
+
+
+def obstacle_reference_make(make):
+    """15's f64 reference of one obstacle scene: make(dev) for
+    phase_card_vs_cpu."""
+    import torch
+    return lambda dev: make(torch.float64, dev, OBSTACLE_REF_STEPS) + (
+        squared_positions,)
 
 
 def precision_report(tag, g32, g64, fd):
@@ -2980,17 +3099,20 @@ def phase_control_parallel(card):
     the dp = 1 `batched_value_and_grad` equal to the plain batched
     value-and-grad averaged over the batch, exactly; the tp = 1
     `make_tp_solve` equal to the dense P^{-1} product, exactly; a step
-    given the tp solve runs uncaptured (any `solve_fn` does), with losses
-    equal to the plain sim's, and `cuda_graphs=True` with it raises."""
-    import socket
+    given that tp solve runs captured by default (its gather is the
+    exchange kernels), equal bit for bit to `cuda_graphs=False` (losses,
+    gradients, the kernels' launch counts) and its losses to the plain
+    sim's, the kernels' own counts those the programs predict; another
+    `solve_fn` with `cuda_graphs=True` raises.  The exchange kernels
+    against their plain version (`exchange_entry`).  Then two processes
+    sharing the card (`exchange_pair`).  Returns the JSON line's entry of
+    the exchange, its launches those of the captured tp step's run."""
     import torch
     import torch.distributed as dist
     from diffcloth_tpu_torch.core import dense_ops as dn
     from diffcloth_tpu_torch.parallel import mesh as pmesh
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    pmesh.initialize_distributed("nccl", f"tcp://localhost:{port}", 1, 0)
+    pmesh.initialize_distributed("nccl", f"tcp://localhost:{free_port()}",
+                                 1, 0)
     try:
         mesh = pmesh.make_mesh(1, 1)
         sim = flagship(torch.float32, "cuda", PARALLEL_STEPS)
@@ -3018,34 +3140,248 @@ def phase_control_parallel(card):
             f"the plain one exactly (losses {L.tolist()}, |dL/dwind| max "
             f"{float(g.wind.abs().max()):.4e}); the tp = 1 row-sharded solve "
             f"equals the dense P^-1 product exactly")
-        sim_tp = flagship(torch.float32, "cuda", PARALLEL_STEPS,
-                          solve_fn=pmesh.make_tp_solve(mesh.tp_group))
-        fn = pmesh.batched_value_and_grad(sim_tp, loss_fn, mesh,
-                                          reduce_grads=False,
-                                          p_inv_spec="tp")
-        L_tp, g_tp = fn(params, p_inv)
-        launches = sum(p["launches"] for gs in sim_tp.graphs
-                       for p in gs.summary().values())
-        if sim_tp.cuda_graphs or launches or not torch.equal(L_tp, L_ref) \
-                or not bool(torch.isfinite(g_tp.wind).all()):
+
+        def tp_step(cuda_graphs):
+            sim_tp = flagship(torch.float32, "cuda", PARALLEL_STEPS,
+                              solve_fn=pmesh.make_tp_solve(mesh.tp_group),
+                              cuda_graphs=cuda_graphs)
+            fn = pmesh.batched_value_and_grad(sim_tp, loss_fn, mesh,
+                                              reduce_grads=False,
+                                              p_inv_spec="tp")
+            # captured: the warm-up, the capture, then a launch
+            for _ in range(3 if sim_tp.cuda_graphs else 1):
+                reset_graphs(sim_tp)
+                torch.cuda.synchronize()
+                zero_counters()
+                out = fn(params, p_inv)
+                torch.cuda.synchronize()
+            return sim_tp, out, read_counters()
+
+        sim_c, (L_c, g_c), launches = tp_step(None)
+        if not sim_c.cuda_graphs or not graph_launches(sim_c)[0] \
+                or not launches["peer_exchange"]:
             raise AssertionError(f"[control-parallel] the tp step: captured "
-                                 f"{sim_tp.cuda_graphs}, {launches} program "
-                                 f"launches, losses {L_tp} vs plain {L_ref}")
-        del sim_tp, fn
+                                 f"{sim_c.cuda_graphs}, "
+                                 f"{graph_launches(sim_c)[0]} program "
+                                 f"launches, launches {launches}")
+        check_graph_counts("control-parallel", sim_c, launches, tp=True)
+        line = graph_line(sim_c)
+        del sim_c
+        sim_u, (L_u, g_u), launches_u = tp_step(False)
+        del sim_u
+        _equal_outputs("control-parallel", dict(g_u.items(), losses=L_u),
+                       dict(g_c.items(), losses=L_c))
+        if launches_u != launches or not torch.equal(L_c, L_ref):
+            raise AssertionError(f"[control-parallel] the tp step: launches "
+                                 f"captured {launches}, uncaptured "
+                                 f"{launches_u}; losses {L_c} vs plain "
+                                 f"{L_ref}")
         try:
             flagship(torch.float32, "cuda", PARALLEL_STEPS,
-                     solve_fn=pmesh.make_tp_solve(mesh.tp_group),
-                     cuda_graphs=True)
+                     solve_fn=lambda p, rhs: dn.mm(p, rhs), cuda_graphs=True)
         except ValueError as e:
             refused = str(e)
         else:
             raise AssertionError("[control-parallel] cuda_graphs=True with "
-                                 "the tp solve did not raise")
+                                 "another solve_fn did not raise")
         log(f"[control-parallel] tp = 1 step on NCCL ({PARALLEL_STEPS} "
-            f"steps, B = 2): uncaptured by default, losses equal the plain "
-            f"sim's bit for bit; cuda_graphs=True raises: {refused}")
+            f"steps, B = 2): captured by default, equal bit for bit to "
+            f"cuda_graphs=False (losses, gradients, launches {launches}) and "
+            f"its losses to the plain sim's; {line}; another solve_fn with "
+            f"cuda_graphs=True raises: {refused}")
+        entry = exchange_entry(mesh, launches["peer_exchange"])
     finally:
         dist.destroy_process_group()
+    exchange_pair(card, L_ref)
+    return entry
+
+
+def exchange_entry(mesh, launches):
+    """The exchange kernels on one rank (tp = 1: the block copied into the
+    result) against their plain version, NCCL's all_gather_into_tensor in
+    the tp solve's layout, exactly, at the flagship's block (B = 32, n =
+    1024) and the dress's (B = 2, n = 7056); device times (torch.profiler)
+    beside the plain version's, NCCL's one call over the same bytes (the
+    library call) and the byte bound (the block read once, the result
+    written once).  Returns the flagship's entry."""
+    import torch
+    import torch.distributed as dist
+    from diffcloth_tpu_torch.parallel import exchange
+    gather = exchange.RowGather(mesh.tp_group)
+    out = []
+    for tag, B, n in (("flagship", BATCH, 1024), ("dress", 2, 7056)):
+        # the solve's block: the transpose of a contiguous (n, B, 3)
+        x = torch.randn((n, B, 3), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+        flat, x = x.reshape(-1), x.transpose(0, 1)
+        y = exchange.all_gather_rows(x, gather)
+        ref = exchange.all_gather_rows_plain(x, mesh.tp_group)
+        err = float((y - ref).abs().max())
+        if not torch.equal(y, ref):
+            raise AssertionError(f"[exchange] {tag}: kernel against NCCL "
+                                 f"differs by {err}")
+        buf = torch.empty_like(flat)
+        fns = (lambda: exchange.all_gather_rows(x, gather),
+               lambda: exchange.all_gather_rows_plain(x, mesh.tp_group),
+               lambda: dist.all_gather_into_tensor(buf, flat,
+                                                   group=mesh.tp_group))
+        # device ms (torch.profiler) and CUDA-event ms of back-to-back
+        # calls (the host's rate, where it is slower)
+        ms, plain_ms, lib_ms = (device_ms(f, 200, 10) for f in fns)
+        ev = [time_cuda(f, 200, 10) for f in fns]
+        bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        log(f"[exchange] {tag} block (B = {B}, n = {n}) on one rank: "
+            f"kernel == NCCL's all-gather exactly; device ms (CUDA events "
+            f"of back-to-back calls): kernel {ms:.4f} ({ev[0]:.4f}), plain "
+            f"(NCCL in the solve's layout) {plain_ms:.4f} ({ev[1]:.4f}), "
+            f"NCCL all_gather_into_tensor over the same bytes {lib_ms:.4f} "
+            f"({ev[2]:.4f}); bound {bound:.5f} ms (bytes)")
+        out.append(dict(name="peer_exchange" + ("" if tag == "flagship"
+                                                else "_dress"),
+                        route="cuda",
+                        source="diffcloth_tpu_torch/csrc/peer_exchange.cu",
+                        replaces="diffcloth_tpu/parallel/mesh.py:55 "
+                                 "(jax.lax.all_gather in make_tp_solve; no "
+                                 "Pallas kernel)",
+                        launches=launches, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                        library_ms=lib_ms))
+    return out[0]
+
+
+EXCHANGE_PAIR_S = 300
+
+
+def exchange_pair(card, L_ref):
+    """17f's two ranks on the one card (gloo for the handles: NCCL refuses
+    two ranks on one card; CUDA IPC maps within it): each its own process
+    (`--exchange-rank`), tp = 2.  Their exchange in a WHILE body, 100
+    rounds, equal to the expected blocks; their flagship tp step captured
+    against uncaptured bit for bit, the ranks equal to each other, the
+    losses within 1e-4 of the plain step's (the row-block product rounds
+    otherwise than the dense one).  Within EXCHANGE_PAIR_S."""
+    import tempfile
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
+             "--exchange-rank", str(r), "--exchange-port", str(port),
+             "--exchange-out", tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        t0 = time.perf_counter()
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=max(
+                    EXCHANGE_PAIR_S - (time.perf_counter() - t0), 1))[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise AssertionError(f"[exchange-pair] the two ranks ran "
+                                     f"past {EXCHANGE_PAIR_S} s")
+        if any(p.returncode for p in procs):
+            raise AssertionError("[exchange-pair] a rank failed:\n"
+                                 + "\n".join(x[-3000:] for x in logs))
+        res = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+               for r in range(2)]
+        info = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                for r in range(2)]
+    for k in res[0]:
+        if not np.array_equal(res[0][k], res[1][k]):
+            raise AssertionError(f"[exchange-pair] the ranks differ in {k}")
+    for k in [k[2:] for k in res[0] if k.startswith("c_")]:
+        if not np.array_equal(res[0]["c_" + k], res[0]["u_" + k]):
+            raise AssertionError(f"[exchange-pair] captured against "
+                                 f"uncaptured differ in {k}")
+    if info[0]["body_runs"] != info[1]["body_runs"] \
+            or not all(i["equal"] and i["launches"] for i in info):
+        raise AssertionError(f"[exchange-pair] {info}")
+    np.testing.assert_allclose(res[0]["c_losses"], L_ref.cpu().numpy(),
+                               rtol=1e-4)
+    log(f"[exchange-pair] two processes on {card}, tp = 2: the exchange "
+        f"in a WHILE body, 100 rounds, equal to the expected blocks; the "
+        f"flagship's tp step ({PARALLEL_STEPS} steps, B = 2) captured == "
+        f"uncaptured bit for bit, the ranks equal, {info[0]['launches']} "
+        f"program launches, body runs {info[0]['body_runs']}; losses "
+        f"{res[0]['c_losses'].tolist()} against the plain step's "
+        f"{L_ref.tolist()}; {time.perf_counter() - t0:.1f} s")
+
+
+def exchange_rank(rank, port, out):
+    """One rank of `exchange_pair` (a process of its own on card 0)."""
+    import torch
+    import torch.distributed as dist
+    from diffcloth_tpu_torch.core import graphs as gr
+    from diffcloth_tpu_torch.parallel import exchange
+    from diffcloth_tpu_torch.parallel import mesh as pmesh
+    torch.cuda.set_device(0)
+    pmesh.initialize_distributed("gloo", f"tcp://localhost:{port}", 2, rank)
+    try:
+        mesh = pmesh.make_mesh(1, 2)
+        gather = exchange.RowGather(mesh.tp_group)
+        B, m = BATCH, 512
+        blocks = [torch.randn((B, m, 3), device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(r))
+                  for r in range(2)]
+        local = blocks[rank].clone()
+        st = {"go": torch.ones(1, dtype=torch.bool, device="cuda"),
+              "out": torch.empty((B, 2 * m, 3), device="cuda")}
+
+        def block(st, k):
+            for _ in range(k):
+                local.add_(1.0)
+                st["out"].copy_(gather(local))
+
+        bg = gr.BlockGraphs(True)
+        prog = [gr.Loop(block, 100, 1, "exchange")]
+        bg.program("x", prog, st)
+        local.copy_(blocks[rank])
+        bg.program("x", prog, st)
+        want = []
+        for b in blocks:
+            b = b.clone()
+            for _ in range(100):
+                b.add_(1.0)
+            want.append(b)
+        torch.cuda.synchronize()
+        info = {"equal": bool(torch.equal(st["out"], torch.cat(want, 1)))}
+        sim = flagship(torch.float32, "cuda", PARALLEL_STEPS)
+        params = episode_params(sim, 2)
+        loss_fn = base_wind_target(sim, params)
+        p_inv = sim.p_inv(params)
+        arrays = {}
+        for tag, g in (("c", None), ("u", False)):
+            sim_tp = flagship(torch.float32, "cuda", PARALLEL_STEPS,
+                              solve_fn=pmesh.make_tp_solve(mesh.tp_group),
+                              cuda_graphs=g)
+            fn = pmesh.batched_value_and_grad(sim_tp, loss_fn, mesh,
+                                              reduce_grads=False,
+                                              p_inv_spec="tp")
+            for _ in range(3 if sim_tp.cuda_graphs else 1):
+                reset_graphs(sim_tp)
+                L, grads = fn(params, p_inv)
+            torch.cuda.synchronize()
+            arrays[f"{tag}_losses"] = L.cpu().numpy()
+            arrays.update({f"{tag}_{k}": v.cpu().numpy()
+                           for k, v in grads.items()})
+            if g is None:
+                info["launches"] = graph_launches(sim_tp)[0]
+                info["body_runs"] = {str(k): v[0] for k, v in
+                                     graph_blocks(sim_tp).items()}
+            del sim_tp, fn
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(info, fh)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def run_control(card, timed):
@@ -3078,10 +3414,10 @@ def run_control(card, timed):
     with timed("control gmres"):
         phase_control_gmres(card)
     with timed("control parallel"):
-        phase_control_parallel(card)
+        exchange = phase_control_parallel(card)
     for e in entries:
         e["launches"] = launches[e["name"][:-len("_control")]]
-    return entries
+    return entries + [exchange]
 
 
 # ---------------------------------------------------------------------------
@@ -3130,17 +3466,21 @@ def reset_graphs(sim):
         g.reset()
 
 
-def check_graph_counts(tag, sim, launches, adjoint=None):
+def check_graph_counts(tag, sim, launches, adjoint=None, tp=False):
     """The programs' bookkeeping against the counters: each PD body holds
     one forward sweep per PD sweep and each trip body one forward and one
     backward sweep per trip (kernels per body run equal to its length);
     in a run without warm-ups, the launches' straight kernels plus the
     bodies' device-counted runs x their kernels are the counters, and the
-    trip bodies' runs x length the adjoint's trips (adjoint: its trips)."""
+    trip bodies' runs x length the adjoint's trips (adjoint: its trips);
+    tp: the step's solve is the tensor-parallel one, whose exchange runs
+    once per PD sweep and per trip too."""
     rows = graph_blocks(sim)
     for (name, k), (runs, _, kern) in rows.items():
         want = {"pd": {"friction_fwd": k},
                 "trips": {"friction_fwd": k, "friction_bwd": k}}.get(name)
+        if want is not None and tp:
+            want = dict(want, peer_exchange=k)
         got = {n: c for n, c in kern.items() if not n.endswith("_global")}
         if want is not None and got != want:
             raise AssertionError(f"[{tag}] {name}[{k}]: kernels per body "
@@ -3681,6 +4021,12 @@ def main():
                     help=argparse.SUPPRESS)   # phase 19's profiling process
     ap.add_argument("--profile-control", action="store_true",
                     help=argparse.SUPPRESS)   # 17g's profiling process
+    ap.add_argument("--cpu-references", default=None,
+                    help=argparse.SUPPRESS)   # the process beside
+    ap.add_argument("--exchange-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # 17f's two-rank processes
+    ap.add_argument("--exchange-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--exchange-out", help=argparse.SUPPRESS)
     ap.add_argument("--only", default=",".join(PATHS),
                     help="comma-separated paths to run while iterating "
                          f"(default, the acceptance run: all of "
@@ -3702,6 +4048,13 @@ def main():
     if args.profile_control:
         profile_control()
         return 0
+    if args.cpu_references:
+        cpu_references(args.cpu_references, only)
+        return 0
+    if args.exchange_rank is not None:
+        exchange_rank(args.exchange_rank, args.exchange_port,
+                      args.exchange_out)
+        return 0
 
     card = nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch "
@@ -3715,6 +4068,29 @@ def main():
     log(f"[build] {len(cuda_build.KERNELS)} kernels ready in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    import tempfile
+    refs = tempfile.TemporaryDirectory()
+    start_cpu_references(only, refs.name)
+    try:
+        kernels = run_paths(only, args, card)
+    finally:
+        CPU_REFS[0].kill()
+        CPU_REFS[0].wait()
+        refs.cleanup()
+    torch.cuda.empty_cache()
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_paths(only, args, card):
+    """The phases of the paths in `only`; returns the JSON line's kernel
+    entries."""
+    import torch
     timed = Timer()
     kernels = []
     if "flagship" in only:
@@ -3776,15 +4152,8 @@ def main():
             phase_graphs(card)
     if "chunked" in only:
         phase_chunked(card, timed)
-    torch.cuda.empty_cache()
     log(f"[time] all phases {timed.total:.1f} s")
-
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

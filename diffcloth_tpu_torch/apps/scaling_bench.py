@@ -6,7 +6,10 @@ mesh).  It reports aggregate PD steps/s of a batch of forward episodes at
 one rank and at all ranks (dp), and of the distributed training step
 (each rank's batched episode value-and-grad, the gradient averaged over
 dp, P^{-1} row-sharded over tp when --tp > 1: parallel/mesh.py), with
-the scaling efficiencies:
+the scaling efficiencies.  The training row runs as the sims default (on
+cards each step's programs captured, the tp solve's gather inside them)
+and with `cuda_graphs=False`, in turns (captured, uncaptured, uncaptured,
+captured), and reports both rates; the two must agree bit for bit:
 
     python -m diffcloth_tpu_torch.apps.scaling_bench --ranks 4 --tp 2
     python -m diffcloth_tpu_torch.apps.scaling_bench --cpu --ranks 4
@@ -44,11 +47,13 @@ from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
 BASE_WIND = np.array([0.04, 0.004, 0.04])
 
 
-def build_sim(grid: int, steps: int, device, solve_fn=None) -> ClothSim:
+def build_sim(grid: int, steps: int, device, solve_fn=None,
+              cuda_graphs=None) -> ClothSim:
     cfg = TSHIRT_GRID_STANDIN
     cfg = dataclasses.replace(cfg, step_num=steps, fabric=dataclasses.replace(
         cfg.fabric, grid_num_x=grid, grid_num_y=grid))
-    return ClothSim(gb.build_scene(cfg), device=device, solve_fn=solve_fn)
+    return ClothSim(gb.build_scene(cfg), device=device, solve_fn=solve_fn,
+                    cuda_graphs=cuda_graphs)
 
 
 def population(sim: ClothSim, batch: int, seed: int):
@@ -117,22 +122,42 @@ def run_rank(rank: int, world: int, args, init_method: str) -> None:
         base, params = population(sim, bpr, 1)
         vg = sim.episode_value_and_grad(loss_fn)
         tr_one = _best_wall(lambda: vg(params), device, args.repeats)
+    # the dp x tp objective as the sims default (on cards: each step's
+    # programs captured, the tp solve's gather inside them) and with
+    # cuda_graphs=False, timed in turns; their results must agree bit for
+    # bit
     mesh = pmesh.make_mesh(tp=args.tp)
-    sim_tp = build_sim(args.grid, steps, device,
-                       pmesh.make_tp_solve(mesh.tp_group)
-                       if args.tp > 1 else None)
-    base, params = population(sim_tp, bpr * mesh.dp, 1)
-    fn = pmesh.batched_value_and_grad(sim_tp, loss_fn, mesh,
-                                      p_inv_spec="tp" if args.tp > 1
-                                      else None)
-    p_inv = sim_tp.p_inv(base)
-    L, g = fn(params, p_inv)
-    if not (bool(torch.isfinite(L).all())
-            and bool(torch.isfinite(g.wind).all())):
-        raise AssertionError("non-finite loss or gradient")
+    objectives, results = [], []
+    for graphs in (None, False):
+        sim_tp = build_sim(args.grid, steps, device,
+                           pmesh.make_tp_solve(mesh.tp_group)
+                           if args.tp > 1 else None, graphs)
+        base, params = population(sim_tp, bpr * mesh.dp, 1)
+        fn = pmesh.batched_value_and_grad(sim_tp, loss_fn, mesh,
+                                          p_inv_spec="tp" if args.tp > 1
+                                          else None)
+        p_inv = sim_tp.p_inv(base)
+        L, g = fn(params, p_inv)
+        if not (bool(torch.isfinite(L).all())
+                and bool(torch.isfinite(g.wind).all())):
+            raise AssertionError("non-finite loss or gradient")
+        objectives.append((sim_tp.cuda_graphs,
+                           lambda fn=fn, params=params, p_inv=p_inv:
+                           fn(params, p_inv)))
     dist.barrier()
-    tr_all = _best_wall(lambda: fn(params, p_inv), device, args.repeats,
-                        world_group)
+    walls = {False: [], True: []}
+    for captured, run in objectives + objectives[::-1]:
+        results.append(run())
+        walls[captured].append(_best_wall(run, device, args.repeats,
+                                          world_group))
+    for L, g in results[1:]:
+        if not (torch.equal(L, results[0][0])
+                and all(torch.equal(a, b) for (_, a), (_, b) in
+                        zip(g.items(), results[0][1].items()))):
+            raise AssertionError("the objective captured and uncaptured "
+                                 "differ")
+    captured = objectives[0][0]
+    tr_all = min(walls[captured])
     if rank == 0:
         fwd_1, fwd_n = bpr * steps / one, bpr * world * steps / all_
         tr_1, tr_n = bpr * steps / tr_one, bpr * mesh.dp * steps / tr_all
@@ -147,7 +172,10 @@ def run_rank(rank: int, world: int, args, init_method: str) -> None:
             "forward_efficiency": fwd_n / (fwd_1 * world),
             "train_steps_per_sec_1rank": tr_1,
             "train_steps_per_sec_nrank": tr_n,
-            "train_efficiency": tr_n * args.tp / (tr_1 * world)}
+            "train_efficiency": tr_n * args.tp / (tr_1 * world),
+            "train_captured": captured,
+            "train_steps_per_sec_nrank_uncaptured":
+                bpr * mesh.dp * steps / min(walls[False])}
         line = json.dumps(result)
         print(line, flush=True)
         if args.out:

@@ -11,9 +11,10 @@ masked while loop, run in blocks of `every` iterations while any episode
 is still active (`st["go"]`, a (B,) bool tensor the blocks keep up to
 date).  `BlockGraphs.program` runs such a list:
 
-  * uncaptured (the CPU, `cuda_graphs=False`, a step given `solve_fn`): the
-    segments are called in turn, and the host reads `st["go"].any()` before
-    every block of a loop (`run_blocks`);
+  * uncaptured (the CPU, `cuda_graphs=False`, a step given a `solve_fn`
+    other than the tensor-parallel one): the segments are called in turn,
+    and the host reads `st["go"].any()` before every block of a loop
+    (`run_blocks`);
   * captured (a CUDA device): the first run of a program is its warm-up
     (uncaptured, on the capture stream: it loads every kernel library and
     allocates cuBLAS's workspace); the second captures each straight
@@ -39,9 +40,11 @@ launch and, per loop, its body runs and kernels per run: what the
 launches x kernels per launch plus the runs x kernels per run predict, a
 cross-check of the kernels' own counts.
 
-What stays uncaptured: a step given a `solve_fn` (the caller's solve may
-hold collectives or host work), and what lies between steps (the episode's
-freeze select and records, the controller's MLP).
+What stays uncaptured: a step given a `solve_fn` other than the
+tensor-parallel solve (the caller's solve may hold collectives or host
+work; a WHILE body holding NCCL's all-gather fails to instantiate, so
+the tp solve gathers with `parallel/exchange.py`'s kernels), and what
+lies between steps (the episode's freeze select and records).
 """
 from __future__ import annotations
 
@@ -61,18 +64,23 @@ from diffcloth_tpu_torch.core import launch_count as lc
 
 def resolve(cuda_graphs, device: torch.device, solve_fn=None) -> bool:
     """Whether a step runs captured: `cuda_graphs` None means yes on a CUDA
-    device unless the step is given a `solve_fn`; True asks for graphs and
-    raises where there can be none (the CPU, a `solve_fn`); False runs the
-    same segments uncaptured (the counterpart of `jax.disable_jit()`)."""
+    device unless the step is given a `solve_fn` other than the
+    tensor-parallel solve (`parallel/mesh.make_tp_solve`'s, marked
+    `capturable`: its all-gather is a kernel pair that runs inside a
+    capture); True asks for graphs and raises where there can be none (the
+    CPU, another `solve_fn`); False runs the same segments uncaptured (the
+    counterpart of `jax.disable_jit()`)."""
+    capturable = solve_fn is None or getattr(solve_fn, "capturable", False)
     if cuda_graphs is None:
-        return device.type == "cuda" and solve_fn is None
+        return device.type == "cuda" and capturable
     if cuda_graphs and device.type != "cuda":
         raise ValueError(f"cuda_graphs=True needs a CUDA device, not "
                          f"{device}")
-    if cuda_graphs and solve_fn is not None:
-        raise ValueError("cuda_graphs=True with a solve_fn: a step given "
-                         "solve_fn runs uncaptured (the caller's solve may "
-                         "hold collectives or host work)")
+    if cuda_graphs and not capturable:
+        raise ValueError("cuda_graphs=True with a solve_fn: a step given a "
+                         "solve_fn other than the tensor-parallel solve runs "
+                         "uncaptured (the caller's solve may hold "
+                         "collectives or host work)")
     return bool(cuda_graphs)
 
 

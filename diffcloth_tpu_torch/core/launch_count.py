@@ -21,7 +21,8 @@ import torch
 
 # one count per kernel and route; `named` reports them
 SLOTS = ("friction_fwd", "friction_fwd_global", "friction_bwd",
-         "friction_bwd_global", "selfcol_detect", "hessenberg_lstsq")
+         "friction_bwd_global", "selfcol_detect", "hessenberg_lstsq",
+         "peer_exchange")
 _INDEX = {k: i for i, k in enumerate(SLOTS)}
 _counts = {}      # device index -> (len(SLOTS),) int64 tensor
 _zero = [0] * len(SLOTS)   # the device values at the last zero()

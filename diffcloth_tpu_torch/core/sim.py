@@ -170,8 +170,9 @@ class ClothSim:
     `cuda_graphs`, the counterpart of the JAX package's jit: None runs each
     step's forward and adjoint as captured device programs whose loops end
     on the device (`core/graphs.py`) on a CUDA device, and uncaptured on
-    the CPU or with a `solve_fn`; True raises on the CPU or with a
-    `solve_fn`; False runs the same segments uncaptured on the card
+    the CPU or with a `solve_fn` other than the tensor-parallel one; True
+    raises on the CPU or with such a `solve_fn`; False runs the same
+    segments uncaptured on the card
     (`jax.disable_jit()`).  The choice is `self.cuda_graphs`; each stage's
     step keeps its programs (`self.graphs`), dropped with the sim.
     Not ported, and raising: the gather/scatter operator path
@@ -653,14 +654,17 @@ class ClothSim:
         params with a leading batch dim ((B,) losses, per-episode
         gradients, one shared P^{-1}).  A scene of several stages runs
         `episode_value_and_grad`.  `.split` holds the forward (with the
-        loss) and backward wall seconds of the last call."""
+        loss) and backward wall seconds of the last call.  `p_inv` given:
+        that in place of `p_inv(params)` (a tensor-parallel rank's row block
+        of it)."""
         if self.n_stages > 1:
             return self.episode_value_and_grad(loss_fn)
         chunk = self._chunk_size(chunk)
 
-        def value_and_grad(params: SimParams):
+        def value_and_grad(params: SimParams, p_inv=None):
             _check_batched(params, batched)
-            p_inv = self.p_inv(params)
+            if p_inv is None:
+                p_inv = self.p_inv(params)
             leaves = {k: v.detach().clone().requires_grad_(True)
                       for k, v in params.items()}
             p = SimParams(**leaves)

@@ -74,7 +74,8 @@ shorter), and the host reads whether any episode is still active between
 blocks; the masked extra iterations are no-ops.  On a CUDA device the
 blocks run as CUDA graphs, captured once and replayed (`graphs.py`, which
 also lists what stays uncaptured); on the CPU, with `cuda_graphs=False` or
-with a `solve_fn`, the same block functions are called directly.  A CG
+with a `solve_fn` other than the tensor-parallel one, the same block
+functions are called directly.  A CG
 solve inside a captured PD sweep or fixed-point trip runs to its cap
 (`cg_max_iters`) without host reads, its extra iterations masked; the
 iterates are the same.
@@ -399,9 +400,10 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     `step.bwd_stats` counts the adjoint's work (into `stats` when given,
     shared by the steps of a scene's stages).  `cuda_graphs`
     (`graphs.resolve`): None runs the step's forward and its adjoint as
-    captured device programs on a CUDA scene without `solve_fn` and
-    uncaptured otherwise, True insists on them, False runs the same
-    segments uncaptured; `step.graphs` holds the step's programs.
+    captured device programs on a CUDA scene without `solve_fn` or with
+    the tensor-parallel one and uncaptured otherwise, True insists on
+    them, False runs the same segments uncaptured; `step.graphs` holds
+    the step's programs.
 
     The forward is the program [prologue, the PD loop, epilogue]: the
     prologue detects the step's contacts (obstacles at the step's time t,

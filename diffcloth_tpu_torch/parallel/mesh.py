@@ -11,9 +11,12 @@ its devices (rank = d * tp + t):
     package's `pmean` over dp), the distributed L-BFGS-B objective;
   * tp: P^{-1}'s rows shard over the tp ranks of a dp group; each
     multiplies its (n/tp, n) block and the (n, 3) solution is
-    all-gathered.  Everything else (projections, friction, the adjoint's
-    host decisions) runs replicated on the tp ranks, which compute the same
-    numbers, so they take the same branches.
+    all-gathered (`exchange.all_gather_rows`: on the card a peer-to-peer
+    copy that runs inside the step's captured programs, as the JAX
+    package's all_gather runs inside its jitted while_loops).  Everything
+    else (projections, friction, the loops' exits) runs replicated on the
+    tp ranks, which compute the same bits from the same gathered solution,
+    so their loops run the same iterations.
 
 The solve is a constant to autograd (as P^{-1} is in the step's
 `StepFn`), so no collective needs a gradient.
@@ -29,6 +32,7 @@ import torch.distributed as dist
 from diffcloth_tpu_torch.core import dense_ops as dn
 from diffcloth_tpu_torch.core.device import resolve_device
 from diffcloth_tpu_torch.core.types import SimParams
+from diffcloth_tpu_torch.parallel import exchange
 
 
 def initialize_distributed(backend: Optional[str] = None,
@@ -83,15 +87,14 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1) -> Mesh:
 def make_tp_solve(group=None):
     """The row-sharded P^{-1} apply, for `ClothSim(..., solve_fn=...)`:
     solve(p_inv_block (n/tp, n), rhs (B, n, 3)) -> (B, n, 3), this rank's
-    block product all-gathered over `group` (the mesh's tp_group)."""
-    tp = dist.get_world_size(group)
+    block product all-gathered over `group` (the mesh's tp_group).  The one
+    `solve_fn` a step runs captured (`graphs.resolve`: `capturable`)."""
+    gather = exchange.RowGather(group)
 
     def solve(p_inv_block, rhs):
-        local = dn.mm(p_inv_block, rhs).transpose(0, 1).contiguous()
-        out = local.new_empty((tp * local.shape[0],) + local.shape[1:])
-        dist.all_gather_into_tensor(out, local, group=group)
-        return out.transpose(0, 1)
+        return gather(dn.mm(p_inv_block, rhs))
 
+    solve.capturable = True
     return solve
 
 
@@ -112,6 +115,8 @@ def shard_rollout_batch(mesh: Mesh, batch):
 
 
 def _gather_dp(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
+    if mesh.dp == 1:
+        return local
     out = local.new_empty((mesh.dp * local.shape[0],) + local.shape[1:])
     dist.all_gather_into_tensor(out, local.contiguous(),
                                 group=mesh.dp_group)
@@ -144,7 +149,8 @@ def batched_value_and_grad(sim, loss_fn, mesh: Mesh,
         out = {}
         for k, g in grads.items():
             g = g.mean(dim=0)
-            dist.all_reduce(g, group=mesh.dp_group)
+            if mesh.dp > 1:
+                dist.all_reduce(g, group=mesh.dp_group)
             out[k] = g / mesh.dp
         return losses, SimParams(**out)
 

@@ -409,9 +409,11 @@ def test_step_given_solve_fn_runs_uncaptured():
 
 
 def test_tp_solve_runs_uncaptured(tmp_path):
-    """The tensor-parallel solve is a solve_fn like any other: a step given
-    it runs uncaptured on a card by default, and `cuda_graphs=True` with
-    it raises, even on a group of one rank."""
+    """The tensor-parallel solve is the one solve_fn a step runs captured
+    (its all-gather is a kernel pair, `parallel/exchange.py`): on a card by
+    default and with `cuda_graphs=True`, even on a group of one rank; it
+    runs uncaptured on the CPU and with `cuda_graphs=False`, and any other
+    solve_fn still runs uncaptured and refuses `cuda_graphs=True`."""
     import torch.distributed as dist
     from diffcloth_tpu_torch.parallel import mesh as pmesh
     pmesh.initialize_distributed("gloo", f"file://{tmp_path}/init", 1, 0)
@@ -419,10 +421,50 @@ def test_tp_solve_runs_uncaptured(tmp_path):
         solve = pmesh.make_tp_solve()
     finally:
         dist.destroy_process_group()
-    assert gr.resolve(None, torch.device("cuda"), solve) is False
-    assert gr.resolve(False, torch.device("cuda"), solve) is False
+    cuda = torch.device("cuda")
+    assert gr.resolve(None, cuda, solve) is True
+    assert gr.resolve(True, cuda, solve) is True
+    assert gr.resolve(False, cuda, solve) is False
+    assert gr.resolve(None, torch.device("cpu"), solve) is False
+
+    def other(p_inv, rhs):
+        return rhs
+
+    assert gr.resolve(None, cuda, other) is False
     with pytest.raises(ValueError, match="solve_fn"):
-        gr.resolve(True, torch.device("cuda"), solve)
+        gr.resolve(True, cuda, other)
+
+
+def test_tp_step_of_one_gloo_rank_equals_dense(tmp_path):
+    """On one gloo rank the tp solve's row block is all of P^{-1} and its
+    all-gather (the exchange's plain version on the CPU) a copy: an
+    episode's states, iteration counts and value-and-grad equal the dense
+    step's bit for bit."""
+    import torch.distributed as dist
+    from diffcloth_tpu_torch.parallel import mesh as pmesh
+    scene = tgb.build_scene(caps_cfg(tc))
+    pmesh.initialize_distributed("gloo", f"file://{tmp_path}/init", 1, 0)
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        sim = TorchSim(scene, device="cpu", dtype=F64,
+                       solve_fn=pmesh.make_tp_solve(mesh.tp_group))
+        ref = TorchSim(scene, device="cpu", dtype=F64)
+        p = sim.default_params()
+        a = sim.rollout(p).steps
+        b = ref.rollout(p).steps
+        target = torch.zeros((sim.n_steps + 1, sim.n, 3), dtype=F64)
+        loss_fn = tl.make_loss_fn(tc.LossType.MATCH_TRAJECTORY,
+                                  tl.LossInfo(target_x=target))
+        pb = p.expand(2).replace(wind=p.wind + torch.tensor(
+            [[0.0, 0.0, 0.0], [0.1, 0.0, 0.05]], dtype=F64))
+        La, ga = pmesh.batched_value_and_grad(
+            sim, loss_fn, mesh, p_inv_spec="tp")(pb, ref.p_inv(p))
+        Lb, gb_ = ref.episode_value_and_grad(loss_fn)(pb)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(a.x, b.x) and a.iters.tolist() == b.iters.tolist()
+    assert torch.equal(La, Lb)
+    assert torch.equal(ga.wind, gb_.wind.mean(dim=0))
 
 
 def test_bind_keeps_static_buffers():

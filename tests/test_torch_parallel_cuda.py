@@ -1,38 +1,63 @@
-"""The tensor-parallel solve (`parallel/mesh.make_tp_solve`, an NCCL
-all-gather) on the card.  A step given any `solve_fn` runs uncaptured
-(`core/graphs.resolve`) and `cuda_graphs=True` with one raises: on a
-world-size-1 NCCL group in this process, the tp step's losses equal the
-plain (captured) step's bit for bit; on two ranks (one card each,
-spawned; skips below two cards), the ranks' replicated results are bit
-for bit alike.
+"""The tensor-parallel step on the card: `parallel/mesh.make_tp_solve`'s
+solve, whose all-gather is `parallel/exchange.py`'s kernel pair, inside
+the step's captured device programs.
+
+Each case runs its ranks as processes of their own
+(tests/torch_parallel_cuda_worker.py, one card each unless named), under a
+time limit: every rank arms faulthandler to print its stacks and end
+before the limit, and the parent kills what is left.  The cases:
+
+  * one rank (a world-size-1 NCCL group): the tp step captured by
+    default, equal bit for bit to `cuda_graphs=False` and to the plain
+    step (its row block is the whole P^{-1}), its programs and the
+    exchange launched; `cuda_graphs=True` with another `solve_fn` raises;
+  * two ranks (dp 1 x tp 2) and four (dp 2 x tp 2, skips below four
+    cards) on the flagship stand-in, and two on the dress stand-in's
+    chunked value-and-grad: captured equal to uncaptured bit for bit on
+    each rank, the tp ranks of a group equal to each other bit for bit,
+    with equal body runs in every loop, and the losses within F32_RTOL of
+    the plain one-card step's (the row-block product rounds otherwise than
+    the dense one, and the loops' exits follow the rounding);
+  * the exchange's kernels against NCCL's all-gather on two cards, bit
+    for bit, and both timed;
+  * the staged probe of the tp all-gather (skips below two cards): NCCL's
+    `all_gather_into_tensor` eager, in a plain CUDA graph and in a WHILE
+    body of a device program, each with communicators made lazily and
+    eagerly; the exchange's kernels in a WHILE body; the flagship's tp
+    step captured with NCCL's gather and with the exchange.  It records
+    each stage's outcome (passed, the error, or the time-out with every
+    rank's stacks and progress lines), `nvidia-smi topo -m`, the cards,
+    their peer access and the transport NCCL picked, prints them as one
+    JSON line and writes them to $TP_PROBE_OUT/tp_probe.json when that is
+    set.
 
 These tests need NVIDIA GPUs and skip without them; run them there with
 
     python -m pytest --noconftest -q tests/test_torch_parallel_cuda.py
-
-The scene is the flagship stand-in's physics (the tshirt wind system-ID,
-n = 1024) cut to STEPS steps, B episodes of perturbed winds, half of them
-starting folded, so that self-contact and the friction kernels run.
 """
-import dataclasses
+import glob
+import json
+import os
+import pathlib
+import re
 import socket
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
-
-from diffcloth_tpu_torch import losses
-from diffcloth_tpu_torch.config import LossType
-from diffcloth_tpu_torch.core.sim import ClothSim
-from diffcloth_tpu_torch.geometry import builder as gb
-from diffcloth_tpu_torch.geometry import states
-from diffcloth_tpu_torch.parallel import mesh as pmesh
-from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
 
 pytestmark = pytest.mark.cuda
-STEPS = 4
-B = 2
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+WORKER = ROOT / "tests" / "torch_parallel_cuda_worker.py"
+# the plain step against the tp step, f32 (see the docstring)
+F32_RTOL = 1e-4
+PROBE_STAGE_S = 60          # each probe stage's time limit
+PROBE_STEP_S = 180          # the probe's tp-step stages'
+GRACE_S = 30                # the peers' time to fail after a rank failed
 
 
 @pytest.fixture
@@ -40,7 +65,15 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (NCCL and the CUDA kernels have no "
                     "CPU mode)")
+    from diffcloth_tpu_torch.core import cuda_build
+    cuda_build.build_all()      # once, before the ranks load the kernels
     return torch.device("cuda")
+
+
+def cards(k):
+    if torch.cuda.device_count() < k:
+        pytest.skip(f"needs {k} cards")
+    return list(range(k))
 
 
 def free_port() -> int:
@@ -49,92 +82,245 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def tp_value_and_grad(mesh, tp=True) -> dict:
-    """This rank's value-and-grad (dp = 1: the whole batch), with the tp
-    solve or (tp False) the plain step, the third of three calls:
-    {"losses", "wind", "launches", "captured"} as numpy."""
-    scene = gb.build_scene(dataclasses.replace(TSHIRT_GRID_STANDIN,
-                                               step_num=STEPS))
-    sim = ClothSim(scene, device="cuda", dtype=torch.float32,
-                   solve_fn=pmesh.make_tp_solve(mesh.tp_group) if tp
-                   else None)
-    base = sim.default_params()
-    x0 = np.stack([states.folded_grid(scene, 16,
-                                      -1.5 * float(scene.radii.mean())),
-                   scene.x_rest])
-    winds = np.random.RandomState(0).randn(B, 3) * 0.02 + [0.04, 0.004,
-                                                           0.04]
-    params = base.expand(B).replace(
-        x0=torch.as_tensor(x0, dtype=sim.dtype, device=sim.device),
-        wind=torch.as_tensor(winds, dtype=sim.dtype, device=sim.device))
-    target = torch.zeros((STEPS + 1, sim.n, 3), dtype=sim.dtype,
-                         device=sim.device)
-    loss_fn = losses.make_loss_fn(LossType.MATCH_TRAJECTORY,
-                                  losses.LossInfo(target_x=target))
-    fn = pmesh.batched_value_and_grad(sim, loss_fn, mesh,
-                                      reduce_grads=False,
-                                      p_inv_spec="tp" if tp else None)
-    p_inv = sim.p_inv(base)
-    for _ in range(3):
-        for g in sim.graphs:
-            g.reset()
-        L, grads = fn(params, p_inv)
-    torch.cuda.synchronize()
-    launches = sum(p["launches"] for g in sim.graphs
-                   for p in g.summary().values())
-    return {"losses": L.cpu().numpy(), "wind": grads.wind.cpu().numpy(),
-            "launches": np.asarray(launches),
-            "captured": np.asarray(sim.cuda_graphs)}
+def run_ranks(case, out, devices, limit, tp=None, init="eager",
+              backend="nccl") -> dict:
+    """Run `case` on len(devices) ranks (rank r on card devices[r]) under
+    `limit` seconds: {"outcome": "passed" | "error" | "timeout", "seconds",
+    "ranks": [each rank's JSON], "arrays": [each rank's npz], "logs":
+    {rank: its output's tail}}."""
+    out = pathlib.Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    world, port = len(devices), free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), NCCL_DEBUG="INFO",
+               NCCL_DEBUG_FILE=str(out / "nccl.%p.log"))
+    procs, logs = [], []
+    t0 = time.monotonic()
+    for r, d in enumerate(devices):
+        log = open(out / f"rank{r}.log", "w")
+        logs.append(log)
+        cmd = [sys.executable, "-X", "faulthandler", str(WORKER), case,
+               "--rank", str(r), "--world", str(world), "--port", str(port),
+               "--device", str(d), "--out", str(out), "--init", init,
+               "--backend", backend, "--dump-after", str(limit - 15)]
+        if tp:
+            cmd += ["--tp", str(tp)]
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+    ended = {}                  # rank -> (exit code, seconds)
+    while len(ended) < world and time.monotonic() - t0 < limit:
+        for r, p in enumerate(procs):
+            if r not in ended and p.poll() is not None:
+                ended[r] = (p.returncode, time.monotonic() - t0)
+        failed = [t for rc, t in ended.values() if rc != 0]
+        # a rank that failed leaves its peers waiting: a grace, then stop
+        if failed and time.monotonic() - t0 > min(failed) + GRACE_S:
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for log in logs:
+        log.close()
+    res = {"seconds": time.monotonic() - t0,
+           "logs": {r: (out / f"rank{r}.log").read_text()[-4000:]
+                    for r in range(world)}}
+    # faulthandler ends a rank with exit code 1 after its dump, near the
+    # limit: a failure before that is an error, at it a time-out
+    early = [t for rc, t in ended.values() if rc != 0 and t < limit - 16]
+    if early:
+        res["outcome"] = "error"
+        return res
+    if len(ended) < world or any(rc != 0 for rc, _ in ended.values()):
+        res["outcome"] = "timeout"
+        return res
+    res["outcome"] = "passed"
+    res["ranks"] = [json.loads((out / f"rank{r}.json").read_text())
+                    for r in range(world)]
+    res["arrays"] = [dict(np.load(out / f"rank{r}.npz"))
+                     for r in range(world)]
+    return res
 
 
-def refuses_graphs(mesh):
+def passed(res) -> dict:
+    assert res["outcome"] == "passed", json.dumps(res["logs"], indent=1)
+    return res
+
+
+def check_tp_step(res, tp, name, exchange=True):
+    """Captured against uncaptured on each rank, the tp ranks of a group
+    against each other, the plain step's losses, the programs and (unless
+    the gather is NCCL's) the exchange launched."""
+    passed(res)
+    for info, a in zip(res["ranks"], res["arrays"]):
+        cap, unc = info["captured"], info["uncaptured"]
+        assert cap["captured"] and not unc["captured"], name
+        assert cap["launches"] > 0 and unc["launches"] == 0, name
+        assert (cap["kernels"]["peer_exchange"] > 0) == exchange, \
+            cap["kernels"]
+        for k in [k[len("captured_"):] for k in a if
+                  k.startswith("captured_")]:
+            np.testing.assert_array_equal(a["captured_" + k],
+                                          a["uncaptured_" + k],
+                                          err_msg=f"{name}: {k}")
+        assert np.isfinite(a["captured_losses"]).all()
+        if "plain_losses" in a:
+            np.testing.assert_allclose(a["captured_losses"],
+                                       a["plain_losses"], rtol=F32_RTOL)
+    info = res["ranks"][0]
+    print(f"[tp-rates] {name}: walls of the calls, captured (warm-up, "
+          f"capture, launch) {info['captured']['walls']}, uncaptured "
+          f"{info['uncaptured']['walls']}; program launches "
+          f"{info['captured']['launches']}, kernels "
+          f"{info['captured']['kernels']}", flush=True)
+    for g0 in range(0, len(res["ranks"]), tp):
+        group = list(zip(res["ranks"], res["arrays"]))[g0:g0 + tp]
+        (i0, a0), rest = group[0], group[1:]
+        for info, a in rest:
+            for k in a0:
+                np.testing.assert_array_equal(a0[k], a[k],
+                                              err_msg=f"{name}: {k}")
+            for tag in ("captured", "uncaptured"):
+                assert info[tag]["body_runs"] == i0[tag]["body_runs"], name
+
+
+def test_tp_step_captured_world_one(card, tmp_path):
+    """One rank: the tp step runs captured by default, bit for bit equal
+    to `cuda_graphs=False` and to the plain step's losses; another
+    `solve_fn` with `cuda_graphs=True` raises."""
+    from diffcloth_tpu_torch.core.sim import ClothSim
+    from diffcloth_tpu_torch.geometry import builder as gb
+    from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
     with pytest.raises(ValueError, match="solve_fn"):
         ClothSim(gb.build_scene(TSHIRT_GRID_STANDIN), device="cuda",
-                 solve_fn=pmesh.make_tp_solve(mesh.tp_group),
-                 cuda_graphs=True)
+                 solve_fn=lambda p_inv, rhs: p_inv @ rhs, cuda_graphs=True)
+    res = run_ranks("tp_step", tmp_path, [0], 300)
+    check_tp_step(res, 1, "world one")
+    a = res["arrays"][0]
+    np.testing.assert_array_equal(a["captured_losses"], a["plain_losses"])
 
 
-def test_tp_step_runs_uncaptured_world_one(card):
-    """On one rank the tp step runs uncaptured by default, with losses
-    equal bit for bit to the plain step's (captured), and
-    `cuda_graphs=True` with the tp solve raises."""
-    pmesh.initialize_distributed("nccl", f"tcp://localhost:{free_port()}",
-                                 1, 0)
+def test_tp_step_of_two_ranks_captured(card, tmp_path):
+    """dp 1 x tp 2 on two cards, the flagship stand-in."""
+    res = run_ranks("tp_step", tmp_path, cards(2), 300)
+    check_tp_step(res, 2, "dp 1 x tp 2")
+
+
+def test_dp2_tp2_step_captured_four_ranks(card, tmp_path):
+    """dp 2 x tp 2 on four cards, the flagship stand-in."""
+    res = run_ranks("tp_step", tmp_path, cards(4), 300, tp=2)
+    check_tp_step(res, 2, "dp 2 x tp 2")
+
+
+def test_dress_tp2_chunked_captured(card, tmp_path):
+    """dp 1 x tp 2 on two cards, the dress stand-in (n = 7056)."""
+    res = run_ranks("dress", tmp_path, cards(2), 900)
+    check_tp_step(res, 2, "dress tp 2")
+
+
+def test_exchange_matches_nccl_two_ranks(card, tmp_path):
+    """The exchange's kernels on two cards equal NCCL's all-gather bit for
+    bit at the flagship's and the dress's blocks; prints both times."""
+    res = passed(run_ranks("exchange_time", tmp_path, cards(2), 300))
+    for r in res["ranks"]:
+        assert r["flagship"]["equal"] and r["dress"]["equal"], r
+    print("[exchange-time] " + json.dumps({
+        "cards": nvidia_smi("--query-gpu=name,power.limit",
+                            "--format=csv,noheader"),
+        "ranks": [{k: r[k] for k in ("flagship", "dress")}
+                  for r in res["ranks"]]}), flush=True)
+
+
+def nvidia_smi(*args) -> str:
     try:
-        mesh = pmesh.make_mesh(1, 1)
-        refuses_graphs(mesh)
-        t, p = tp_value_and_grad(mesh), tp_value_and_grad(mesh, tp=False)
-    finally:
-        dist.destroy_process_group()
-    assert not bool(t["captured"]) and int(t["launches"]) == 0
-    assert bool(p["captured"]) and int(p["launches"]) > 0
-    np.testing.assert_array_equal(t["losses"], p["losses"])
-    assert np.isfinite(t["losses"]).all() and np.abs(t["wind"]).max() > 0
+        return subprocess.run(["nvidia-smi", *args], capture_output=True,
+                              text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi failed: {e}"
 
 
-def rank_worker(rank, world, port, out_dir):
-    torch.cuda.set_device(rank)
-    pmesh.initialize_distributed("nccl", f"tcp://localhost:{port}", world,
-                                 rank)
-    try:
-        mesh = pmesh.make_mesh(1, world)
-        refuses_graphs(mesh)
-        np.savez(f"{out_dir}/rank{rank}.npz", **tp_value_and_grad(mesh))
-    finally:
-        dist.destroy_process_group()
+def nccl_transports(out) -> list:
+    """NCCL's version and the transports it chose, from its INFO logs."""
+    seen = set()
+    for path in glob.glob(str(pathlib.Path(out) / "nccl.*.log")):
+        for line in open(path, errors="replace"):
+            m = re.search(r"(NCCL version \S+|via \S+|NVLS \S+ \S+)", line)
+            if m:
+                seen.add(m.group(1))
+    return sorted(seen)
 
 
-def test_tp_step_of_two_ranks_runs_uncaptured(card, tmp_path):
-    """On two ranks (one card each) the tp step runs uncaptured by default,
-    `cuda_graphs=True` raises, and the ranks' replicated results agree bit
-    for bit."""
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two cards")
-    import torch.multiprocessing as mp
-    mp.spawn(rank_worker, args=(2, free_port(), str(tmp_path)), nprocs=2)
-    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
-    for res in ranks:
-        assert not bool(res["captured"]) and int(res["launches"]) == 0
-        assert np.isfinite(res["losses"]).all()
-    np.testing.assert_array_equal(ranks[0]["losses"], ranks[1]["losses"])
-    np.testing.assert_array_equal(ranks[0]["wind"], ranks[1]["wind"])
+# (stage, case, init, limit); the stages that may hang run last
+PROBE = [("1 eager all-gather", "gather_eager", "lazy", PROBE_STAGE_S),
+         ("1 eager all-gather", "gather_eager", "eager", PROBE_STAGE_S),
+         ("2 plain graph", "gather_graph", "lazy", PROBE_STAGE_S),
+         ("2 plain graph", "gather_graph", "eager", PROBE_STAGE_S),
+         ("3B WHILE body, exchange kernels", "exchange_while", "eager",
+          PROBE_STAGE_S),
+         ("4B tp step captured, exchange kernels", "tp_step", "eager",
+          PROBE_STEP_S),
+         ("3 WHILE body", "gather_while", "lazy", PROBE_STAGE_S),
+         ("3 WHILE body", "gather_while", "eager", PROBE_STAGE_S),
+         ("4 tp step captured, NCCL gather", "tp_step_nccl", "eager",
+          PROBE_STEP_S)]
+
+
+def test_tp_staged_probe(card, tmp_path):
+    """The staged probe (see the docstring): stages 1, 2, 3B and 4B pass;
+    every other stage ends with a result, the time-outs with stacks."""
+    cards(2)
+    pairs = [[i, i + 1] for i in range(0, torch.cuda.device_count() - 1, 2)]
+
+    def stage(i):
+        name, case, init, limit = PROBE[i]
+        pair = pairs[i % len(pairs)]
+        res = run_ranks(case, tmp_path / f"s{i}", pair, limit, init=init)
+        row = {"stage": name, "case": case, "init": init, "cards": pair,
+               "outcome": res["outcome"],
+               "seconds": round(res["seconds"], 1),
+               "nccl": nccl_transports(tmp_path / f"s{i}")}
+        if res["outcome"] == "passed":
+            row["ranks"] = [{k: v for k, v in r.items()
+                             if k in ("equal", "launches", "body_runs",
+                                      "seconds")} for r in res["ranks"]]
+            if case.startswith("tp_step"):
+                try:
+                    check_tp_step(res, 2, name, case == "tp_step")
+                    row["check"] = "ok"
+                except AssertionError as e:
+                    row["check"] = str(e)[-2000:]
+                row["ranks"] = [{"walls": r[t]["walls"], "route": t}
+                                for r in res["ranks"]
+                                for t in ("captured", "uncaptured")]
+        else:
+            row["logs"] = res["logs"]
+        return row
+
+    # a pair of cards per stage; the stages of one round run at once
+    rows = []
+    with ThreadPoolExecutor(len(pairs)) as pool:
+        for at in range(0, len(PROBE), len(pairs)):
+            rows += list(pool.map(stage, range(at, min(at + len(pairs),
+                                                       len(PROBE)))))
+    n = torch.cuda.device_count()
+    report = {"cards": nvidia_smi("--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"),
+              "topology": nvidia_smi("topo", "-m"),
+              "p2p": [[int(i == j or torch.cuda.can_device_access_peer(i, j))
+                       for j in range(n)] for i in range(n)],
+              "nvlink": nvidia_smi("nvlink", "-s"), "stages": rows}
+    print("[tp-probe] " + json.dumps(report), flush=True)
+    if os.environ.get("TP_PROBE_OUT"):
+        path = pathlib.Path(os.environ["TP_PROBE_OUT"]) / "tp_probe.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(report, indent=1))
+    for row in rows:
+        if row["case"] in ("gather_eager", "gather_graph", "exchange_while",
+                           "tp_step"):
+            assert row["outcome"] == "passed", row
+        if row["case"] == "tp_step":
+            assert row["check"] == "ok", row
+        if row["outcome"] == "passed" and "equal" in row["ranks"][0]:
+            assert all(r["equal"] for r in row["ranks"]), row
+        if row["outcome"] == "timeout":
+            assert all(row["logs"].values()), row
