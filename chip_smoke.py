@@ -189,9 +189,11 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         raises; the exchange kernels against their plain version (NCCL's
         all-gather) exactly at the flagship's and the dress's blocks, timed
         beside it; then two processes sharing the card (gloo for the
-        handles), tp = 2: their exchange in a WHILE body and their
-        flagship tp step captured against uncaptured, bit for bit, the
-        ranks equal to each other.
+        handles), tp = 2, tests/torch_parallel_cuda_worker.py's cases:
+        their exchange in a WHILE body and their flagship tp step
+        captured against uncaptured, bit for bit, the ranks equal to each
+        other, the losses and the gradients within 1e-4 of the
+        plain step's (dL/dk_pertype 2e-2, dL/dx0 and dL/dv0 0.25).
 
  18. graphs (the compiled step): every earlier phase runs its sims as they
      default, each step's forward and adjoint one launch of a device
@@ -3192,7 +3194,7 @@ def phase_control_parallel(card):
         entry = exchange_entry(mesh, launches["peer_exchange"])
     finally:
         dist.destroy_process_group()
-    exchange_pair(card, L_ref)
+    exchange_pair(card)
     return entry
 
 
@@ -3252,129 +3254,39 @@ def exchange_entry(mesh, launches):
 EXCHANGE_PAIR_S = 300
 
 
-def exchange_pair(card, L_ref):
-    """17f's two ranks on the one card (gloo for the handles: NCCL refuses
-    two ranks on one card; CUDA IPC maps within it): each its own process
-    (`--exchange-rank`), tp = 2.  Their exchange in a WHILE body, 100
-    rounds, equal to the expected blocks; their flagship tp step captured
-    against uncaptured bit for bit, the ranks equal to each other, the
-    losses within 1e-4 of the plain step's (the row-block product rounds
-    otherwise than the dense one).  Within EXCHANGE_PAIR_S."""
+def exchange_pair(card):
+    """17f's two ranks on the one card, tp = 2: the cases `exchange_while`
+    (the exchange in a WHILE body, 100 rounds, at the dress's block) and
+    `tp_step` (the flagship's tp step, captured against uncaptured and
+    against the plain step) of tests/torch_parallel_cuda_worker.py, each
+    as two processes sharing card 0 (gloo for the handles: NCCL refuses
+    two ranks on one card; CUDA IPC maps within it), each within
+    EXCHANGE_PAIR_S, held by the worker's own checks."""
     import tempfile
-    port = free_port()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_parallel_cuda_worker as tpw
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [subprocess.Popen(
-            [sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
-             "--exchange-rank", str(r), "--exchange-port", str(port),
-             "--exchange-out", tmp], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(2)]
-        t0 = time.perf_counter()
-        logs = []
-        for p in procs:
-            try:
-                logs.append(p.communicate(timeout=max(
-                    EXCHANGE_PAIR_S - (time.perf_counter() - t0), 1))[0])
-            except subprocess.TimeoutExpired:
-                for q in procs:
-                    q.kill()
-                raise AssertionError(f"[exchange-pair] the two ranks ran "
-                                     f"past {EXCHANGE_PAIR_S} s")
-        if any(p.returncode for p in procs):
-            raise AssertionError("[exchange-pair] a rank failed:\n"
-                                 + "\n".join(x[-3000:] for x in logs))
-        res = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
-               for r in range(2)]
-        info = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
-                for r in range(2)]
-    for k in res[0]:
-        if not np.array_equal(res[0][k], res[1][k]):
-            raise AssertionError(f"[exchange-pair] the ranks differ in {k}")
-    for k in [k[2:] for k in res[0] if k.startswith("c_")]:
-        if not np.array_equal(res[0]["c_" + k], res[0]["u_" + k]):
-            raise AssertionError(f"[exchange-pair] captured against "
-                                 f"uncaptured differ in {k}")
-    if info[0]["body_runs"] != info[1]["body_runs"] \
-            or not all(i["equal"] and i["launches"] for i in info):
-        raise AssertionError(f"[exchange-pair] {info}")
-    np.testing.assert_allclose(res[0]["c_losses"], L_ref.cpu().numpy(),
-                               rtol=1e-4)
+        probe = tpw.passed(tpw.run_ranks("exchange_while", f"{tmp}/x",
+                                         [0, 0], EXCHANGE_PAIR_S,
+                                         backend="gloo"))["ranks"]
+        if probe[0]["body_runs"] != probe[1]["body_runs"] \
+                or not all(r["equal"] and r["launches"] for r in probe):
+            raise AssertionError(f"[exchange-pair] {probe}")
+        step = tpw.run_ranks("tp_step", f"{tmp}/s", [0, 0], EXCHANGE_PAIR_S,
+                             backend="gloo")
+        tpw.check_tp_step(step, 2, "exchange-pair")
+    a, info = step["arrays"][0], step["ranks"][0]["captured"]
+    err = float(np.abs(a["captured_losses"] - a["plain_losses"]).max())
     log(f"[exchange-pair] two processes on {card}, tp = 2: the exchange "
-        f"in a WHILE body, 100 rounds, equal to the expected blocks; the "
-        f"flagship's tp step ({PARALLEL_STEPS} steps, B = 2) captured == "
-        f"uncaptured bit for bit, the ranks equal, {info[0]['launches']} "
-        f"program launches, body runs {info[0]['body_runs']}; losses "
-        f"{res[0]['c_losses'].tolist()} against the plain step's "
-        f"{L_ref.tolist()}; {time.perf_counter() - t0:.1f} s")
-
-
-def exchange_rank(rank, port, out):
-    """One rank of `exchange_pair` (a process of its own on card 0)."""
-    import torch
-    import torch.distributed as dist
-    from diffcloth_tpu_torch.core import graphs as gr
-    from diffcloth_tpu_torch.parallel import exchange
-    from diffcloth_tpu_torch.parallel import mesh as pmesh
-    torch.cuda.set_device(0)
-    pmesh.initialize_distributed("gloo", f"tcp://localhost:{port}", 2, rank)
-    try:
-        mesh = pmesh.make_mesh(1, 2)
-        gather = exchange.RowGather(mesh.tp_group)
-        B, m = BATCH, 512
-        blocks = [torch.randn((B, m, 3), device="cuda",
-                              generator=torch.Generator("cuda").manual_seed(r))
-                  for r in range(2)]
-        local = blocks[rank].clone()
-        st = {"go": torch.ones(1, dtype=torch.bool, device="cuda"),
-              "out": torch.empty((B, 2 * m, 3), device="cuda")}
-
-        def block(st, k):
-            for _ in range(k):
-                local.add_(1.0)
-                st["out"].copy_(gather(local))
-
-        bg = gr.BlockGraphs(True)
-        prog = [gr.Loop(block, 100, 1, "exchange")]
-        bg.program("x", prog, st)
-        local.copy_(blocks[rank])
-        bg.program("x", prog, st)
-        want = []
-        for b in blocks:
-            b = b.clone()
-            for _ in range(100):
-                b.add_(1.0)
-            want.append(b)
-        torch.cuda.synchronize()
-        info = {"equal": bool(torch.equal(st["out"], torch.cat(want, 1)))}
-        sim = flagship(torch.float32, "cuda", PARALLEL_STEPS)
-        params = episode_params(sim, 2)
-        loss_fn = base_wind_target(sim, params)
-        p_inv = sim.p_inv(params)
-        arrays = {}
-        for tag, g in (("c", None), ("u", False)):
-            sim_tp = flagship(torch.float32, "cuda", PARALLEL_STEPS,
-                              solve_fn=pmesh.make_tp_solve(mesh.tp_group),
-                              cuda_graphs=g)
-            fn = pmesh.batched_value_and_grad(sim_tp, loss_fn, mesh,
-                                              reduce_grads=False,
-                                              p_inv_spec="tp")
-            for _ in range(3 if sim_tp.cuda_graphs else 1):
-                reset_graphs(sim_tp)
-                L, grads = fn(params, p_inv)
-            torch.cuda.synchronize()
-            arrays[f"{tag}_losses"] = L.cpu().numpy()
-            arrays.update({f"{tag}_{k}": v.cpu().numpy()
-                           for k, v in grads.items()})
-            if g is None:
-                info["launches"] = graph_launches(sim_tp)[0]
-                info["body_runs"] = {str(k): v[0] for k, v in
-                                     graph_blocks(sim_tp).items()}
-            del sim_tp, fn
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
-    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
-    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
-        json.dump(info, fh)
+        f"in a WHILE body, {probe[0]['body_runs']} rounds, equal to the "
+        f"expected blocks; the flagship's tp step captured == uncaptured "
+        f"bit for bit, the ranks equal, {info['launches']} program "
+        f"launches; losses and gradients within "
+        f"{tpw.F32_RTOL} of the plain step's, those in "
+        f"{tpw.GRAD_RTOL} within theirs (losses by {err:.3e}); "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def free_port():
@@ -4023,10 +3935,6 @@ def main():
                     help=argparse.SUPPRESS)   # 17g's profiling process
     ap.add_argument("--cpu-references", default=None,
                     help=argparse.SUPPRESS)   # the process beside
-    ap.add_argument("--exchange-rank", type=int, default=None,
-                    help=argparse.SUPPRESS)   # 17f's two-rank processes
-    ap.add_argument("--exchange-port", type=int, help=argparse.SUPPRESS)
-    ap.add_argument("--exchange-out", help=argparse.SUPPRESS)
     ap.add_argument("--only", default=",".join(PATHS),
                     help="comma-separated paths to run while iterating "
                          f"(default, the acceptance run: all of "
@@ -4050,10 +3958,6 @@ def main():
         return 0
     if args.cpu_references:
         cpu_references(args.cpu_references, only)
-        return 0
-    if args.exchange_rank is not None:
-        exchange_rank(args.exchange_rank, args.exchange_port,
-                      args.exchange_out)
         return 0
 
     card = nvidia_smi_line()

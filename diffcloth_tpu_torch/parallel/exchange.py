@@ -21,8 +21,11 @@ exchange of that shape (uncaptured: the warm-up of a program runs before
 its capture), by a collective on the group: each rank allocates its
 region, the ranks trade IPC handles and PCI bus ids with
 `all_gather_object`, and each maps its peers' regions after checking that
-its card can reach theirs directly.  The regions live as long as the
-process: a peer may still write into one until its last exchange ends.
+its card can reach theirs directly.  `row_gather(group)` keeps one
+`RowGather` per group, so every sim of a group shares its regions (its
+exchanges run one at a time, in the same order on every rank, as the
+group's collectives do).  The regions live as long as the process: a
+peer may still write into one until its last exchange ends.
 """
 from __future__ import annotations
 
@@ -137,6 +140,19 @@ class RowGather:
                        f"mapping rank {r}'s region")
                 table[r] = peer.value
         return table, slot
+
+
+_GATHERS = {}    # id(group) -> (group, its RowGather)
+
+
+def row_gather(group=None) -> RowGather:
+    """The group's one `RowGather` (`group` None: the world), made at its
+    first use.  The entry holds the group, so its id names no other."""
+    key = dist.group.WORLD if group is None else group
+    held = _GATHERS.get(id(key))
+    if held is None or held[0] is not key:
+        held = _GATHERS[id(key)] = (key, RowGather(group))
+    return held[1]
 
 
 @lc.counted("peer_exchange")

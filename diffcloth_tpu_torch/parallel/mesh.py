@@ -88,8 +88,9 @@ def make_tp_solve(group=None):
     """The row-sharded P^{-1} apply, for `ClothSim(..., solve_fn=...)`:
     solve(p_inv_block (n/tp, n), rhs (B, n, 3)) -> (B, n, 3), this rank's
     block product all-gathered over `group` (the mesh's tp_group).  The one
-    `solve_fn` a step runs captured (`graphs.resolve`: `capturable`)."""
-    gather = exchange.RowGather(group)
+    `solve_fn` a step runs captured (`graphs.resolve`: `capturable`).
+    Every solve of a group shares its gather (`exchange.row_gather`)."""
+    gather = exchange.row_gather(group)
 
     def solve(p_inv_block, rhs):
         return gather(dn.mm(p_inv_block, rhs))
@@ -125,7 +126,8 @@ def _gather_dp(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
 
 def batched_value_and_grad(sim, loss_fn, mesh: Mesh,
                            reduce_grads: bool = True,
-                           p_inv_spec: Optional[str] = None):
+                           p_inv_spec: Optional[str] = None,
+                           chunk: Optional[int] = None):
     """The data-parallel episode objective over a batch of parameters:
     fn(params_batch (batched SimParams, all B episodes, the same on every
     rank), p_inv) -> (losses (B,), grads).  Each rank runs its dp slice.
@@ -133,8 +135,12 @@ def batched_value_and_grad(sim, loss_fn, mesh: Mesh,
     unbatched SimParams, the same on every rank; otherwise every episode's
     gradient, all-gathered.  p_inv_spec "tp": p_inv is the full P^{-1} and
     each rank passes its tp row block to the step; pair it with a sim built
-    with `solve_fn=make_tp_solve(mesh.tp_group)`."""
-    value_and_grad = sim.episode_value_and_grad(loss_fn)
+    with `solve_fn=make_tp_solve(mesh.tp_group)`.  `chunk` given: each
+    rank's episodes run `sim.episode_value_and_grad_chunked` in chunks of
+    `chunk` steps (the horizon's residuals never held at once: the dress)."""
+    value_and_grad = (sim.episode_value_and_grad(loss_fn) if chunk is None
+                      else sim.episode_value_and_grad_chunked(
+                          loss_fn, chunk, batched=True))
 
     def fn(params_batch: SimParams, p_inv):
         if p_inv_spec == "tp":

@@ -467,6 +467,43 @@ def test_tp_step_of_one_gloo_rank_equals_dense(tmp_path):
     assert torch.equal(ga.wind, gb_.wind.mean(dim=0))
 
 
+def test_tp_chunked_objective_of_one_gloo_rank_equals_dense(tmp_path):
+    """`batched_value_and_grad(..., chunk=2)` on one gloo rank with the tp
+    solve equals the dense sim's chunked value-and-grad bit for bit, every
+    episode's gradient; the solves of one group share one gather (its
+    regions on a card made once)."""
+    import torch.distributed as dist
+    from diffcloth_tpu_torch.parallel import exchange
+    from diffcloth_tpu_torch.parallel import mesh as pmesh
+    scene = tgb.build_scene(caps_cfg(tc))
+    pmesh.initialize_distributed("gloo", f"file://{tmp_path}/init", 1, 0)
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        assert exchange.row_gather(mesh.tp_group) \
+            is exchange.row_gather(mesh.tp_group)
+        assert exchange.row_gather() is exchange.row_gather(None)
+        sim = TorchSim(scene, device="cpu", dtype=F64,
+                       solve_fn=pmesh.make_tp_solve(mesh.tp_group))
+        ref = TorchSim(scene, device="cpu", dtype=F64)
+        p = sim.default_params()
+        target = torch.zeros((sim.n_steps + 1, sim.n, 3), dtype=F64)
+        loss_fn = tl.make_loss_fn(tc.LossType.MATCH_TRAJECTORY,
+                                  tl.LossInfo(target_x=target))
+        pb = p.expand(2).replace(wind=p.wind + torch.tensor(
+            [[0.0, 0.0, 0.0], [0.1, 0.0, 0.05]], dtype=F64))
+        La, ga = pmesh.batched_value_and_grad(
+            sim, loss_fn, mesh, reduce_grads=False, p_inv_spec="tp",
+            chunk=2)(pb, ref.p_inv(p))
+        Lb, gb_ = ref.episode_value_and_grad_chunked(loss_fn, 2,
+                                                     batched=True)(pb)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(La, Lb)
+    for k, v in gb_.items():
+        assert torch.equal(getattr(ga, k), v), k
+    assert float(ga.wind.abs().max()) > 0
+
+
 def test_bind_keeps_static_buffers():
     """Captured, a block's dict holds static buffers: the first bind
     copies, later binds copy in place (same storage), a `once` entry is

@@ -8,16 +8,20 @@ time limit: every rank arms faulthandler to print its stacks and end
 before the limit, and the parent kills what is left.  The cases:
 
   * one rank (a world-size-1 NCCL group): the tp step captured by
-    default, equal bit for bit to `cuda_graphs=False` and to the plain
-    step (its row block is the whole P^{-1}), its programs and the
-    exchange launched; `cuda_graphs=True` with another `solve_fn` raises;
+    default, equal bit for bit to `cuda_graphs=False` and, losses and
+    gradients, to the plain step (its row block is the whole P^{-1}), its
+    programs and the exchange launched, its wind gradient nonzero;
+    `cuda_graphs=True` with another `solve_fn` raises;
   * two ranks (dp 1 x tp 2) and four (dp 2 x tp 2, skips below four
     cards) on the flagship stand-in, and two on the dress stand-in's
     chunked value-and-grad: captured equal to uncaptured bit for bit on
     each rank, the tp ranks of a group equal to each other bit for bit,
-    with equal body runs in every loop, and the losses within F32_RTOL of
-    the plain one-card step's (the row-block product rounds otherwise than
-    the dense one, and the loops' exits follow the rounding);
+    with equal body runs in every loop, a gradient nonzero, and on the
+    flagship the losses and the gradients within F32_RTOL (GRAD_RTOL
+    where it names the class) of the plain one-card step's
+    (`torch_parallel_cuda_worker.check_tp_step`, which says why: the
+    row-block product rounds otherwise than the dense one, and the loops'
+    exits follow the rounding);
   * the exchange's kernels against NCCL's all-gather on two cards, bit
     for bit, and both timed;
   * the staged probe of the tp all-gather (skips below two cards): NCCL's
@@ -40,24 +44,18 @@ import json
 import os
 import pathlib
 import re
-import socket
 import subprocess
-import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cuda_worker import check_tp_step, passed, run_ranks
+
 pytestmark = pytest.mark.cuda
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-WORKER = ROOT / "tests" / "torch_parallel_cuda_worker.py"
-# the plain step against the tp step, f32 (see the docstring)
-F32_RTOL = 1e-4
 PROBE_STAGE_S = 60          # each probe stage's time limit
 PROBE_STEP_S = 180          # the probe's tp-step stages'
-GRACE_S = 30                # the peers' time to fail after a rank failed
 
 
 @pytest.fixture
@@ -76,118 +74,10 @@ def cards(k):
     return list(range(k))
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def run_ranks(case, out, devices, limit, tp=None, init="eager",
-              backend="nccl") -> dict:
-    """Run `case` on len(devices) ranks (rank r on card devices[r]) under
-    `limit` seconds: {"outcome": "passed" | "error" | "timeout", "seconds",
-    "ranks": [each rank's JSON], "arrays": [each rank's npz], "logs":
-    {rank: its output's tail}}."""
-    out = pathlib.Path(out)
-    out.mkdir(parents=True, exist_ok=True)
-    world, port = len(devices), free_port()
-    env = dict(os.environ, PYTHONPATH=str(ROOT), NCCL_DEBUG="INFO",
-               NCCL_DEBUG_FILE=str(out / "nccl.%p.log"))
-    procs, logs = [], []
-    t0 = time.monotonic()
-    for r, d in enumerate(devices):
-        log = open(out / f"rank{r}.log", "w")
-        logs.append(log)
-        cmd = [sys.executable, "-X", "faulthandler", str(WORKER), case,
-               "--rank", str(r), "--world", str(world), "--port", str(port),
-               "--device", str(d), "--out", str(out), "--init", init,
-               "--backend", backend, "--dump-after", str(limit - 15)]
-        if tp:
-            cmd += ["--tp", str(tp)]
-        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
-                                      stderr=subprocess.STDOUT))
-    ended = {}                  # rank -> (exit code, seconds)
-    while len(ended) < world and time.monotonic() - t0 < limit:
-        for r, p in enumerate(procs):
-            if r not in ended and p.poll() is not None:
-                ended[r] = (p.returncode, time.monotonic() - t0)
-        failed = [t for rc, t in ended.values() if rc != 0]
-        # a rank that failed leaves its peers waiting: a grace, then stop
-        if failed and time.monotonic() - t0 > min(failed) + GRACE_S:
-            break
-        time.sleep(0.2)
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-    for log in logs:
-        log.close()
-    res = {"seconds": time.monotonic() - t0,
-           "logs": {r: (out / f"rank{r}.log").read_text()[-4000:]
-                    for r in range(world)}}
-    # faulthandler ends a rank with exit code 1 after its dump, near the
-    # limit: a failure before that is an error, at it a time-out
-    early = [t for rc, t in ended.values() if rc != 0 and t < limit - 16]
-    if early:
-        res["outcome"] = "error"
-        return res
-    if len(ended) < world or any(rc != 0 for rc, _ in ended.values()):
-        res["outcome"] = "timeout"
-        return res
-    res["outcome"] = "passed"
-    res["ranks"] = [json.loads((out / f"rank{r}.json").read_text())
-                    for r in range(world)]
-    res["arrays"] = [dict(np.load(out / f"rank{r}.npz"))
-                     for r in range(world)]
-    return res
-
-
-def passed(res) -> dict:
-    assert res["outcome"] == "passed", json.dumps(res["logs"], indent=1)
-    return res
-
-
-def check_tp_step(res, tp, name, exchange=True):
-    """Captured against uncaptured on each rank, the tp ranks of a group
-    against each other, the plain step's losses, the programs and (unless
-    the gather is NCCL's) the exchange launched."""
-    passed(res)
-    for info, a in zip(res["ranks"], res["arrays"]):
-        cap, unc = info["captured"], info["uncaptured"]
-        assert cap["captured"] and not unc["captured"], name
-        assert cap["launches"] > 0 and unc["launches"] == 0, name
-        assert (cap["kernels"]["peer_exchange"] > 0) == exchange, \
-            cap["kernels"]
-        for k in [k[len("captured_"):] for k in a if
-                  k.startswith("captured_")]:
-            np.testing.assert_array_equal(a["captured_" + k],
-                                          a["uncaptured_" + k],
-                                          err_msg=f"{name}: {k}")
-        assert np.isfinite(a["captured_losses"]).all()
-        if "plain_losses" in a:
-            np.testing.assert_allclose(a["captured_losses"],
-                                       a["plain_losses"], rtol=F32_RTOL)
-    info = res["ranks"][0]
-    print(f"[tp-rates] {name}: walls of the calls, captured (warm-up, "
-          f"capture, launch) {info['captured']['walls']}, uncaptured "
-          f"{info['uncaptured']['walls']}; program launches "
-          f"{info['captured']['launches']}, kernels "
-          f"{info['captured']['kernels']}", flush=True)
-    for g0 in range(0, len(res["ranks"]), tp):
-        group = list(zip(res["ranks"], res["arrays"]))[g0:g0 + tp]
-        (i0, a0), rest = group[0], group[1:]
-        for info, a in rest:
-            for k in a0:
-                np.testing.assert_array_equal(a0[k], a[k],
-                                              err_msg=f"{name}: {k}")
-            for tag in ("captured", "uncaptured"):
-                assert info[tag]["body_runs"] == i0[tag]["body_runs"], name
-
-
 def test_tp_step_captured_world_one(card, tmp_path):
     """One rank: the tp step runs captured by default, bit for bit equal
-    to `cuda_graphs=False` and to the plain step's losses; another
-    `solve_fn` with `cuda_graphs=True` raises."""
+    to `cuda_graphs=False` and to the plain step's losses and gradients;
+    another `solve_fn` with `cuda_graphs=True` raises."""
     from diffcloth_tpu_torch.core.sim import ClothSim
     from diffcloth_tpu_torch.geometry import builder as gb
     from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
@@ -215,7 +105,7 @@ def test_dp2_tp2_step_captured_four_ranks(card, tmp_path):
 def test_dress_tp2_chunked_captured(card, tmp_path):
     """dp 1 x tp 2 on two cards, the dress stand-in (n = 7056)."""
     res = run_ranks("dress", tmp_path, cards(2), 900)
-    check_tp_step(res, 2, "dress tp 2")
+    check_tp_step(res, 2, "dress tp 2", grad="x0")
 
 
 def test_exchange_matches_nccl_two_ranks(card, tmp_path):

@@ -1,16 +1,18 @@
-"""One rank of tests/test_torch_parallel_cuda.py's multi-card cases (a
-helper, not collected; imports no JAX).  Run by the test, one process per
-rank, each on its own card:
+"""The ranks of the tp step's multi-process cases on the card (a helper,
+not collected; imports no JAX): `run_ranks` spawns a case's ranks under a
+time limit and `check_tp_step` holds a tp step's results, for
+tests/test_torch_parallel_cuda.py and chip_smoke.py's phase 17f.  Run by
+`run_ranks`, one process per rank:
 
     python -X faulthandler tests/torch_parallel_cuda_worker.py CASE \\
         --rank R --world W --port P --device D --out DIR [--tp T] \\
         [--init lazy|eager] [--backend nccl|gloo] [--dump-after S]
 
 It joins an NCCL group of W ranks over tcp://localhost:P (--backend gloo:
-a gloo group, for ranks that share one card, which NCCL refuses; the
-exchange's kernels need the group only to trade their handles, and a tp
-step with dp = 1 makes no other collective), runs CASE and writes
-DIR/rank{R}.json (and DIR/rank{R}.npz for arrays).  After
+a gloo group, for ranks that share one card, which NCCL refuses: 17f's
+pair; the exchange's kernels need the group only to trade their handles,
+and a tp step with dp = 1 makes no other collective), runs CASE and
+writes DIR/rank{R}.json (and DIR/rank{R}.npz for arrays).  After
 --dump-after seconds faulthandler prints every thread's stack and ends the
 process, so a rank that stops names where.
 
@@ -32,8 +34,8 @@ the exchange's kernels against NCCL:
 the tp training step, captured against uncaptured:
   tp_step           the flagship stand-in (n = 1024), dp x tp = W / --tp x
                     --tp, make_tp_solve's solve;
-  dress             the dress stand-in (n = 7056), its chunked
-                    value-and-grad, dp 1 x tp W.
+  dress             the dress stand-in (n = 7056), dp 1 x tp W,
+                    `batched_value_and_grad` in chunks (`chunk`).
 --init eager joins with `device_id` and runs one all_reduce on every
 group before anything is captured; lazy leaves NCCL to make each group's
 communicator at its first collective.
@@ -43,6 +45,9 @@ import dataclasses
 import faulthandler
 import json
 import os
+import pathlib
+import socket
+import subprocess
 import sys
 import time
 import traceback
@@ -64,6 +69,24 @@ from diffcloth_tpu_torch.parallel import mesh as pmesh
 from diffcloth_tpu_torch.tasks.registry import (TSHIRT_GRID_STANDIN,
                                                 dress_grid_standin)
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+# the tp step against the plain step, f32 (the row-block product rounds
+# otherwise than the dense one, and the loops' exits follow the rounding):
+# the losses elementwise, each gradient class within F32_RTOL (GRAD_RTOL
+# where it names the class) of the class's largest entry.  dL/dk_pertype:
+# the adjoint stops at its tolerance and the k gradient is a small sum of
+# cancelling terms (on an H100 the plain step's own moved by 2.4e-3 of its
+# largest entry between a batch of 2 and of 4 of the same episodes, the
+# tp step's from the plain step's by 6.3e-3).  The start state's
+# per-vertex gradients get 0.25, over three times what the rounding moved
+# them by: on an H100 116 of 6144 entries of dL/dx0 moved by more
+# than 2e-2 of its largest entry, the most by 7.1e-2 (dL/dv0 4.6e-2),
+# with the losses within 7.5e-8 and dL/dwind within 1.8e-7 (the cause not
+# traced); they are held bit for bit between the routes, between the tp
+# ranks and, on one rank, to the plain step.
+F32_RTOL = 1e-4
+GRAD_RTOL = {"k_pertype": 2e-2, "x0": 0.25, "v0": 0.25}
+GRACE_S = 30                # the peers' time to fail after a rank failed
 ROUNDS = 100
 PROBE_B, PROBE_N = 2, 7056
 FLAGSHIP_STEPS = 4
@@ -84,6 +107,139 @@ def join(rank, world, port, device, init, tp, backend):
             dist.all_reduce(torch.ones(1, device="cuda"), group=g)
         torch.cuda.synchronize()
     return mesh
+
+
+# -- the parent: spawning the ranks, checking their results ---------------
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(case, out, devices, limit, tp=None, init="eager",
+              backend="nccl") -> dict:
+    """Run `case` on len(devices) ranks (rank r on card devices[r]) under
+    `limit` seconds: {"outcome": "passed" | "error" | "timeout", "seconds",
+    "ranks": [each rank's JSON], "arrays": [each rank's npz], "logs":
+    {rank: its output's tail}}."""
+    out = pathlib.Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    world, port = len(devices), free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), NCCL_DEBUG="INFO",
+               NCCL_DEBUG_FILE=str(out / "nccl.%p.log"))
+    procs, logs = [], []
+    t0 = time.monotonic()
+    for r, d in enumerate(devices):
+        log = open(out / f"rank{r}.log", "w")
+        logs.append(log)
+        cmd = [sys.executable, "-X", "faulthandler", __file__, case,
+               "--rank", str(r), "--world", str(world), "--port", str(port),
+               "--device", str(d), "--out", str(out), "--init", init,
+               "--backend", backend, "--dump-after", str(limit - 15)]
+        if tp:
+            cmd += ["--tp", str(tp)]
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+    ended = {}                  # rank -> (exit code, seconds)
+    while len(ended) < world and time.monotonic() - t0 < limit:
+        for r, p in enumerate(procs):
+            if r not in ended and p.poll() is not None:
+                ended[r] = (p.returncode, time.monotonic() - t0)
+        failed = [t for rc, t in ended.values() if rc != 0]
+        # a rank that failed leaves its peers waiting: a grace, then stop
+        if failed and time.monotonic() - t0 > min(failed) + GRACE_S:
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for log in logs:
+        log.close()
+    res = {"seconds": time.monotonic() - t0,
+           "logs": {r: (out / f"rank{r}.log").read_text()[-4000:]
+                    for r in range(world)}}
+    # faulthandler ends a rank with exit code 1 after its dump, near the
+    # limit: a failure before that is an error, at it a time-out
+    early = [t for rc, t in ended.values() if rc != 0 and t < limit - 16]
+    if early:
+        res["outcome"] = "error"
+        return res
+    if len(ended) < world or any(rc != 0 for rc, _ in ended.values()):
+        res["outcome"] = "timeout"
+        return res
+    res["outcome"] = "passed"
+    res["ranks"] = [json.loads((out / f"rank{r}.json").read_text())
+                    for r in range(world)]
+    res["arrays"] = [dict(np.load(out / f"rank{r}.npz"))
+                     for r in range(world)]
+    return res
+
+
+def passed(res) -> dict:
+    assert res["outcome"] == "passed", json.dumps(res["logs"], indent=1)
+    return res
+
+
+def check_tp_step(res, tp, name, exchange=True, grad="wind"):
+    """A tp step's ranks (`train`'s results): captured against uncaptured
+    on each rank bit for bit, the programs and (unless the gather is
+    NCCL's) the exchange launched, the gradient `grad` nonzero; against the
+    plain step where the case ran it, bit for bit on one rank (its row
+    block is all of P^{-1}) and on more the losses and the gradients
+    within F32_RTOL (GRAD_RTOL where given); the tp ranks of a
+    group equal to each other bit for bit, with equal body runs in every
+    loop.  Prints the calls' walls and each output's distance from the
+    plain step's."""
+    passed(res)
+    one = len(res["ranks"]) == 1
+    for info, a in zip(res["ranks"], res["arrays"]):
+        cap, unc = info["captured"], info["uncaptured"]
+        assert cap["captured"] and not unc["captured"], name
+        assert cap["launches"] > 0 and unc["launches"] == 0, name
+        assert (cap["kernels"]["peer_exchange"] > 0) == exchange, \
+            cap["kernels"]
+        for k in [k[len("captured_"):] for k in a if
+                  k.startswith("captured_")]:
+            np.testing.assert_array_equal(a["captured_" + k],
+                                          a["uncaptured_" + k],
+                                          err_msg=f"{name}: {k}")
+        assert np.isfinite(a["captured_losses"]).all(), name
+        assert np.abs(a["captured_" + grad]).max() > 0, (name, grad)
+        plain = {k[len("plain_"):]: (a["captured_" + k[len("plain_"):]],
+                                     a[k]) for k in a if k.startswith("plain_")}
+        if plain:
+            print(f"[tp-plain] {name}, rank {info['rank']}: max |tp - "
+                  f"plain| / max |plain| " + json.dumps({
+                      k: float(np.abs(g - r).max() / max(np.abs(r).max(),
+                                                         1e-30))
+                      for k, (g, r) in plain.items()}), flush=True)
+        for k, (got, ref) in plain.items():
+            if one:
+                np.testing.assert_array_equal(got, ref,
+                                              err_msg=f"{name}: {k}")
+            elif k == "losses":
+                np.testing.assert_allclose(got, ref, rtol=F32_RTOL)
+            else:
+                np.testing.assert_allclose(
+                    got, ref, rtol=0, atol=GRAD_RTOL.get(k, F32_RTOL)
+                    * float(np.abs(ref).max()), err_msg=f"{name}: {k}")
+    info = res["ranks"][0]
+    print(f"[tp-rates] {name}: walls of the calls, captured (warm-up, "
+          f"capture, launch) {info['captured']['walls']}, uncaptured "
+          f"(cold, warm) {info['uncaptured']['walls']}; program launches "
+          f"{info['captured']['launches']}, kernels "
+          f"{info['captured']['kernels']}", flush=True)
+    for g0 in range(0, len(res["ranks"]), tp):
+        group = list(zip(res["ranks"], res["arrays"]))[g0:g0 + tp]
+        (i0, a0), rest = group[0], group[1:]
+        for info, a in rest:
+            for k in a0:
+                np.testing.assert_array_equal(a0[k], a[k],
+                                              err_msg=f"{name}: {k}")
+            for tag in ("captured", "uncaptured"):
+                assert info[tag]["body_runs"] == i0[tag]["body_runs"], name
 
 
 # -- the staged probe ------------------------------------------------------
@@ -286,8 +442,8 @@ def flagship_case(mesh, solve_fn, cuda_graphs):
 
 def dress_case(mesh, solve_fn, cuda_graphs):
     """The dress stand-in (84 x 84, n = 7056) at DRESS_STEPS steps, two
-    episodes (the rest state and it displaced by a seeded 1e-3), its
-    chunked value-and-grad on this rank's row block of P^{-1}."""
+    episodes (the rest state and it displaced by a seeded 1e-3), the tp
+    objective in chunks of DRESS_CHUNK steps."""
     from diffcloth_tpu_torch.tasks.setup import build_task
     scene = dataclasses.replace(dress_grid_standin(84), step_num=DRESS_STEPS)
     task = build_task("dress", scene=scene, solve_fn=solve_fn,
@@ -299,12 +455,9 @@ def dress_case(mesh, solve_fn, cuda_graphs):
         *x0.shape)])
     params = base.expand(2).replace(
         x0=torch.as_tensor(x0, dtype=sim.dtype, device=sim.device))
-    vg = sim.episode_value_and_grad_chunked(task.loss_fn(), DRESS_CHUNK,
-                                            batched=True)
-
-    def fn(params, p_inv):
-        return vg(params, p_inv=pmesh._rows(p_inv, mesh.tp_rank, mesh.tp))
-
+    fn = pmesh.batched_value_and_grad(sim, task.loss_fn(), mesh,
+                                      reduce_grads=False, p_inv_spec="tp",
+                                      chunk=DRESS_CHUNK)
     return sim, fn, params, sim.p_inv(base)
 
 
@@ -356,8 +509,10 @@ def train(case, mesh, cuda_graphs_calls):
     if case == "tp_step":
         # the plain step on this rank's card: the whole batch, no tp
         sim, fn, params, _ = flagship_case(mesh, None, None)
-        L, _ = sim.episode_value_and_grad(fn.loss_fn)(params)
+        L, grads = sim.episode_value_and_grad(fn.loss_fn)(params)
         arrays["plain_losses"] = L.cpu().numpy()
+        arrays.update({f"plain_{k}": v.cpu().numpy()
+                       for k, v in grads.items()})
     return arrays, res
 
 
@@ -390,10 +545,11 @@ def main():
         elif args.case == "exchange_time":
             res.update(exchange_time(mesh))
         else:
-            # cuda_graphs None: warm-up, capture, launch; False: once
+            # cuda_graphs None: warm-up, capture, launch; False: a cold
+            # call and a warm one
             arrays, info = train(args.case, mesh,
                                  (("captured", None, 3),
-                                  ("uncaptured", False, 1)))
+                                  ("uncaptured", False, 2)))
             res.update(info)
         dist.barrier()
     except BaseException:
