@@ -237,20 +237,46 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      Then the chunked value-and-grad in f64, card against CPU (a 10 x 10
      folded grid, B = 2, 6 steps, chunk 3) within 1e-6.
 
+ 20. capacity (run after the flagship's phases): the flagship stand-in at
+     drop-free self-collision capacity, `ClothSim(self_max_layers=16,
+     self_compact_layers=16, self_compact_budgets=(n,) * 16)` (16 384
+     slots a sample: the sweeps stream their slot rows from global
+     memory), against the default capacity (256, 128, 64, 64):
+     a. kernels at those shapes (B = 32): both sweeps on the streamed-slot
+        route with the state in shared memory and held to global memory,
+        and detection at K = 64 (rows past 64 hits), against their plain
+        versions exactly, timed beside their bounds;
+     b. forward: `rollout_chunked` (100 steps, chunk 25, captured) at the
+        default capacity, then at drop-free capacity with K = 8, 16, 32 in
+        turn until no step overflows (else the limit that fired is named);
+        PD steps/s, sweeps per step, overflow steps, launches (every
+        drop-free sweep on the streamed route);
+     c. gradient: `OptimizeHelper(chunked)`'s population value-and-grad
+        (wind and x0, the drop-free motion as target) at both capacities,
+        episode-gradient steps/s, launches; how far dL/dwind and dL/dx0
+        move between them (what the dropped contacts cost);
+     d. the ablations "nofric" and "detect_only" (not physical): their PD
+        steps/s beside the full step's, detection once per step and no
+        sweep;
+     e. reference: a 16 x 16 folded grid at drop-free capacity (its sweeps
+        streamed), B = 2, 6 steps, f64: the episode and the chunked
+        value-and-grad, card against CPU within 1e-6.
+
 The CPU sides of the f64 card-vs-CPU references of the sphere, dress,
 multistage and obstacle paths (10d, 12e, 13, 15) run in a process beside
 the card phases (`--cpu-references`, started after the build; a phase
 waits for its side, and the process's failure fails the phase).
 
 `--only PATH,...` runs some of the paths while iterating (flagship:
-phases 2-9, sphere, large, dress, multistage, ladder, obstacles,
-precision, control, graphs, chunked); the acceptance run takes no
-arguments.
+phases 2-9, capacity, sphere, large, dress, multistage, ladder,
+obstacles, precision, control, graphs, chunked); the acceptance run takes
+no arguments.
 
 Prints one JSON line `{"kernels": [...]}` (each kernel's launches counted
 on the path that runs it: the forward path for detection and the forward
 sweep, the gradient path for the backward sweep, phase 11 for the sweeps'
-global-state route, whose entries carry "state": "global", phase 12 for
+global-state route, whose entries carry "state": "global", phase 20 for
+the streamed-slot route, whose entries carry "slots": "stream", phase 12 for
 the dress stand-in's, named with "_dress", phase 17c's loss_and_grad for
 the control path's, named with "_control", and 17f's captured tp step for
 the exchange, which is not a TPU kernel), the nvidia-smi line, and last
@@ -744,9 +770,10 @@ def phase_lstsq_kernel(B, launches, rng):
                 library_ms=lib_ms)
 
 
-def sweep_entries(sweeps, bounds, suffix, state="shared"):
+def sweep_entries(sweeps, bounds, suffix, state="shared", slots="shared"):
     """The JSON line's entries of the two sweeps (names + suffix), from
-    check_sweeps' times at full budget, on the operands' `state` route."""
+    check_sweeps' times at full budget, on the operands' `state` and
+    `slots` routes."""
     out = []
     for name, key, line in (("friction_fwd", "fwd", 255),
                             ("friction_bwd", "bwd", 309)):
@@ -757,15 +784,19 @@ def sweep_entries(sweeps, bounds, suffix, state="shared"):
             source=f"diffcloth_tpu_torch/csrc/{name}.cu",
             replaces=f"diffcloth_tpu/core/friction_pallas.py:{line}",
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None, state=state))
+            bound_ms=bound, bound_by=by, library_ms=None, state=state,
+            slots=slots))
     return out
 
 
-def check_sweeps(tag, kg, masses, f, g, n, cfg, route="shared"):
+def check_sweeps(tag, kg, masses, f, g, n, cfg, route="shared",
+                 slots="shared", force=False):
     """Both friction sweeps against their plain versions on the slot
     geometry kg (full budget) and on the same geometry with every count
-    zero, exactly, on the operands' `route`; each timed (profiler device
-    time and CUDA events) beside the plain version and its byte bound.
+    zero, exactly, on the operands' state `route` and `slots` route (held
+    to that state route when `force`, else the one sweep_operands picks);
+    each timed (profiler device time and CUDA events) beside the plain
+    version and its byte bound.
     Returns ({label: {"fwd"/"bwd": (max error, ms, plain ms, wall ms, plain
     wall ms)}}, {"fwd"/"bwd": (bound ms, bound_by)}, launch floor ms)."""
     import dataclasses
@@ -779,10 +810,12 @@ def check_sweeps(tag, kg, masses, f, g, n, cfg, route="shared"):
     kg0 = dataclasses.replace(kg, counts=torch.zeros_like(kg.counts))
     sweeps = {}
     for label, geom_l in (("with contact", kg), ("zero contact", kg0)):
-        ops = fc.sweep_operands(geom_l, masses, cfg.budgets, n)
-        if ops.route != route:
-            raise AssertionError(f"the sweeps took the {ops.route} route at "
-                                 f"n = {n}, not the {route} one")
+        ops = fc.sweep_operands(geom_l, masses, cfg.budgets, n,
+                                state=route if force else None)
+        if (ops.route, ops.slots) != (route, slots):
+            raise AssertionError(f"the sweeps took the ({ops.route}, "
+                                 f"{ops.slots}) route at n = {n}, not "
+                                 f"({route}, {slots})")
         out_k, vals_k = fc.friction_sweep(f, ops)
         out_p, vals_p = fc.friction_sweep_plain(f, geom_l, *masses,
                                                 cfg.budgets)
@@ -808,7 +841,8 @@ def check_sweeps(tag, kg, masses, f, g, n, cfg, route="shared"):
             raise AssertionError("friction moved a state without contact")
         log(f"[{tag}] friction ({label}): kernel == plain exactly, forward "
             f"(fr', vals) and backward (g' and the three slot cotangents), "
-            f"{route}-state route; {int(geom_l.counts.sum())} active slots, "
+            f"{route}-state route, {slots} slot rows; "
+            f"{int(geom_l.counts.sum())} active slots, "
             f"overflow {int(kg.overflow.sum())}")
         fr = lambda: fc.friction_sweep(f, ops)  # noqa: E731
         fr_plain = lambda: fc.friction_sweep_plain(  # noqa: E731
@@ -3378,7 +3412,8 @@ def reset_graphs(sim):
         g.reset()
 
 
-def check_graph_counts(tag, sim, launches, adjoint=None, tp=False):
+def check_graph_counts(tag, sim, launches, adjoint=None, tp=False,
+                       sweeps=True):
     """The programs' bookkeeping against the counters: each PD body holds
     one forward sweep per PD sweep and each trip body one forward and one
     backward sweep per trip (kernels per body run equal to its length);
@@ -3386,14 +3421,18 @@ def check_graph_counts(tag, sim, launches, adjoint=None, tp=False):
     bodies' device-counted runs x their kernels are the counters, and the
     trip bodies' runs x length the adjoint's trips (adjoint: its trips);
     tp: the step's solve is the tensor-parallel one, whose exchange runs
-    once per PD sweep and per trip too."""
+    once per PD sweep and per trip too; sweeps=False: an ablated step
+    (`self_ablate`), whose bodies hold no sweep."""
     rows = graph_blocks(sim)
     for (name, k), (runs, _, kern) in rows.items():
         want = {"pd": {"friction_fwd": k},
                 "trips": {"friction_fwd": k, "friction_bwd": k}}.get(name)
+        if want is not None and not sweeps:
+            want = {}
         if want is not None and tp:
             want = dict(want, peer_exchange=k)
-        got = {n: c for n, c in kern.items() if not n.endswith("_global")}
+        got = {n: c for n, c in kern.items()
+               if not n.endswith(("_global", "_stream"))}
         if want is not None and got != want:
             raise AssertionError(f"[{tag}] {name}[{k}]: kernels per body "
                                  f"run {kern}, not {want}")
@@ -3920,8 +3959,335 @@ def phase_chunked(card, timed):
         phase_chunked_reference()
 
 
-PATHS = ("flagship", "sphere", "large", "dress", "multistage", "ladder",
-         "obstacles", "precision", "control", "graphs", "chunked")
+# 20: the flagship stand-in at drop-free self-collision capacity
+CAPACITY_K = (8, 16, 32)     # partner slots tried in turn until none drops
+CAPACITY_CHUNK = 25
+CAPACITY_REF = (16, 2, 6)    # the f64 reference: grid, B, steps
+CAPACITY_PILE = 100          # stacked vertices of the K = 64 input
+
+
+def drop_free(n, k=CAPACITY_K[0]):
+    """ClothSim options that drop no self-contact slot on an n-vertex
+    cloth: 16 layering rounds, each with a friction budget of n, and k
+    partner slots per row."""
+    return dict(self_k_partners=k, self_max_layers=16,
+                self_compact_layers=16, self_compact_budgets=(n,) * 16)
+
+
+def phase_capacity_kernels(sim, rng):
+    """20a: the kernels at the flagship's drop-free shapes (B = 32, budgets
+    (n,) * 16: 16 384 slots a sample, past shared memory): both sweeps on
+    the streamed-slot route, the state in shared memory (the route the
+    path takes) and held to global memory, against their plain versions
+    exactly; detection at K = 64 (the kernel's second instantiation) on
+    the folded states with CAPACITY_PILE vertices of the first segment
+    stacked in sample 1 (rows past 64 hits), exactly.  Returns the JSON line's entries of the
+    streamed route."""
+    import torch
+    from diffcloth_tpu_torch.core import friction_cuda as fc
+    from diffcloth_tpu_torch.core import selfcol_cuda as scd
+    from diffcloth_tpu_torch.core.selfcol import layer_tables_from_partners
+
+    dev, cfg, n, h = sim.device, sim.self_cfg, sim.n, sim.h
+    x, v = kernel_states(sim, initial_states(sim, BATCH), rng)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    radii = sim.scene_dev.radii
+    n_pad = cfg.allowed.shape[0]
+    x64 = x.copy()
+    # in the first 512-column segment: hits split across segments may
+    # stop the count at K (csrc/selfcol_detect.cu)
+    pile = np.arange(5, 512, 5)[:CAPACITY_PILE]
+    x64[1, pile] = x64[1, pile[0]]
+    geom64 = scd.build_geom(f32(x64), f32(v), radii, h, n_pad)
+    tab_k = scd.detect_partners(geom64, cfg.allowed, 64)
+    tab_p = scd.detect_partners_plain(geom64, cfg.allowed, 64)
+    torch.cuda.synchronize()
+    if not torch.equal(tab_k, tab_p):
+        bad = (tab_k != tab_p).any(-1).nonzero()[:5].tolist()
+        raise AssertionError(f"detection kernel != plain at K = 64, rows "
+                             f"{bad}")
+    over = int((tab_k[:, :n, 64] > 64).sum())
+    past32 = int((tab_k[:, :n, 32:64] >= 0).any(-1).sum())
+    if over == 0 or past32 == 0:
+        raise AssertionError("the K = 64 input lacks overflow rows or rows "
+                             "past 32 slots")
+    det = lambda: scd.detect_partners(geom64, cfg.allowed, 64)  # noqa: E731
+    det_ms = device_ms(det, kernel="detect_kernel")
+    det_plain_ms = device_ms(
+        lambda: scd.detect_partners_plain(geom64, cfg.allowed, 64), reps=5)
+    det_bytes = (geom64.numel() * 4 + cfg.allowed.numel()
+                 + tab_k.numel() * 4)
+    det_ops = BATCH * int((cfg.allowed > 0).sum()) * DETECT_OPS_PER_PAIR
+    det_bound = max(det_bytes / HBM_BYTES_PER_S, det_ops / F32_FLOPS) * 1e3
+    log(f"[capacity-kernels] detection at K = 64: kernel == plain exactly "
+        f"on (B={BATCH}, n_pad={n_pad}); {over} overflow rows, {past32} "
+        f"rows holding slots past 32; device ms per call kernel "
+        f"{det_ms:.4f} (phase 2 times K = 8), plain "
+        f"{det_plain_ms:.4f}; bound {det_bound:.5f}")
+
+    K = cfg.k_partners
+    geom = scd.build_geom(f32(x), f32(v), radii, h, n_pad)
+    tab = scd.detect_partners(geom, cfg.allowed, K)
+    tables = layer_tables_from_partners(tab[:, :n, :K], cfg.max_layers)
+    kg = fc.build_kernel_geom(tables, sim.scene_dev.area, n, cfg.budgets,
+                              x=f32(x))
+    layers = int((kg.counts > 0).sum(-1).max())
+    if layers < 3:
+        raise AssertionError(f"contact in {layers} layers only")
+    density = torch.full((BATCH,), sim.cfg.fabric.density,
+                         dtype=torch.float32, device=dev)
+    masses = fc.slot_masses(kg, density)
+    f = f32(rng.randn(BATCH, n, 3) * 0.05)
+    g = f32(rng.randn(BATCH, n, 3))
+    log(f"[capacity-kernels] slot geometry at budgets (n,) * 16: TC "
+        f"{kg.idx_row.shape[1]} a sample, contact in up to {layers} "
+        f"layers")
+    sweeps, bounds, _ = check_sweeps("capacity-kernels", kg, masses, f, g,
+                                     n, cfg, route="shared", slots="stream")
+    # global state beside streamed slots: no path of this script takes it
+    # (n past about 19 000 at these budgets), so it stays out of the JSON
+    check_sweeps("capacity-kernels-global", kg, masses, f, g, n, cfg,
+                 route="global", slots="stream", force=True)
+    return sweep_entries(sweeps, bounds, "_stream", "shared", "stream")
+
+
+def capacity_forward(tag, sim, params, card):
+    """A chunked forward of `params` on `sim` (warmed up and captured by a
+    first run), then the timed run between zeroed and read counters;
+    returns (records, PD steps/s, launches, PD sweeps).  The kernels'
+    counts are held to what the programs predict (an ablated sim's bodies
+    hold no sweep)."""
+    import torch
+    sim.rollout_chunked(params, CAPACITY_CHUNK)
+    reset_graphs(sim)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    st = sim.rollout_chunked(params, CAPACITY_CHUNK).steps
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    B, N = params.batch_size, sim.n_steps
+    if not (bool(torch.isfinite(st.x).all()) and float(
+            st.converged.float().mean()) == 1.0):
+        raise AssertionError(f"[{tag}] non-finite or unconverged episode")
+    sweeps = int(pd_sweeps(st.iters.cpu().numpy(), sim).sum())
+    check_graph_counts(tag, sim, launches,
+                       sweeps=sim.self_cfg.ablate == "")
+    return st, B * N / wall, launches, sweeps
+
+
+def capacity_gradient(tag, sim, params, loss_fn):
+    """OptimizeHelper's chunked population value-and-grad (wind and x0) of
+    `params`: a first call (warm-up and capture, its (L, G) kept), then the
+    timed call between zeroed and read counters; returns ((L, G),
+    episode-gradient steps/s, launches, BackwardStats summary)."""
+    import torch
+    from diffcloth_tpu_torch.optim.helper import GradMask, OptimizeHelper
+    helper = OptimizeHelper(sim, GradMask(f_wind=True, x0=True), loss_fn,
+                            param_base=params, chunk=CAPACITY_CHUNK)
+    B = params.batch_size
+    X = np.stack([helper.params_to_vec(params.sample(i)) for i in range(B)])
+    first = helper.batched_loss_and_grad(X)
+    reset_graphs(sim)
+    torch.cuda.synchronize()
+    zero_counters()
+    sim.bwd_stats.reset()
+    t0 = time.perf_counter()
+    L, G = helper.batched_loss_and_grad(X)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    st = sim.bwd_stats.summary()
+    if not (np.array_equal(L, first[0]) and np.array_equal(G, first[1])):
+        raise AssertionError(f"[{tag}] a repeated value-and-grad differs")
+    if not (np.isfinite(L).all() and np.isfinite(G).all()
+            and np.abs(G[:, :3]).max() > 0 and np.abs(G[:, 5:]).max() > 0):
+        raise AssertionError(f"[{tag}] non-finite or zero gradient")
+    check_graph_counts(tag, sim, launches, st["trips"])
+    return (L, G), B * sim.n_steps / wall, launches, st
+
+
+def phase_capacity_reference(devices=("cuda", "cpu")):
+    """20e: a 16 x 16 grid folded half over half at drop-free capacity
+    (budgets (256,) * 16: 4096 slots a sample, past shared memory, so the
+    card's sweeps stream their slot rows), B = 2, 6 steps, f64: the episode
+    and the chunked value-and-grad (chunk 3) on the card against the CPU,
+    within 1e-6 (states) and 1e-6 of each class's largest entry."""
+    import dataclasses
+    import torch
+    from diffcloth_tpu_torch import losses
+    from diffcloth_tpu_torch.config import LossType
+    from diffcloth_tpu_torch.core import friction_cuda as fc
+    from diffcloth_tpu_torch.core.sim import ClothSim
+    from diffcloth_tpu_torch.geometry import builder as gb
+    from diffcloth_tpu_torch.geometry import states
+    from diffcloth_tpu_torch.tasks.registry import TSHIRT_GRID_STANDIN
+
+    grid, B, steps = CAPACITY_REF
+    cfg = TSHIRT_GRID_STANDIN
+    cfg = dataclasses.replace(cfg, step_num=steps, fabric=dataclasses.replace(
+        cfg.fabric, grid_num_x=grid, grid_num_y=grid))
+    scene = gb.build_scene(cfg)
+    x0 = states.folded_grid(scene, grid // 2, 1.5 * float(scene.radii.mean()))
+    out = {}
+    for side, dev in zip(("card", "cpu"), devices):
+        sim = ClothSim(scene, device=dev, dtype=torch.float64,
+                       **drop_free(scene.n))
+        p = sim.default_params().expand(B).replace(
+            x0=torch.as_tensor(np.stack([x0] * B), dtype=torch.float64,
+                               device=dev),
+            wind=torch.tensor([[0.5, 0.05, 0.5], [0.2, 0.0, 0.4]],
+                              dtype=torch.float64, device=dev))
+        if side == "card":
+            zero_counters()
+        recs = sim.rollout(p).steps
+        target = torch.zeros((steps + 1, scene.n, 3), dtype=torch.float64,
+                             device=dev)
+        loss_fn = losses.make_loss_fn(LossType.MATCH_TRAJECTORY,
+                                      losses.LossInfo(target_x=target))
+        L, g = sim.episode_value_and_grad_chunked(loss_fn, 3,
+                                                  batched=True)(p)
+        if side == "card":
+            launches = read_counters()
+        out[side] = (recs, L, {k: v.cpu() for k, v in g.items()
+                               if v is not None})
+    (gr_, gL, gg), (cr, cL, cg) = out["card"], out["cpu"]
+    if int(cr.selfcol_pairs.sum()) == 0 or bool(cr.selfcol_overflow.any()):
+        raise AssertionError("the reference lacks contact or drops some")
+    if launches["friction_fwd_stream"] == 0 or (
+            launches["friction_fwd_stream"] != launches["friction_fwd"]):
+        raise AssertionError(f"the reference's sweeps did not all stream: "
+                             f"{launches}")
+    err = float((gr_.x.cpu() - cr.x).abs().max())
+    rel = grads_rel(cg, gg)
+    lrel = float(((gL.cpu() - cL).abs() / cL.abs()).max())
+    if err > 1e-6 or lrel > 1e-6 or not all(v <= 1e-6 for v in rel.values()):
+        raise AssertionError(f"[capacity-reference] card vs CPU: max |dx| "
+                             f"{err}, loss {lrel}, gradients {rel}")
+    slots = int(cr.selfcol_slots.max())
+    log(f"[capacity-reference] {grid} x {grid} folded grid at budgets "
+        f"({scene.n},) * 16 (TC {fc.layer_specs((scene.n,) * 16)[1]}, the "
+        f"streamed route: {launches['friction_fwd_stream']} forward and "
+        f"{launches['friction_bwd_stream']} backward streamed sweeps), "
+        f"{steps} steps, f64, B={B}: card vs CPU max |dx| {err:.3e}, loss "
+        f"{lrel:.1e}, gradients " + ", ".join(f"{k} {v:.1e}" for k, v in
+                                             rel.items())
+        + f" (tolerance 1e-6); up to {slots} active slots a step")
+
+
+def phase_capacity(card, timed):
+    """20: the flagship stand-in (n = 1024, B = 32, half folded, 100 steps,
+    chunks of 25) at drop-free capacity against the default capacity, all
+    captured.  Returns the JSON line's entries of the streamed route."""
+    import torch
+    N, B, n = FLAGSHIP_STEPS, BATCH, 1024
+    rng = np.random.RandomState(20)
+    with timed("capacity kernels"):
+        entries = phase_capacity_kernels(
+            flagship(torch.float32, "cuda", 10, **drop_free(n, 32)), rng)
+    with timed("capacity forward"):
+        default = flagship(torch.float32, "cuda", N)
+        params = episode_params(default, B)
+        fwd = {"default": capacity_forward("capacity-default", default,
+                                           params, card)}
+        # K: the first of CAPACITY_K at which no folded step overflows
+        tried = {}
+        for K in CAPACITY_K:
+            sim = flagship(torch.float32, "cuda", N, **drop_free(n, K))
+            fwd["drop-free"] = capacity_forward(f"capacity-K{K}", sim,
+                                                params, card)
+            tried[K] = int(fwd["drop-free"][0].selfcol_overflow.sum())
+            if tried[K] == 0:
+                break
+        limit = "none"
+        if tried[K]:
+            # which limit fired: detection's K, or the 16 layering rounds
+            probe = flagship(torch.float32, "cuda", N,
+                             **drop_free(n, 127))
+            left = int(capacity_forward("capacity-K127", probe, params,
+                                        card)[0].selfcol_overflow.sum())
+            limit = (f"the 16 layering rounds ({left} steps at K = 127)"
+                     if left else f"detection's K (none at K = 127)")
+            del probe
+        for name, (st, rate, launches, sweeps) in fwd.items():
+            over = st.selfcol_overflow
+            folded = over[0::2]
+            slots = st.selfcol_slots.cpu().numpy()
+            log(f"[capacity] {name} forward ({N} steps x B={B}, "
+                f"rollout_chunked, chunk {CAPACITY_CHUNK}, captured) on "
+                f"{card}: {rate:.1f} PD steps/s, {sweeps / N:.2f} sweeps "
+                f"per step, overflow in {int(folded.sum())} of "
+                f"{folded.numel()} folded episode-steps ({int(over.sum())} "
+                f"of {over.numel()} in all), contact pairs per step "
+                f"{float(st.selfcol_pairs.float().mean()):.2f}, active "
+                f"slots a sample up to {int(slots.max())}; launches "
+                f"{launches}")
+            check_launches(f"capacity-{name}", launches, N, sweeps)
+        st, _, launches, _ = fwd["drop-free"]
+        if launches["friction_fwd_stream"] != launches["friction_fwd"]:
+            raise AssertionError(f"[capacity] the drop-free sweeps did not "
+                                 f"all stream their slots: {launches}")
+        log(f"[capacity] drop-free K: overflow steps by K {tried}; K = "
+            f"{sim.self_cfg.k_partners}; the limit that fired: {limit}")
+    with timed("capacity gradient"):
+        loss_fn = base_wind_target(sim, params)   # the drop-free motion
+        grads = {}
+        for name, s in (("default", default), ("drop-free", sim)):
+            grads[name] = capacity_gradient(f"capacity-{name}-gradient", s,
+                                            params, loss_fn)
+            (L, G), rate, launches, bst = grads[name]
+            sweeps = fwd[name][3]
+            check_launches(f"capacity-{name}-gradient", launches, N, sweeps,
+                           bst, passes=2)
+            log(f"[capacity] {name} value-and-grad (OptimizeHelper, "
+                f"chunked, captured): {rate:.1f} episode-gradient steps/s; "
+                f"{bst['trips']:.0f} trips, {bst['fallback_lanes']:.0f} of "
+                f"{bst['lane_steps']:.0f} episode-steps to GMRES; launches "
+                f"{launches}")
+        launches_g = grads["drop-free"][2]
+        if launches_g["friction_bwd_stream"] != launches_g["friction_bwd"]:
+            raise AssertionError(f"[capacity] the drop-free backward sweeps "
+                                 f"did not all stream: {launches_g}")
+        (_, Gd), (_, Gf) = grads["default"][0], grads["drop-free"][0]
+        moved = {what: float(np.abs(Gf[:, sl] - Gd[:, sl]).max()
+                             / np.abs(Gf[:, sl]).max())
+                 for what, sl in (("wind", slice(0, 3)),
+                                  ("x0", slice(5, None)))}
+        log(f"[capacity] what the dropped contacts cost: default against "
+            f"drop-free gradient (the drop-free motion as target), max "
+            f"|difference| over the drop-free class's largest entry: "
+            f"dL/dwind {moved['wind']:.3e}, dL/dx0 {moved['x0']:.3e}")
+        entries[0]["launches"] = fwd["drop-free"][2]["friction_fwd_stream"]
+        entries[1]["launches"] = launches_g["friction_bwd_stream"]
+    with timed("capacity ablations"):
+        rates = {"full": fwd["default"][1]}
+        for ablate in ("nofric", "detect_only"):
+            s = flagship(torch.float32, "cuda", N, self_ablate=ablate)
+            st, rate, launches, sweeps = capacity_forward(
+                f"capacity-{ablate}", s, params, card)
+            if (launches["selfcol_detect"] != N
+                    or launches["friction_fwd"] != 0):
+                raise AssertionError(f"[capacity-{ablate}] launches "
+                                     f"{launches}")
+            rates[ablate] = rate
+            log(f"[capacity] ablate {ablate!r} (not physical; profiling "
+                f"only), default capacity: {rate:.1f} PD steps/s, "
+                f"{sweeps / N:.2f} sweeps per step; launches {launches}")
+            del s
+        log(f"[capacity] PD steps/s full {rates['full']:.1f}, nofric "
+            f"{rates['nofric']:.1f}, detect_only {rates['detect_only']:.1f} "
+            f"(the sweep counts differ between them: see sweeps per step)")
+    with timed("capacity reference"):
+        phase_capacity_reference()
+    del default, sim
+    torch.cuda.empty_cache()
+    return entries
+
+
+PATHS = ("flagship", "capacity", "sphere", "large", "dress", "multistage",
+         "ladder", "obstacles", "precision", "control", "graphs", "chunked")
 
 
 def main():
@@ -4031,6 +4397,8 @@ def run_paths(only, args, card):
         for k in kernels:
             k["launches"] = launches[k["name"]]
         kernels.append(lstsq)      # its launches: the gradient path's
+    if "capacity" in only:
+        kernels += phase_capacity(card, timed)
     if "sphere" in only:
         run_sphere(card, timed)
     if "large" in only:

@@ -10,9 +10,14 @@ The TPU `_fwd_kernel` becomes `csrc/friction_fwd.cu` and `_bwd_kernel`
 A step's slot geometry and masses are fixed for all its sweeps and adjoint
 trips, so `sweep_operands` validates them once per step (pure Python, on
 CPU and card tensors alike), caches the kernels' argument struct and picks
-the kernels' route: the sample's (n, 3) state staged in shared memory, or,
-when that does not fit beside the slot rows (n past about 15 000), kept in
-global memory (the `_global` entry points of the same sources).
+the kernels' route, a pair (state, slots): the sample's (n, 3) state
+staged in shared memory, or, when that does not fit beside the slot rows
+(n past about 15 000 at the default budgets), kept in global memory (the
+`_global` entry points of the same sources); the slot rows staged in
+shared memory, or, when they do not fit there (past about 3 000 slots,
+as at the drop-free budgets (n,) * 16 of the flagship), streamed from
+global memory (the `_stream` entry points), with the state in shared
+memory when it fits alone (n up to about 19 000).
 `friction_sweep` / `friction_sweep_bwd` then check only the per-call state
 (and selects) against it, and launch the kernels for CUDA tensors or run
 `friction_sweep_plain` / `friction_sweep_bwd_plain` for CPU tensors.
@@ -24,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -246,16 +252,27 @@ class SweepOperands:
     device: torch.device
     args: object
     route: str            # "shared" or "global": where the state lives
+    slots: str = "shared"   # "shared" or "stream": where the slot rows live
+    max_c_pad: int = 0    # the widest layer (the streamed route's scratch)
 
 
-def sweep_operands(geom: KernelGeom, masses, budgets: tuple,
-                   n: int) -> SweepOperands:
+# the routes (state, slots) in the order they are tried: the first whose
+# backward block fits in shared memory is taken
+ROUTES = (("shared", "shared"), ("global", "shared"), ("shared", "stream"),
+          ("global", "stream"))
+
+
+def sweep_operands(geom: KernelGeom, masses, budgets: tuple, n: int,
+                   state: Optional[str] = None) -> SweepOperands:
     """Validate a step's slot geometry and masses once, for every sweep and
     adjoint trip of the step: contiguous int32 / f32 tensors on one device,
-    of the shapes `budgets` give, and an (n, 3) state whose blocks fit in
-    shared memory.  Pure Python on shapes, dtypes and devices, so CPU
-    tensors are held to it too.  A single geometry (no leading dim, masses
-    (TC,)) becomes a batch of one.  Raises ValueError."""
+    of the shapes `budgets` give, and pick the kernels' route, the first of
+    ROUTES whose blocks fit in shared memory (`state`, "shared" or
+    "global", holds it to that state route, raising when none fits; the
+    tests take the global-state routes at small n).  Pure Python on
+    shapes, dtypes and devices, so CPU tensors are held to it too.  A
+    single geometry (no leading dim, masses (TC,)) becomes a batch of one.
+    Raises ValueError."""
     kred, imr, imp = masses
     if geom.idx_row.dim() == 1:
         geom = KernelGeom(**{f.name: getattr(geom, f.name)[None]
@@ -282,13 +299,20 @@ def sweep_operands(geom: KernelGeom, masses, budgets: tuple,
     max_c_pad = max(c_pad for _, c_pad, _ in specs)
     if n < 1:
         raise ValueError(f"sweep operands: n = {n}")
+    if state not in (None, "shared", "global"):
+        raise ValueError(f"sweep operands: state route {state!r}")
     # the backward block is the larger: the state goes to global memory
-    # when it does not fit there beside the slot rows
-    route = ("shared" if _smem_bytes(n, TC, max_c_pad, L, *BWD_SMEM_ROWS)
-             <= SMEM_LIMIT else "global")
-    if _smem_bytes(0, TC, max_c_pad, L, *BWD_SMEM_ROWS) > SMEM_LIMIT:
-        raise ValueError(f"sweep operands: {TC} slots do not fit the "
-                         f"sweeps' shared memory")
+    # when it does not fit there beside the slot rows, the slot rows when
+    # they do not fit at all
+    for route, slot_route in ROUTES:
+        if (state in (None, route)
+                and _smem_bytes(n if route == "shared" else 0, TC, max_c_pad,
+                                L, *(BWD_SMEM_ROWS if slot_route == "shared"
+                                     else (0, 0, 0))) <= SMEM_LIMIT):
+            break
+    else:
+        raise ValueError(f"sweep operands: no route of n = {n}, {TC} slots "
+                         f"(state {state}) fits the sweeps' shared memory")
     ls = _layer_start(tuple(budgets), dev)
     args = _SweepArgs(*(t.data_ptr() for t in (
         geom.idx_row, geom.idx_part, geom.normalT, kred, imr, imp,
@@ -296,7 +320,8 @@ def sweep_operands(geom: KernelGeom, masses, budgets: tuple,
     return SweepOperands(geom=geom, masses=(kred, imr, imp),
                          budgets=tuple(budgets), state_shape=(B, n, 3),
                          vals_shape=(B, 6, TC), device=dev,
-                         args=ctypes.pointer(args), route=route)
+                         args=ctypes.pointer(args), route=route,
+                         slots=slot_route, max_c_pad=max_c_pad)
 
 
 def _check_call(name: str, t: torch.Tensor, shape: tuple,
@@ -310,20 +335,20 @@ def _check_call(name: str, t: torch.Tensor, shape: tuple,
                          f"{tuple(t.shape)} on {t.device}")
 
 
-# each kernel's launch count (`launch_count`), by route
-_SLOT = {(k, "shared"): k for k in ("friction_fwd", "friction_bwd")}
-_SLOT.update({(k, "global"): k + "_global"
-              for k in ("friction_fwd", "friction_bwd")})
+def _symbol(name: str, ops: SweepOperands) -> str:
+    """A sweep's entry point for the operands' route, which is also its
+    launch count's name (`launch_count`): `name`, `name`_global,
+    `name`_stream or `name`_global_stream."""
+    return (name + ("_global" if ops.route == "global" else "")
+            + ("_stream" if ops.slots == "stream" else ""))
 
 
 @functools.lru_cache(maxsize=None)
-def _load_kernel(name: str, route: str, n_args: int):
-    """A sweep kernel's C entry point for a route (`name`, or
-    `name`_global in the same library), loaded and configured once
-    (argument types and the shared-memory limit), so that a sweep pays
-    neither."""
+def _load_kernel(name: str, symbol: str, n_args: int):
+    """A sweep kernel's C entry point `symbol` in library `name`, loaded and
+    configured once (argument types and the shared-memory limit), so that
+    a sweep pays neither."""
     lib = cuda_build.load(name)
-    symbol = name if route == "shared" else name + "_global"
     init = getattr(lib, symbol + "_init")
     init.argtypes = [ctypes.c_int]
     init.restype = ctypes.c_int
@@ -339,17 +364,22 @@ def friction_sweep(fr, ops: SweepOperands):
     """One layered self-friction sweep on batched slot data: the CUDA
     kernel of the operands' route for CUDA tensors, the plain version for
     CPU tensors.  fr (B, n, 3) f32 -> (fr', vals (B, 6, TC)).  The kernel
-    counts its launches on the device: `launches` reads them, and
-    `global_launches` the global-state route's (`launch_count`)."""
+    counts its launches on the device: `launches` reads them,
+    `global_launches` the global-state routes' and `stream_launches` the
+    streamed-slot routes' (`launch_count`)."""
     _check_call("friction_sweep: fr", fr, ops.state_shape, ops)
     if not fr.is_cuda:
         return friction_sweep_plain(fr, ops.geom, *ops.masses, ops.budgets)
     out = torch.empty_like(fr)
     vals = fr.new_empty(ops.vals_shape)
-    cuda_build.check(_load_kernel("friction_fwd", ops.route, 5)(
+    symbol = _symbol("friction_fwd", ops)
+    # the streamed route keeps a layer's per-slot forces in global memory
+    scratch = ([fr.new_empty((ops.state_shape[0], 3 * ops.max_c_pad))]
+               if ops.slots == "stream" else [])
+    cuda_build.check(_load_kernel("friction_fwd", symbol, 5 + len(scratch))(
         ops.args, fr.data_ptr(), out.data_ptr(), vals.data_ptr(),
-        lc.address(_SLOT["friction_fwd", ops.route], fr.device),
-        torch.cuda.current_stream(fr.device).cuda_stream), "friction_fwd")
+        *(t.data_ptr() for t in scratch), lc.address(symbol, fr.device),
+        torch.cuda.current_stream(fr.device).cuda_stream), symbol)
     return out, vals
 
 
@@ -447,10 +477,16 @@ def friction_sweep_bwd(g, vals, ops: SweepOperands):
     B, _, TC = ops.vals_shape
     out = torch.empty_like(g)
     ck = g.new_empty((3, B, TC))
-    cuda_build.check(_load_kernel("friction_bwd", ops.route, 6)(
+    symbol = _symbol("friction_bwd", ops)
+    # the streamed route keeps a layer's row and partner adds in global
+    # memory
+    scratch = ([g.new_empty((B, 6 * ops.max_c_pad))]
+               if ops.slots == "stream" else [])
+    cuda_build.check(_load_kernel("friction_bwd", symbol, 6 + len(scratch))(
         ops.args, g.data_ptr(), vals.data_ptr(), out.data_ptr(),
-        ck.data_ptr(), lc.address(_SLOT["friction_bwd", ops.route], g.device),
-        torch.cuda.current_stream(g.device).cuda_stream), "friction_bwd")
+        ck.data_ptr(), *(t.data_ptr() for t in scratch),
+        lc.address(symbol, g.device),
+        torch.cuda.current_stream(g.device).cuda_stream), symbol)
     return (out,) + ck.unbind(0)
 
 

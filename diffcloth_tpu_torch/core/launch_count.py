@@ -5,9 +5,9 @@ vector, and adds one to it from one thread of its first block, once per
 launch (`count_launch`, csrc/launch_count.cuh).  So a launch is counted
 where it runs: called from the host, or replayed inside a captured graph,
 where a loop body runs as often as the device decides.  A wrapper's
-`launches` (and the friction sweeps' `global_launches`, their
-global-state route) reads the count, waiting for the device; `zero()`
-zeroes every count.
+`launches` (and the friction sweeps' `global_launches` and
+`stream_launches`, their global-state and streamed-slot routes) reads the
+count, waiting for the device; `zero()` zeroes every count.
 
 A capture runs nothing, so it counts nothing.  `graphs.py` learns which
 kernels a captured segment or loop body holds from `tally`: while it is a
@@ -19,10 +19,12 @@ import functools
 
 import torch
 
-# one count per kernel and route; `named` reports them
-SLOTS = ("friction_fwd", "friction_fwd_global", "friction_bwd",
-         "friction_bwd_global", "selfcol_detect", "hessenberg_lstsq",
-         "peer_exchange")
+# one count per kernel and route (the sweeps' entry points); `named`
+# reports them
+SWEEP_ROUTES = ("", "_global", "_stream", "_global_stream")
+SLOTS = (tuple("friction_fwd" + r for r in SWEEP_ROUTES)
+         + tuple("friction_bwd" + r for r in SWEEP_ROUTES)
+         + ("selfcol_detect", "hessenberg_lstsq", "peer_exchange"))
 _INDEX = {k: i for i, k in enumerate(SLOTS)}
 _counts = {}      # device index -> (len(SLOTS),) int64 tensor
 _zero = [0] * len(SLOTS)   # the device values at the last zero()
@@ -48,11 +50,16 @@ def address(slot: str, device: torch.device) -> int:
 
 def named(per_slot) -> dict:
     """Per-slot counts -> {counter: count}: friction_fwd and friction_bwd
-    count either route's launches, the _global ones the global-state
-    route's."""
-    c = dict(zip(SLOTS, (int(k) for k in per_slot)))
+    count every route's launches, the _global ones the global-state
+    routes' (slots shared or streamed), the _stream ones the streamed-slot
+    routes' (state shared or global)."""
+    raw = dict(zip(SLOTS, (int(k) for k in per_slot)))
+    c = {k: v for k, v in raw.items() if not k.startswith("friction_")}
     for k in ("friction_fwd", "friction_bwd"):
-        c[k] += c[k + "_global"]
+        shared, glob, stream, both = (raw[k + r] for r in SWEEP_ROUTES)
+        c[k] = shared + glob + stream + both
+        c[k + "_global"] = glob + both
+        c[k + "_stream"] = stream + both
     return c
 
 
@@ -76,8 +83,9 @@ def zero() -> None:
 
 class Counted:
     """A kernel's wrapper, called as the function it wraps, whose
-    `launches` reads its kernel's count (either route) and
-    `global_launches` its global-state route's."""
+    `launches` reads its kernel's count (every route), `global_launches`
+    its global-state routes' and `stream_launches` its streamed-slot
+    routes'."""
 
     def __init__(self, fn, counter: str):
         functools.update_wrapper(self, fn)
@@ -93,6 +101,10 @@ class Counted:
     @property
     def global_launches(self) -> int:
         return read_all()[self._counter + "_global"]
+
+    @property
+    def stream_launches(self) -> int:
+        return read_all()[self._counter + "_stream"]
 
 
 def counted(counter: str):

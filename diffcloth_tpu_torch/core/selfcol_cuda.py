@@ -21,7 +21,7 @@ from diffcloth_tpu_torch.core import launch_count as lc
 from diffcloth_tpu_torch.core.selfcol import layer_tables_from_partners
 
 SEGMENT = 512     # column segment of the TPU kernel; n_pad is a multiple
-MAX_K = 32        # largest partner budget the kernel accepts
+MAX_K = 127       # largest partner budget (the JAX kernel's: SLOT_COLS - 1)
 MAX_BATCH = 65535  # largest batch: the kernel's grid has one y-block each
 
 
@@ -145,6 +145,19 @@ def detect_partners(geom: torch.Tensor, allowed: torch.Tensor,
     return out[0] if single else out
 
 
+def detect_table(allowed_sym: torch.Tensor, radii: torch.Tensor,
+                 x: torch.Tensor, v: torch.Tensor, h: float,
+                 k_partners: int):
+    """Symmetric detection alone: x, v (n,3) or (B,n,3) -> (partners
+    (..., n, K) int32, overflow () / (B,) bool: some row exceeded
+    k_partners contacts)."""
+    n = x.shape[-2]
+    geom = build_geom(x, v, radii, h, allowed_sym.shape[0])
+    table = detect_partners(geom, allowed_sym, k_partners)
+    overflow = (table[..., :n, k_partners] > k_partners).any(dim=-1)
+    return table[..., :n, :k_partners], overflow
+
+
 def detect_tables(allowed_sym: torch.Tensor, radii: torch.Tensor,
                   x: torch.Tensor, v: torch.Tensor, h: float,
                   k_partners: int, max_layers: int):
@@ -152,9 +165,6 @@ def detect_tables(allowed_sym: torch.Tensor, radii: torch.Tensor,
     with with_normals=False).  x, v (n,3) or (B,n,3).  Returns
     (SelfContactTables, overflow) with overflow () / (B,) bool: some row
     exceeded k_partners contacts."""
-    n = x.shape[-2]
-    geom = build_geom(x, v, radii, h, allowed_sym.shape[0])
-    table = detect_partners(geom, allowed_sym, k_partners)
-    partners = table[..., :n, :k_partners]
-    overflow = (table[..., :n, k_partners] > k_partners).any(dim=-1)
+    partners, overflow = detect_table(allowed_sym, radii, x, v, h,
+                                      k_partners)
     return layer_tables_from_partners(partners, max_layers), overflow

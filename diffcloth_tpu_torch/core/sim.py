@@ -60,7 +60,8 @@ from diffcloth_tpu_torch.core.types import (EpisodeRecords, SceneDev,
 from diffcloth_tpu_torch.geometry import builder as gb
 
 # self-collision capacities, the JAX ClothSim's defaults: partner slots per
-# row (detection), layering rounds, and layers given a friction budget
+# row (detection on its kernel route), layering rounds, and layers given a
+# friction budget
 SELF_K_PARTNERS = 8
 SELF_MAX_LAYERS = 16
 SELF_COMPACT_LAYERS = 4
@@ -141,6 +142,30 @@ def dense_ops_bytes(scene: gb.Scene) -> int:
     return 4 * (2 * T2 * scene.n + 2 * Bn * scene.n + 3 * scene.n * scene.n)
 
 
+def self_budgets(n: int, max_layers: int, compact_layers: int,
+                 budgets: Optional[tuple]) -> tuple:
+    """The per-layer friction slot budgets, as the JAX step's
+    `_compact_budgets` (step.py:440-443): `budgets` or
+    `compact_slot_budgets(min(compact_layers, max_layers))`, each capped at
+    n.  Raises ValueError where the JAX package would fail: max_layers
+    below 1, a budget that is not a non-negative int, or more budgets than
+    layering rounds (the slot geometry reads a layer per budget)."""
+    if not (isinstance(max_layers, int) and max_layers >= 1):
+        raise ValueError(f"self_max_layers {max_layers!r}: at least 1")
+    if not isinstance(compact_layers, int):
+        raise ValueError(f"self_compact_layers {compact_layers!r}: an int")
+    budgets = budgets or sc.compact_slot_budgets(min(compact_layers,
+                                                     max_layers))
+    if not all(isinstance(c, (int, np.integer)) and c >= 0
+               for c in budgets):
+        raise ValueError(f"self_compact_budgets {budgets!r}: non-negative "
+                         f"ints")
+    if len(budgets) > max_layers:
+        raise ValueError(f"self_compact_budgets: {len(budgets)} budgets for "
+                         f"{max_layers} layering rounds")
+    return tuple(min(int(c), n) for c in budgets)
+
+
 class ClothSim:
     """A built scene with its forward step and episode functions (one
     instance per mesh topology, scene config, dtype and device).
@@ -175,11 +200,25 @@ class ClothSim:
     segments uncaptured on the card
     (`jax.disable_jit()`).  The choice is `self.cuda_graphs`; each stage's
     step keeps its programs (`self.graphs`), dropped with the sim.
+
+    Self-collision capacity, the JAX ClothSim's options with its defaults
+    and meanings (sim.py:102-108, step.py:440-451): `self_k_partners`
+    partner slots per row (None: 8; 1-127 with the detection kernel),
+    `self_max_layers` layering rounds, `self_compact_layers` the layers
+    given a friction slot budget and `self_compact_budgets` the budgets
+    (None: `selfcol.compact_slot_budgets(min(compact_layers,
+    max_layers))`, 256, 128, 64, 64 for four), each capped at n; a layer
+    past its budget, or a layer past the last budget, drops contacts and
+    raises `StepAux.selfcol_overflow`.  `(n,) * 16` with 16 compact
+    layers drops none (the sweeps then stream their slot rows from global
+    memory, `friction_cuda.sweep_operands`).  `self_ablate` ("nofric" or
+    "detect_only", see `step.SelfColConfig`) is a profiling knob whose
+    steps are not physical.  The choices are `self_cfg`.
     Not ported, and raising: the gather/scatter operator path
-    (dense_ops=False with sparse_ops=False); the JAX ClothSim's TPU
-    self-collision tuning options (`self_ablate`, `self_friction_unroll`,
-    `self_friction_impl`, `self_compact_*`, `self_max_layers`,
-    `self_k_partners`) are not arguments here."""
+    (dense_ops=False with sparse_ops=False); the JAX ClothSim's options
+    that choose between TPU implementations of one function
+    (`self_friction_unroll`, `self_friction_impl`) are not arguments
+    here."""
 
     def __init__(self, scene: gb.Scene, *, flags: Optional[SimFlags] = None,
                  prims: Optional[ct.PrimitiveSet] = None,
@@ -190,6 +229,11 @@ class ClothSim:
                  sparse_ops: Optional[bool] = None,
                  self_method: Optional[str] = None, self_window: int = 48,
                  self_cap_pairs: Optional[int] = None,
+                 self_k_partners: Optional[int] = None,
+                 self_max_layers: int = SELF_MAX_LAYERS,
+                 self_compact_layers: int = SELF_COMPACT_LAYERS,
+                 self_compact_budgets: Optional[tuple] = None,
+                 self_ablate: str = "",
                  eps_forward: Optional[float] = None,
                  eps_backward: Optional[float] = None,
                  max_forward_iters: Optional[int] = None,
@@ -312,13 +356,23 @@ class ClothSim:
             else:
                 allowed_t = torch.as_tensor(allowed, device=dev)
             del allowed
-            budgets = sc.compact_slot_budgets(SELF_COMPACT_LAYERS)
+            k_partners = (SELF_K_PARTNERS if self_k_partners is None
+                          else self_k_partners)
             self.self_cfg = step_mod.SelfColConfig(
-                allowed=allowed_t, k_partners=SELF_K_PARTNERS,
-                max_layers=SELF_MAX_LAYERS,
-                budgets=tuple(min(c, scene.n) for c in budgets),
+                allowed=allowed_t, k_partners=k_partners,
+                max_layers=self_max_layers,
+                budgets=self_budgets(scene.n, self_max_layers,
+                                     self_compact_layers,
+                                     self_compact_budgets),
                 method=self_method, window=min(self_window, scene.n - 1),
-                cap_pairs=self_cap_pairs or max(128, scene.n // 2))
+                cap_pairs=self_cap_pairs or max(128, scene.n // 2),
+                ablate=self_ablate)
+            if self_method == "kernel" and not (
+                    isinstance(k_partners, (int, np.integer))
+                    and 1 <= k_partners <= scd.MAX_K):
+                raise ValueError(f"self_k_partners {k_partners!r}: the "
+                                 f"detection kernel takes 1-{scd.MAX_K} "
+                                 f"(the JAX package's bound)")
 
         # one step per stage; the stages count their adjoint's work together
         self.bwd_stats = step_mod.BackwardStats()

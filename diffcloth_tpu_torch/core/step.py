@@ -24,9 +24,12 @@ its default `fp` mode (:659-830).  Options, as the JAX package's:
   * `flags.adjoint_mode`: "fp" (the reference's fixed point with a GMRES
     fallback) or "gmres" (restarted preconditioned GMRES as the primary
     solver, step.py:704-757).
-  The JAX package's self-collision profiling and TPU tuning options
-  (`ablate`, `friction_unroll`, `friction_impl`, `compact_*`) are not
-  ported.
+  * self-collision capacity (`SelfColConfig`): partner slots per row
+    `k_partners`, layering rounds `max_layers`, per-layer friction slot
+    budgets `budgets`, and the profiling ablation `ablate` ("nofric",
+    "detect_only"; step.py:365, :459-460, :491-545).  The JAX package's
+    TPU tuning options that choose between implementations of one
+    function (`friction_unroll`, `friction_impl`) are not ported.
 
 Forward: velocity-based projective dynamics with dry frictional contact
 (Simulation::step, Simulation.cpp:1043-1428):
@@ -112,6 +115,10 @@ GMRES_CYCLES = 3
 PARAM_FIELDS = tuple(f.name for f in dataclasses.fields(SimParams))
 
 
+# the profiling ablations of the self-collision pipeline ("" = none)
+ABLATIONS = ("", "nofric", "detect_only")
+
+
 @dataclasses.dataclass
 class SelfColConfig:
     """Static self-collision configuration.  method "kernel": `allowed` is
@@ -121,7 +128,13 @@ class SelfColConfig:
     `window` the sorted-order window and `cap_pairs` the pair capacity of a
     step (None: max(128, n // 2)).  The JAX package's "matrix" and
     "pallas" methods are both the kernel here (its CPU route is the
-    kernel's plain version) and raise."""
+    kernel's plain version) and raise.
+
+    `ablate`, the JAX package's build-time profiling knob: "" the full
+    pipeline; "nofric" detection, layering and slot geometry every step
+    but self-friction never applied; "detect_only" detection every step
+    (kept live through the overflow flag), nothing after it.  Ablated
+    steps are not physical: profiling only."""
     allowed: torch.Tensor
     k_partners: int         # partner slots per row (detection kernel)
     max_layers: int         # layering rounds
@@ -129,6 +142,7 @@ class SelfColConfig:
     method: str = "kernel"
     window: int = 48
     cap_pairs: Optional[int] = None
+    ablate: str = ""
 
     def __post_init__(self):
         if self.method not in ("kernel", "sweep"):
@@ -136,6 +150,9 @@ class SelfColConfig:
                 f"self-collision method {self.method!r}: the port has "
                 f"'kernel' (the JAX package's 'pallas' and 'matrix'; on the "
                 f"CPU it runs the kernel's plain version) and 'sweep'")
+        if self.ablate not in ABLATIONS:
+            raise ValueError(f"self-collision ablate {self.ablate!r}: one "
+                             f"of {ABLATIONS}")
 
 
 @dataclasses.dataclass
@@ -433,6 +450,9 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
     use_obstacles = flags.contact_enabled and prims.n > 0
     use_self = (flags.contact_enabled and flags.self_collision_enabled
                 and self_cfg is not None)
+    # the friction sweeps run but with either ablation (step.py:365); the
+    # prologue builds the slot geometry but with ablate "detect_only"
+    self_fric = use_self and self_cfg.ablate == ""
     # friction runs in every sweep (step.py:294-297)
     has_contact = use_obstacles or use_self
     uses_cg = solve_mode == "cg" and solve_fn is None
@@ -541,7 +561,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
             r = ct.obstacle_friction(f, contact, m, mu)
         else:
             r = torch.zeros_like(f)
-        if use_self:
+        if self_fric:
             r = fc.self_friction(f, ops, r)
         return r
 
@@ -571,7 +591,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         return ct.ContactSet(*(st[k] for k in CONTACT_ENTRIES))
 
     def geom_of(st):
-        if not use_self:
+        if not self_fric:
             return None
         return fc.KernelGeom(**{k: st[k] for k in GEOM_ENTRIES},
                              overflow=None)
@@ -580,7 +600,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         """st["ops"]: the sweep operands over st's slot geometry and masses,
         validated once per dict when captured (their kernel argument struct
         points at the static buffers), once per call uncaptured."""
-        if use_self and (not graphs.enabled or "ops" not in st):
+        if self_fric and (not graphs.enabled or "ops" not in st):
             st["ops"] = fc.sweep_operands(geom_of(st), (st["kred"], st["imr"],
                                                         st["imp"]),
                                           self_cfg.budgets, n)
@@ -592,7 +612,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         out = dict(m=m, f_ext=external_force(params, m, st["t"],
                                              st["step_idx"]))
         out.update({f"y{i}": y for i, y in enumerate(apply_A(st["x_n"]))})
-        if use_self:
+        if self_fric:
             out.update(zip(("kred", "imr", "imp"),
                            fc.slot_masses(geom_of(st), params.density)))
         return out
@@ -623,7 +643,18 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         overflow = torch.zeros(B, dtype=torch.bool, device=x_n.device)
         pairs = torch.zeros(B, dtype=torch.int64, device=x_n.device)
         slots = torch.zeros(B, dtype=torch.int32, device=x_n.device)
-        if use_self:
+        if use_self and self_cfg.ablate == "detect_only":
+            # ablate "detect_only": detection alone, its overflow flag the
+            # step's (step.py:515-520, :540-543)
+            if self_cfg.method == "sweep":
+                overflow = sc.detect_self_collisions_sweep(
+                    self_cfg.allowed, scene.radii, x_n, v_iter0, h,
+                    self_cfg.window, cap_pairs).overflow
+            else:
+                overflow = scd.detect_table(
+                    self_cfg.allowed, scene.radii, x_n, v_iter0, h,
+                    self_cfg.k_partners)[1]
+        elif use_self:
             if self_cfg.method == "sweep":
                 cs = sc.detect_self_collisions_sweep(
                     self_cfg.allowed, scene.radii, x_n, v_iter0, h,
@@ -642,8 +673,9 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
             pairs = (tables.partner >= 0).sum(dim=(1, 2)) // 2
             slots = geom.counts.sum(dim=1, dtype=torch.int32)
             out.update({k: getattr(geom, k) for k in GEOM_ENTRIES})
-            out.update(zip(("kred", "imr", "imp"),
-                           fc.slot_masses(geom, params.density)))
+            if self_fric:
+                out.update(zip(("kred", "imr", "imp"),
+                               fc.slot_masses(geom, params.density)))
         zeros = lambda dt: torch.zeros(B, dtype=dt, device=x_n.device)  # noqa
         out.update(
             m=m, f_ext=f_ext,
@@ -743,7 +775,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                                          CONTACT_ENTRIES))
                          if use_obstacles else None),
                 geom=(fc.KernelGeom(**{k: take(st[k]) for k in GEOM_ENTRIES},
-                                    overflow=None) if use_self else None))
+                                    overflow=None) if self_fric else None))
         return take(st["x_new"]), take(st["v_new"]), aux, frozen
 
     # -- the residual and the K map ------------------------------------------
@@ -767,7 +799,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         R = m[..., None] * v_new + Cv - btilde
         if has_contact:
             ops = None
-            if use_self:
+            if self_fric:
                 ops = fc.sweep_operands(
                     frozen.geom, fc.slot_masses(frozen.geom, params.density),
                     self_cfg.budgets, n)
@@ -977,7 +1009,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                 grads = torch.autograd.grad(R, list(leaves.values()), lam,
                                             allow_unused=True)
             _count(st, "residual_vjps", 1)
-            if use_self:
+            if self_fric:
                 # every (dK/dv)^T product and the residual VJP sweep once
                 _count(st, "slot_launches",
                        st["counts"].sum() * (st["n_kdv"] + 1))
@@ -1004,7 +1036,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
             more.update(zip(CONTACT_ENTRIES, (
                 frozen.contact.mask, frozen.contact.normal,
                 frozen.contact.v_out, frozen.contact.prim_id)))
-        if use_self:
+        if self_fric:
             more.update({k: getattr(frozen.geom, k) for k in GEOM_ENTRIES})
         st = bind_inputs(key, *(a.detach() for a in (x_n, v_n, x_fixed)),
                          p_inv, t, step_idx,

@@ -46,6 +46,16 @@
 // reads and adds into the slot rows' vertices of g_out in global memory,
 // with the same read, row and partner passes and __syncthreads() between
 // them; bit-equal to the plain version.
+//
+// The streamed-slot routes (friction_bwd_stream, friction_bwd_global_stream),
+// for slot rows too large for shared memory, as the forward's: the slot
+// rows and vals are read from global memory, the three slot cotangents
+// written straight into ck_out, the row and partner adds kept in a global
+// scratch of (max c_pad, 6) per sample between the read and the add
+// passes, with the same __syncthreads() between them; the cotangent in
+// shared memory when it fits alone, else in g_out; inactive slots'
+// cotangents zeroed by kZeroParts blocks per sample, as the forward's;
+// bit-equal to the plain version.
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
@@ -57,69 +67,116 @@ namespace {
 using friction::kThreads;
 
 // kGlobalState: the cotangent lives in g_out (global memory) instead of
-// shared memory.
-template <bool kGlobalState>
+// shared memory.  kStream: the slot rows, vals, the slot cotangents and the
+// per-slot adds stay in global memory (scratch: (B, max c_pad, 6) f32).
+template <bool kGlobalState, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 friction_bwd_kernel(const friction::SweepGeom g,
                     const float* __restrict__ g_in,
                     const float* __restrict__ vals_in,
                     float* g_out, float* __restrict__ ck_out,
+                    float* __restrict__ scratch,
                     unsigned long long* launches) {
   extern __shared__ __align__(16) unsigned char smem[];
   count_launch(launches);
-  const friction::Smem m =
-      friction::smem_layout(g, kGlobalState ? 0 : g.n, 14, 3, 2);
+  const int rows = kStream ? 0 : 1;
+  const friction::Smem m = friction::smem_layout(
+      g, kGlobalState ? 0 : g.n, 14 * rows, 3 * rows, 2 * rows);
   const int b = blockIdx.x, TC = g.TC, L = g.L;
+  if constexpr (kStream) {
+    if (blockIdx.y > 0) {
+      // a zeroing block: its part of the sample's inactive slots, then done
+      int* cnt = reinterpret_cast<int*>(smem + m.ints);
+      int* ls = cnt + L;
+      for (int i = threadIdx.x; i <= L; i += kThreads) {
+        ls[i] = g.layer_start[i];
+        if (i < L) cnt[i] = g.counts[b * L + i];
+      }
+      __syncthreads();
+      friction::zero_inactive(ck_out + (size_t)b * TC, 3, cnt, ls, L, TC, (size_t)g.B * TC,
+                              blockIdx.y, gridDim.y);
+      return;
+    }
+  }
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float* gs = kGlobalState ? g_out + (size_t)b * 3 * g.n    // (n, 3)
                            : reinterpret_cast<float*>(smem + m.state);
-  int* row_of = reinterpret_cast<int*>(smem + m.slots);       // staged rows
-  int* part_of = row_of + TC;
-  float* nrmT = reinterpret_cast<float*>(part_of + TC);       // (3, TC)
-  float* kr_s = nrmT + 3 * TC;
-  float* mr_s = kr_s + TC;
-  float* mp_s = mr_s + TC;
-  float* vq = mp_s + TC;                                      // (6, TC)
-  float* ck = reinterpret_cast<float*>(smem + m.outs);        // (3, TC)
-  float* ci = ck + TC;
-  float* cp = ci + TC;
-  float* add_row = reinterpret_cast<float*>(smem + m.bufs);   // (c_pad, 3)
-  float* add_part = add_row + 3 * g.max_c_pad;                // (c_pad, 3)
+  const size_t so = (size_t)b * TC;   // slot offset of this sample
+  const size_t sc = (size_t)g.B * TC;   // ck_out's row stride
+  const float* state_in = g_in + (size_t)b * 3 * g.n;
+  const int* row_of;
+  const int* part_of;
+  const float *nrmT, *kr_s, *mr_s, *mp_s, *vq;
+  float *ck, *ci, *cp;   // the slot cotangents, rows `ck_stride` apart
+  float *add_row, *add_part;   // (c_pad, 3) each
+  size_t ck_stride;
+  if constexpr (kStream) {
+    row_of = g.idx_row + so;
+    part_of = g.idx_part + so;
+    nrmT = g.normalT + 3 * so;
+    kr_s = g.kred + so;
+    mr_s = g.imr + so;
+    mp_s = g.imp + so;
+    vq = vals_in + 6 * so;
+    ck_stride = sc;
+    ck = ck_out + so;
+    add_row = scratch + (size_t)b * 6 * g.max_c_pad;
+    if constexpr (kGlobalState) {
+      friction::copy_state(gs, state_in, g.n);   // seen after the sync below
+    } else {
+      const staging::Piece in[] = {{gs, state_in, 12 * g.n}};
+      staging::load(in, bar);
+    }
+  } else {
+    int* rs = reinterpret_cast<int*>(smem + m.slots);         // staged rows
+    int* ps = rs + TC;
+    float* ns = reinterpret_cast<float*>(ps + TC);             // (3, TC)
+    float* ks = ns + 3 * TC;
+    float* ms = ks + TC;
+    float* pms = ms + TC;
+    float* vs = pms + TC;                                      // (6, TC)
+    const staging::Piece slot_rows[] = {
+        {rs, g.idx_row + so, 4 * TC},
+        {ps, g.idx_part + so, 4 * TC},
+        {ns, g.normalT + 3 * so, 12 * TC},
+        {ks, g.kred + so, 4 * TC},
+        {ms, g.imr + so, 4 * TC},
+        {pms, g.imp + so, 4 * TC},
+        {vs, vals_in + 6 * so, 24 * TC}};
+    if constexpr (kGlobalState) {
+      staging::load(slot_rows, bar);
+      friction::copy_state(gs, state_in, g.n);   // seen after the sync below
+    } else {
+      const staging::Piece in[] = {{gs, state_in, 12 * g.n},
+                                   slot_rows[0], slot_rows[1], slot_rows[2],
+                                   slot_rows[3], slot_rows[4], slot_rows[5],
+                                   slot_rows[6]};
+      staging::load(in, bar);
+    }
+    row_of = rs;
+    part_of = ps;
+    nrmT = ns;
+    kr_s = ks;
+    mr_s = ms;
+    mp_s = pms;
+    vq = vs;
+    ck_stride = TC;
+    ck = reinterpret_cast<float*>(smem + m.outs);              // (3, TC)
+    add_row = reinterpret_cast<float*>(smem + m.bufs);
+  }
+  ci = ck + ck_stride;
+  cp = ci + ck_stride;
+  add_part = add_row + 3 * g.max_c_pad;
   int* cnt = reinterpret_cast<int*>(smem + m.ints);
   int* ls = cnt + L;
-
-  const size_t so = (size_t)b * TC;   // slot offset of this sample
-  const float* state_in = g_in + (size_t)b * 3 * g.n;
-  if constexpr (kGlobalState) {
-    const staging::Piece in[] = {
-        {row_of, g.idx_row + so, 4 * TC},
-        {part_of, g.idx_part + so, 4 * TC},
-        {nrmT, g.normalT + 3 * so, 12 * TC},
-        {kr_s, g.kred + so, 4 * TC},
-        {mr_s, g.imr + so, 4 * TC},
-        {mp_s, g.imp + so, 4 * TC},
-        {vq, vals_in + 6 * so, 24 * TC}};
-    staging::load(in, bar);
-    friction::copy_state(gs, state_in, g.n);   // seen after the sync below
-  } else {
-    const staging::Piece in[] = {
-        {gs, state_in, 12 * g.n},
-        {row_of, g.idx_row + so, 4 * TC},
-        {part_of, g.idx_part + so, 4 * TC},
-        {nrmT, g.normalT + 3 * so, 12 * TC},
-        {kr_s, g.kred + so, 4 * TC},
-        {mr_s, g.imr + so, 4 * TC},
-        {mp_s, g.imp + so, 4 * TC},
-        {vq, vals_in + 6 * so, 24 * TC}};
-    staging::load(in, bar);
-  }
   for (int i = threadIdx.x; i <= L; i += kThreads) {
     ls[i] = g.layer_start[i];
     if (i < L) cnt[i] = g.counts[b * L + i];
   }
   __syncthreads();
-  friction::zero_inactive(ck, 3, cnt, ls, L, TC);   // while copies land
-  staging::wait(bar);
+  // while copies land (on the streamed route, part 0 of the zeroing)
+  friction::zero_inactive(ck, 3, cnt, ls, L, TC, ck_stride, 0, gridDim.y);
+  if constexpr (!(kStream && kGlobalState)) staging::wait(bar);
 
   bool synced = true;   // every thread sees the cotangent as it stands
   for (int l = L - 1; l >= 0; --l) {
@@ -167,12 +224,17 @@ friction_bwd_kernel(const friction::SweepGeom g,
     }
     synced = false;
   }
-  const size_t sc = (size_t)g.B * TC;   // ck_out's row stride
-  if constexpr (kGlobalState) {
+  if constexpr (kGlobalState && kStream) {
+    return;   // the cotangent and the slot cotangents are in place
+  } else if constexpr (kGlobalState) {
     const staging::Piece out[] = {
         {ck_out + so, ck, 4 * TC},
         {ck_out + sc + so, ci, 4 * TC},
         {ck_out + 2 * sc + so, cp, 4 * TC}};
+    staging::store(out);
+  } else if constexpr (kStream) {
+    const staging::Piece out[] = {
+        {g_out + (size_t)b * 3 * g.n, gs, 12 * g.n}};
     staging::store(out);
   } else {
     const staging::Piece out[] = {
@@ -184,25 +246,27 @@ friction_bwd_kernel(const friction::SweepGeom g,
   }
 }
 
-template <bool kGlobalState>
+template <bool kGlobalState, bool kStream>
 int init(int max_smem) {
-  return (int)cudaFuncSetAttribute(friction_bwd_kernel<kGlobalState>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   max_smem);
+  return (int)cudaFuncSetAttribute(
+      friction_bwd_kernel<kGlobalState, kStream>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
 }
 
-template <bool kGlobalState>
+template <bool kGlobalState, bool kStream>
 int launch(const friction::SweepGeom* g, const float* g_in, const float* vals,
-           float* g_out, float* ck_out, unsigned long long* launches,
-           void* stream) {
+           float* g_out, float* ck_out, float* scratch,
+           unsigned long long* launches, void* stream) {
   if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1 ||
-      g_in == g_out || !launches)
+      g_in == g_out || !launches || (kStream && !scratch))
     return (int)cudaErrorInvalidValue;
-  const int smem =
-      friction::smem_layout(*g, kGlobalState ? 0 : g->n, 14, 3, 2).bytes;
-  friction_bwd_kernel<kGlobalState>
-      <<<g->B, kThreads, smem, (cudaStream_t)stream>>>(*g, g_in, vals, g_out,
-                                                         ck_out, launches);
+  const int rows = kStream ? 0 : 1;
+  const int smem = friction::smem_layout(*g, kGlobalState ? 0 : g->n,
+                                         14 * rows, 3 * rows, 2 * rows).bytes;
+  friction_bwd_kernel<kGlobalState, kStream>
+      <<<dim3(g->B, kStream ? friction::kZeroParts : 1), kThreads, smem,
+         (cudaStream_t)stream>>>(
+          *g, g_in, vals, g_out, ck_out, scratch, launches);
   return (int)cudaGetLastError();
 }
 
@@ -210,9 +274,17 @@ int launch(const friction::SweepGeom* g, const float* g_in, const float* vals,
 
 // Called once when the library is loaded: lets a launch use up to
 // max_smem bytes of dynamic shared memory (above the 48 KB default).
-extern "C" int friction_bwd_init(int max_smem) { return init<false>(max_smem); }
+extern "C" int friction_bwd_init(int max_smem) {
+  return init<false, false>(max_smem);
+}
 extern "C" int friction_bwd_global_init(int max_smem) {
-  return init<true>(max_smem);
+  return init<true, false>(max_smem);
+}
+extern "C" int friction_bwd_stream_init(int max_smem) {
+  return init<false, true>(max_smem);
+}
+extern "C" int friction_bwd_global_stream_init(int max_smem) {
+  return init<true, true>(max_smem);
 }
 
 // g: the step's slot operands; g_in / g_out (B, n, 3) f32, not the same
@@ -225,7 +297,8 @@ extern "C" int friction_bwd_global_init(int max_smem) {
 extern "C" int friction_bwd(const friction::SweepGeom* g, const float* g_in,
                             const float* vals, float* g_out, float* ck_out,
                             unsigned long long* launches, void* stream) {
-  return launch<false>(g, g_in, vals, g_out, ck_out, launches, stream);
+  return launch<false, false>(g, g_in, vals, g_out, ck_out, nullptr,
+                              launches, stream);
 }
 
 // The global-state route, the same arguments; its shared memory,
@@ -234,5 +307,29 @@ extern "C" int friction_bwd_global(const friction::SweepGeom* g,
                                    const float* g_in, const float* vals,
                                    float* g_out, float* ck_out,
                                    unsigned long long* launches, void* stream) {
-  return launch<true>(g, g_in, vals, g_out, ck_out, launches, stream);
+  return launch<true, false>(g, g_in, vals, g_out, ck_out, nullptr, launches,
+                             stream);
+}
+
+// The streamed-slot routes, with the cotangent in shared memory
+// (friction::smem_layout(g, n, 0, 0, 0)) or in g_out
+// (friction::smem_layout(g, 0, 0, 0, 0)); scratch (B, max_c_pad, 6) f32
+// holds the per-slot row and partner adds of a layer.
+extern "C" int friction_bwd_stream(const friction::SweepGeom* g,
+                                   const float* g_in, const float* vals,
+                                   float* g_out, float* ck_out,
+                                   float* scratch,
+                                   unsigned long long* launches,
+                                   void* stream) {
+  return launch<false, true>(g, g_in, vals, g_out, ck_out, scratch, launches,
+                             stream);
+}
+extern "C" int friction_bwd_global_stream(const friction::SweepGeom* g,
+                                          const float* g_in,
+                                          const float* vals, float* g_out,
+                                          float* ck_out, float* scratch,
+                                          unsigned long long* launches,
+                                          void* stream) {
+  return launch<true, true>(g, g_in, vals, g_out, ck_out, scratch, launches,
+                            stream);
 }

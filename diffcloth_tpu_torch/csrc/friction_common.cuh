@@ -16,6 +16,10 @@ namespace friction {
 constexpr float kMu = 0.1f;     // cloth-cloth friction (Simulation.cpp:666)
 constexpr float kEps = 1e-12f;  // safe_norm guard (constraints.EPS)
 constexpr int kThreads = 256;   // one block of kThreads per sample
+// blocks per sample on the streamed-slot route: the sample's block
+// (blockIdx.y 0) runs the layer chain, and all of them share the zeroing of
+// its inactive slots' outputs in global memory
+constexpr int kZeroParts = 8;
 
 // The slot operands of one step, fixed for all its sweeps and adjoint
 // trips; the wrapper validates them once and passes this struct by pointer
@@ -42,8 +46,8 @@ __host__ __device__ inline int align16(int bytes) {
 // `_smem_bytes` computes the same total): the mbarrier at 0, the
 // (n_state, 3) state (n_state = n on the shared-memory route, 0 on the
 // global-state route), `in_rows` staged slot rows of TC, `out_rows` slot
-// rows built for the store, `bufs` (max c_pad, 3) slot buffers, then counts
-// (L) and layer_start (L + 1).
+// rows built for the store, `bufs` (max c_pad, 3) slot buffers (all three
+// 0 on the streamed-slot route), then counts (L) and layer_start (L + 1).
 struct Smem {
   int state, slots, outs, bufs, ints, bytes;
 };
@@ -75,16 +79,20 @@ __device__ __forceinline__ void copy_state(float* out, const float* in,
     staging::copy_words<uint32_t>(p);
 }
 
-// Zero `rows` slot rows of TC at every slot past its layer's count: the
-// outputs of inactive slots, in one shared-memory pass.
+// Zero `rows` slot rows of TC, `stride` floats apart, at every slot past its
+// layer's count: the outputs of inactive slots, in one pass (over shared
+// memory, or over the outputs in global memory on the streamed-slot route,
+// where `parts` blocks share the pass and this block takes part `part`).
 __device__ __forceinline__ void zero_inactive(float* rows, int n_rows,
                                               const int* cnt, const int* ls,
-                                              int L, int TC) {
-  for (int t = threadIdx.x; t < TC; t += blockDim.x) {
+                                              int L, int TC, size_t stride,
+                                              int part = 0, int parts = 1) {
+  for (int t = part * blockDim.x + threadIdx.x; t < TC;
+       t += parts * blockDim.x) {
     int l = 0;
     while (l + 1 < L && t >= ls[l + 1]) ++l;
     if (t - ls[l] >= cnt[l])
-      for (int r = 0; r < n_rows; ++r) rows[r * TC + t] = 0.0f;
+      for (int r = 0; r < n_rows; ++r) rows[r * stride + t] = 0.0f;
   }
 }
 

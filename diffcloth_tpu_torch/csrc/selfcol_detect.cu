@@ -55,6 +55,11 @@
 //   interleave, so a later column of one lane can tie an earlier column of
 //   another) and lane s takes slot s.  Slots, counts and lists live in
 //   shared memory, the per-row counters in bytes of three registers.
+// - K past 32 (the JAX package's kernel takes up to 127, SLOT_COLS = 128):
+//   a second instantiation, kMaxK = 128, in which lane s takes slots s,
+//   s + 32, s + 64 and s + 96, a row's list holds 160 candidates and each
+//   lane ranks five of them when it is cut; the same order and counts.
+//   K <= 32 launches the kMaxK = 32 instantiation, today's kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,23 +69,32 @@
 namespace {
 
 constexpr int kSegment = 512;   // column segment of the TPU kernel (BJ)
-constexpr int kMaxK = 32;       // largest K the kernel accepts (one lane each)
+constexpr int kLargestK = 127;  // the JAX kernel's bound (SLOT_COLS - 1)
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;   // rows held in each lane's registers
-constexpr int kMinBlocks = 5;     // resident blocks per SM (<= 102 registers)
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 constexpr int kColsPerStep = 32 * 4;   // a warp's columns per step
 constexpr int kGeomRows = 7;    // x, y, z, (x+hv) x, y, z, r
-constexpr int kCap = 64;        // candidates a row's list holds
-static_assert(kCap >= kMaxK + 32 && kCap < 256,
-              "a cut list takes one ballot's appends; fills are bytes");
 static_assert(kRowsPerWarp <= 4, "per-row counters are bytes of one word");
 
+// The instantiation for K up to kMaxK (32: one slot per lane; 128: four).
+template <int kMaxK>
+struct Cfg {
+  static constexpr int kCap = kMaxK + 32;   // candidates a row's list holds
+  static constexpr int kRank = kCap / 32;   // entries each lane ranks
+  static constexpr int kSlotsPerLane = kMaxK / 32;
+  // resident blocks per SM: 5 (<= 102 registers) at K <= 32
+  static constexpr int kMinBlocks = kMaxK == 32 ? 5 : 3;
+  static_assert(kCap < 256, "fills are bytes");
+  static_assert(kMaxK % 32 == 0, "whole slots per lane");
+};
+
+template <int kMaxK>
 struct Shared {
   float geom[2][kGeomRows][kSegment];   // double-buffered segments
-  float cand_d2[kWarps][kRowsPerWarp][kCap];
-  int cand_col[kWarps][kRowsPerWarp][kCap];
+  float cand_d2[kWarps][kRowsPerWarp][Cfg<kMaxK>::kCap];
+  int cand_col[kWarps][kRowsPerWarp][Cfg<kMaxK>::kCap];
   int slot[kWarps][kRowsPerWarp][kMaxK];
   int count[kWarps][kRowsPerWarp];
   float row_geom[kWarps][kRowsPerWarp][6];   // for the hit path
@@ -124,15 +138,16 @@ __device__ __forceinline__ float pair_d2(const float (&xi)[6],
 
 // A warp's candidate list of one row, entries [0, fill) with distinct
 // columns: its `keep` smallest by (d^2, column) move to [0, keep) in that
-// order and the rest are dropped.  Each lane ranks two entries against the
-// whole list.  Returns the entries kept.
+// order and the rest are dropped.  Each lane ranks kRank entries (two at
+// K <= 32) against the whole list.  Returns the entries kept.
+template <int kRank>
 __device__ __forceinline__ int keep_smallest(float* d2s, int* cols, int fill,
                                              int keep, int lane) {
   __syncwarp();
-  float d2[2];
-  int col[2], rank[2];
+  float d2[kRank];
+  int col[kRank], rank[kRank];
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
+  for (int q = 0; q < kRank; ++q) {
     const int e = lane + 32 * q;
     d2[q] = e < fill ? d2s[e] : 0.f;
     col[q] = e < fill ? cols[e] : 0;
@@ -142,12 +157,12 @@ __device__ __forceinline__ int keep_smallest(float* d2s, int* cols, int fill,
     const float dj = d2s[j];
     const int cj = cols[j];
 #pragma unroll
-    for (int q = 0; q < 2; ++q)
+    for (int q = 0; q < kRank; ++q)
       rank[q] += (dj < d2[q]) || (dj == d2[q] && cj < col[q]);
   }
   __syncwarp();
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
+  for (int q = 0; q < kRank; ++q) {
     const int e = lane + 32 * q;
     if (e < fill && rank[q] < keep) {
       d2s[rank[q]] = d2[q];
@@ -160,7 +175,9 @@ __device__ __forceinline__ int keep_smallest(float* d2s, int* cols, int fill,
 
 // One thread: start the bulk copies of segment `seg`'s geometry into its
 // buffer, on that buffer's barrier.
-__device__ __forceinline__ void stage_segment(Shared& sm, const float* g,
+template <int kMaxK>
+__device__ __forceinline__ void stage_segment(Shared<kMaxK>& sm,
+                                              const float* g,
                                               int n_pad, int seg) {
   staging::Piece p[kGeomRows];
 #pragma unroll
@@ -171,13 +188,15 @@ __device__ __forceinline__ void stage_segment(Shared& sm, const float* g,
   staging::arm(p, &sm.bar[seg & 1]);
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int kMaxK>
+__global__ void __launch_bounds__(kThreads, Cfg<kMaxK>::kMinBlocks)
 detect_kernel(const float* __restrict__ geom,
               const int8_t* __restrict__ allowed, int* __restrict__ out,
               int n_pad, int k, unsigned long long* launches) {
+  using C = Cfg<kMaxK>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   count_launch(launches);
-  Shared& sm = *reinterpret_cast<Shared*>(smem_raw);
+  Shared<kMaxK>& sm = *reinterpret_cast<Shared<kMaxK>*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
@@ -197,7 +216,9 @@ detect_kernel(const float* __restrict__ geom,
 #pragma unroll
     for (int c = 0; c < 6; ++c) xi[r][c] = g[(size_t)c * n_pad + row0 + r];
     ri[r] = g[(size_t)6 * n_pad + row0 + r];
-    sm.slot[warp][r][lane] = -1;
+#pragma unroll
+    for (int q = 0; q < C::kSlotsPerLane; ++q)
+      sm.slot[warp][r][lane + 32 * q] = -1;
   }
   if (lane < kRowsPerWarp) {
     sm.count[warp][lane] = 0;
@@ -283,8 +304,9 @@ detect_kernel(const float* __restrict__ geom,
         float* d2s = sm.cand_d2[warp][r];
         int* cols = sm.cand_col[warp][r];
         int fill = byte_of(fills, r);
-        if (fill + __popc(m) > kCap)
-          fill = keep_smallest(d2s, cols, fill, byte_of(keeps, r), lane);
+        if (fill + __popc(m) > C::kCap)
+          fill = keep_smallest<C::kRank>(d2s, cols, fill, byte_of(keeps, r),
+                                         lane);
         if (hit) {
           float xr[6], xc[6];
 #pragma unroll
@@ -314,11 +336,15 @@ detect_kernel(const float* __restrict__ geom,
       int take = 0;
       if (keep > 0) {
         // fill >= min(h, keep): a list is only cut to keep entries
-        take = keep_smallest(sm.cand_d2[warp][r], sm.cand_col[warp][r],
-                             byte_of(fills, r), keep, lane);
-        const int s = lane - count;
-        if (s >= 0 && s < take)
-          sm.slot[warp][r][lane] = sm.cand_col[warp][r][s];
+        take = keep_smallest<C::kRank>(sm.cand_d2[warp][r],
+                                       sm.cand_col[warp][r],
+                                       byte_of(fills, r), keep, lane);
+#pragma unroll
+        for (int q = 0; q < C::kSlotsPerLane; ++q) {
+          const int s = lane + 32 * q - count;
+          if (s >= 0 && s < take)
+            sm.slot[warp][r][lane + 32 * q] = sm.cand_col[warp][r][s];
+        }
       }
       __syncwarp();
       if (lane == 0) sm.count[warp][r] = count + take + max(h - k, 0);
@@ -329,9 +355,34 @@ detect_kernel(const float* __restrict__ geom,
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     int* o = out + ((size_t)blockIdx.y * n_pad + row0 + r) * (k + 1);
-    if (lane < k) o[lane] = sm.slot[warp][r][lane];
+#pragma unroll
+    for (int q = 0; q < C::kSlotsPerLane; ++q)
+      if (lane + 32 * q < k) o[lane + 32 * q] = sm.slot[warp][r][lane + 32 * q];
     if (lane == 0) o[k] = sm.count[warp][r];
   }
+}
+
+}  // namespace
+
+namespace {
+
+template <int kMaxK>
+int init_one() {
+  const int smem = (int)sizeof(Shared<kMaxK>);
+  if (smem <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(
+      detect_kernel<kMaxK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+}
+
+template <int kMaxK>
+int launch(const float* geom, const int8_t* allowed, int* out, int B,
+           int n_pad, int k, unsigned long long* launches, void* stream) {
+  const int smem = (int)sizeof(Shared<kMaxK>);
+  const dim3 grid(n_pad / kRowsPerBlock, B);
+  detect_kernel<kMaxK><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      geom, allowed, out, n_pad, k, launches);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -340,28 +391,24 @@ detect_kernel(const float* __restrict__ geom,
 // shared memory (above the 48 KB default when it is larger), so that a
 // launch, which may sit in a captured graph, sets no attribute.
 extern "C" int selfcol_detect_init() {
-  const int smem = (int)sizeof(Shared);
-  if (smem <= 48 * 1024) return (int)cudaSuccess;
-  return (int)cudaFuncSetAttribute(
-      detect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int err = init_one<32>();
+  return err != (int)cudaSuccess ? err : init_one<128>();
 }
 
 // geom (B, 8, n_pad) f32 rows [x, y, z, x+hv, y+hv, z+hv, r, pad], 16-byte
 // aligned; allowed (n_pad, n_pad) int8, 16-byte aligned; out (B, n_pad,
-// k + 1) int32; launches the kernel's launch count (device memory,
-// core/launch_count.py), one added per launch.  selfcol_detect_init must
-// have run.  Returns the launch's cudaError_t.
+// k + 1) int32, 1 <= k <= 127; launches the kernel's launch count (device
+// memory, core/launch_count.py), one added per launch.  selfcol_detect_init
+// must have run.  Returns the launch's cudaError_t.
 extern "C" int selfcol_detect(const float* geom, const int8_t* allowed,
                               int* out, int B, int n_pad, int k,
                               unsigned long long* launches, void* stream) {
-  if (!launches || B < 1 || B > 65535 || k < 1 || k > kMaxK ||
+  if (!launches || B < 1 || B > 65535 || k < 1 || k > kLargestK ||
       n_pad < kSegment ||
       n_pad % kSegment || reinterpret_cast<uintptr_t>(geom) % 16 ||
       reinterpret_cast<uintptr_t>(allowed) % 16)
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Shared);
-  const dim3 grid(n_pad / kRowsPerBlock, B);
-  detect_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      geom, allowed, out, n_pad, k, launches);
-  return (int)cudaGetLastError();
+  if (k <= 32)
+    return launch<32>(geom, allowed, out, B, n_pad, k, launches, stream);
+  return launch<128>(geom, allowed, out, B, n_pad, k, launches, stream);
 }

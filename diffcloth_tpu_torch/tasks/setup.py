@@ -232,7 +232,7 @@ def build_task(demo: str, dtype=torch.float32, device=None,
     max into a softmax of that temperature (the sock demo); `scene`
     replaces the demo's scene (a grid stand-in of a mesh demo,
     registry.hat_grid_standin); `sim_kwargs` go to ClothSim (its size
-    switches)."""
+    switches and self-collision capacity options)."""
     if demo not in registry.DEMOS:
         raise KeyError(demo)
     device = resolve_device(device)

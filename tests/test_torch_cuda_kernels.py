@@ -19,7 +19,11 @@ cases cover states whose rows are not 16-byte aligned (n % 4 != 0, the
 kernels' plain-load path beside the bulk copies), two-layer budgets, one
 sample, and a batch without contact; the global-state route (a state past
 shared memory, n > 15 226) at n = 15 227 (rows not 16-byte aligned),
-16 384 and 20 001, and the last shared-route width.  The f64 card episode
+16 384 and 20 001, and the last shared-route width; the streamed-slot
+routes (slot rows past shared memory, state shared or global) at the
+flagship's drop-free budgets (n,) * 16 and at n = 16 384 and 20 001 with
+raised budgets, contact in four layers, and detection at K = 40 and 64
+(the kernel's second instantiation) with overflow rows.  The f64 card episode
 is held within
 1e-6 of the CPU one, the f32 friction sweep inside the f64 simulation
 being the only inexact step.
@@ -125,7 +129,7 @@ DETECT_CASES = {
     "main_path": ("cloud", 1024, 32, 8, 20),
     # 200 piled particles: about 100 hits per segment, more than a row's
     # list in the kernel holds (64)
-    "max_k": ("cloud", 1024, 4, scd.MAX_K, 200),
+    "max_k": ("cloud", 1024, 4, 32, 200),
     "lattice_ties": ("lattice", 1024, 4, 8, 0),
     "nan_inf": ("nonfinite", 1024, 3, 8, 0),
     "n512_B1": ("cloud", 512, 1, 8, 20),
@@ -133,6 +137,12 @@ DETECT_CASES = {
     "overflow_both_segments": ("lattice", 600, 3, 4, 0),
     # three segments: each geometry buffer is staged twice
     "three_segments": ("cloud", 1300, 2, 8, 30),
+    # K past 32: the kMaxK = 128 instantiation, rows past K and past 64
+    "k64_pile": ("cloud", 1024, 4, 64, 200),
+    # K = 127, the JAX kernel's bound: 400 piled particles, about 200 hits
+    # per segment, more than a row's list holds at that K (160)
+    "k127_pile": ("cloud", 1024, 4, scd.MAX_K, 400),
+    "k40_three_segments": ("cloud", 1300, 2, 40, 120),
 }
 
 
@@ -158,8 +168,8 @@ def test_detection_kernel_equals_plain(dev, case):
     assert torch.equal(seg_hits.sum(-1) > 0, tab_k[..., K] > 0)
     if pile or kind == "lattice":
         assert (tab_k[:, :n, K] > K).any(), "case has no overflow row"
-    if case == "max_k":
-        assert (seg_hits > 64).any(), "no row outgrows the kernel's list"
+    if case in ("max_k", "k127_pile"):
+        assert (seg_hits > K + 32).any(), "no row outgrows the kernel's list"
     if case == "overflow_both_segments":
         assert ((seg_hits > K).all(-1)).any(), "no row overflows twice"
     if kind == "nonfinite":
@@ -281,18 +291,19 @@ def test_friction_kernels_equal_plain_at_any_width(dev, case):
         assert float((out_p - f).abs().max()) > 0, "friction never acted"
 
 
-def matching_tables(n, B, seed):
-    """Four layers of random matchings, each over its slot budget."""
+def matching_tables(n, B, seed, pairs=(400, 150, 70, 40)):
+    """Layers of random matchings of `pairs` pairs each (by default four,
+    each over its default slot budget)."""
     rng = np.random.RandomState(seed)
     partner = np.full((B, 16, n), -1, np.int64)
     for b in range(B):
-        for lay, count in enumerate((400, 150, 70, 40)):
+        for lay, count in enumerate(pairs):
             perm = rng.permutation(n)[:2 * count]
             i, j = perm[:count], perm[count:]
             partner[b, lay, i] = j
             partner[b, lay, j] = i
     return SelfContactTables(partner=torch.as_tensor(partner),
-                             n_layers=torch.full((B,), 4))
+                             n_layers=torch.full((B,), len(pairs)))
 
 
 GLOBAL_CASES = {
@@ -440,3 +451,71 @@ def test_folded_episode_on_card_matches_cpu(dev):
             assert torch.equal(a, b), f.name
         else:
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+STREAM_CASES = {
+    # n, B, budgets, forced state route, route taken (state, slots), every
+    # count zeroed
+    "n1024_B4_dropfree": (1024, 4, (1024,) * 16, None, ("shared", "stream"),
+                          False),
+    "n1023_B3_dropfree_unaligned": (1023, 3, (1023,) * 16, None,
+                                    ("shared", "stream"), False),
+    "n1024_B3_dropfree_global_state": (1024, 3, (1024,) * 16, "global",
+                                       ("global", "stream"), False),
+    "n1024_B2_dropfree_no_contact": (1024, 2, (1024,) * 16, None,
+                                     ("shared", "stream"), True),
+    "n16384_B2_raised": (16384, 2, (4096,) * 4, None, ("shared", "stream"),
+                         False),
+    "n16384_B2_raised_global_state": (16384, 2, (4096,) * 4, "global",
+                                      ("global", "stream"), False),
+    "n20001_B1_raised": (20001, 1, (4096,) * 4, None, ("global", "stream"),
+                         False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+def test_friction_kernels_equal_plain_with_streamed_slots(dev, case):
+    """Slot rows past shared memory: sweep_operands streams them (the state
+    in shared memory where it fits alone, else in global memory), and both
+    sweeps equal their plain versions exactly, with contact in four layers;
+    each counts its launch on the streamed route (and the global-state
+    one where the state is global)."""
+    n, B, bud, state, route, empty = STREAM_CASES[case]
+    rng = np.random.RandomState(n + B)
+    x = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
+    tables = matching_tables(n, B, n, pairs=(400, 300, 150, 70))
+    tables = SelfContactTables(partner=tables.partner.to(dev),
+                               n_layers=tables.n_layers.to(dev))
+    area = torch.as_tensor(rng.rand(n) + 0.2, dtype=torch.float32,
+                           device=dev)
+    kg = fc.build_kernel_geom(tables, area, n, bud, x=x)
+    assert not bool(kg.overflow.any())
+    if empty:
+        kg = dataclasses.replace(kg, counts=torch.zeros_like(kg.counts))
+    masses = fc.slot_masses(kg, torch.full((B,), 0.3, device=dev))
+    f = torch.as_tensor(rng.randn(B, n, 3) * 0.1, dtype=torch.float32,
+                        device=dev)
+    g = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
+    ops = fc.sweep_operands(kg, masses, bud, n, state=state)
+    assert (ops.route, ops.slots) == route
+    counters = (fc.friction_sweep, fc.friction_sweep_bwd)
+    before = [(c.launches, c.stream_launches, c.global_launches)
+              for c in counters]
+    out_k, vals_k = fc.friction_sweep(f, ops)
+    bwd_k = fc.friction_sweep_bwd(g, vals_k, ops)
+    glob = int(route[0] == "global")
+    assert [(c.launches, c.stream_launches, c.global_launches)
+            for c in counters] == [(a + 1, s + 1, gl + glob)
+                                   for a, s, gl in before]
+    out_p, vals_p = fc.friction_sweep_plain(f, kg, *masses, bud)
+    bwd_p = fc.friction_sweep_bwd_plain(g, kg, *masses, vals_p, bud)
+    torch.cuda.synchronize()
+    for a, b in zip((out_k, vals_k) + bwd_k, (out_p, vals_p) + bwd_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if empty:
+        assert torch.equal(out_k, f) and torch.equal(bwd_k[0], g)
+        assert not any(bool(t.any()) for t in (vals_k,) + bwd_k[1:])
+    else:
+        assert (kg.counts > 0).sum(-1).min() == 4
+        assert float((out_p - f).abs().max()) > 0, "friction never acted"
+        assert float((bwd_p[0] - g).abs().max()) > 0

@@ -106,16 +106,19 @@ BAD_OPERANDS = {
     "masses_of_another_batch": lambda g, m: (
         g, tuple(t[:2].contiguous() for t in m), BUDGETS, N),
     "budgets_of_another_TC": lambda g, m: (g, m, (128, 64, 64), N),
-    "state_beyond_shared_memory": lambda g, m: _slots_filling_smem(20000),
+    "state_beyond_shared_memory": lambda g, m: _slots_filling_smem(20000)
+    + ("shared",),
 }
 
 
 def _slots_filling_smem(n):
-    """A state of n = 20000 alone now takes the global-state route
-    (test_sweep_operands_take_the_global_route_past_shared_memory); what
-    stays refused is a state
-    beyond shared memory whose slot rows alone exceed it too (one layer of
-    4224 slots: 14 staged rows of it take 236 544 bytes)."""
+    """A state of n = 20000 alone takes the global-state route
+    (test_sweep_operands_take_the_global_route_past_shared_memory), and
+    with slot rows that exceed shared memory too (one layer of 4224 slots:
+    14 staged rows of it take 236 544 bytes) the global state and streamed
+    slots (tests/test_torch_capacity.py); what stays refused is that state
+    held to the shared-state route: 20000 x 12 bytes do not fit shared
+    memory even without slot rows."""
     budgets = (4224,)
     TC = 4224
     geom = fc.KernelGeom(
