@@ -243,9 +243,11 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      slots a sample: the sweeps stream their slot rows from global
      memory), against the default capacity (256, 128, 64, 64):
      a. kernels at those shapes (B = 32): both sweeps on the streamed-slot
-        route with the state in shared memory and held to global memory,
-        and detection at K = 64 (rows past 64 hits), against their plain
-        versions exactly, timed beside their bounds;
+        route with the state in shared memory (the global-state streamed
+        route is held to its plain versions in
+        tests/test_torch_cuda_kernels.py at n past 19 000), and detection
+        at K = 64 (rows past 64 hits), against their plain versions
+        exactly, timed beside their bounds;
      b. forward: `rollout_chunked` (100 steps, chunk 25, captured) at the
         default capacity, then at drop-free capacity with K = 8, 16, 32 in
         turn until no step overflows (else the limit that fired is named);
@@ -790,13 +792,12 @@ def sweep_entries(sweeps, bounds, suffix, state="shared", slots="shared"):
 
 
 def check_sweeps(tag, kg, masses, f, g, n, cfg, route="shared",
-                 slots="shared", force=False):
+                 slots="shared"):
     """Both friction sweeps against their plain versions on the slot
     geometry kg (full budget) and on the same geometry with every count
-    zero, exactly, on the operands' state `route` and `slots` route (held
-    to that state route when `force`, else the one sweep_operands picks);
-    each timed (profiler device time and CUDA events) beside the plain
-    version and its byte bound.
+    zero, exactly, on the state `route` and `slots` route that
+    sweep_operands must pick; each timed (profiler device time and CUDA
+    events) beside the plain version and its byte bound.
     Returns ({label: {"fwd"/"bwd": (max error, ms, plain ms, wall ms, plain
     wall ms)}}, {"fwd"/"bwd": (bound ms, bound_by)}, launch floor ms)."""
     import dataclasses
@@ -810,8 +811,7 @@ def check_sweeps(tag, kg, masses, f, g, n, cfg, route="shared",
     kg0 = dataclasses.replace(kg, counts=torch.zeros_like(kg.counts))
     sweeps = {}
     for label, geom_l in (("with contact", kg), ("zero contact", kg0)):
-        ops = fc.sweep_operands(geom_l, masses, cfg.budgets, n,
-                                state=route if force else None)
+        ops = fc.sweep_operands(geom_l, masses, cfg.budgets, n)
         if (ops.route, ops.slots) != (route, slots):
             raise AssertionError(f"the sweeps took the ({ops.route}, "
                                  f"{ops.slots}) route at n = {n}, not "
@@ -3977,11 +3977,11 @@ def drop_free(n, k=CAPACITY_K[0]):
 def phase_capacity_kernels(sim, rng):
     """20a: the kernels at the flagship's drop-free shapes (B = 32, budgets
     (n,) * 16: 16 384 slots a sample, past shared memory): both sweeps on
-    the streamed-slot route, the state in shared memory (the route the
-    path takes) and held to global memory, against their plain versions
-    exactly; detection at K = 64 (the kernel's second instantiation) on
-    the folded states with CAPACITY_PILE vertices of the first segment
-    stacked in sample 1 (rows past 64 hits), exactly.  Returns the JSON line's entries of the
+    the streamed-slot route with the state in shared memory (the route
+    the path takes), against their plain versions exactly; detection at
+    K = 64 (the kernel's second instantiation) on the folded states with
+    CAPACITY_PILE vertices of the first segment stacked in sample 1 (rows
+    past 64 hits), exactly.  Returns the JSON line's entries of the
     streamed route."""
     import torch
     from diffcloth_tpu_torch.core import friction_cuda as fc
@@ -4045,10 +4045,6 @@ def phase_capacity_kernels(sim, rng):
         f"layers")
     sweeps, bounds, _ = check_sweeps("capacity-kernels", kg, masses, f, g,
                                      n, cfg, route="shared", slots="stream")
-    # global state beside streamed slots: no path of this script takes it
-    # (n past about 19 000 at these budgets), so it stays out of the JSON
-    check_sweeps("capacity-kernels-global", kg, masses, f, g, n, cfg,
-                 route="global", slots="stream", force=True)
     return sweep_entries(sweeps, bounds, "_stream", "shared", "stream")
 
 
@@ -4109,7 +4105,7 @@ def capacity_gradient(tag, sim, params, loss_fn):
     return (L, G), B * sim.n_steps / wall, launches, st
 
 
-def phase_capacity_reference(devices=("cuda", "cpu")):
+def phase_capacity_reference():
     """20e: a 16 x 16 grid folded half over half at drop-free capacity
     (budgets (256,) * 16: 4096 slots a sample, past shared memory, so the
     card's sweeps stream their slot rows), B = 2, 6 steps, f64: the episode
@@ -4132,19 +4128,19 @@ def phase_capacity_reference(devices=("cuda", "cpu")):
     scene = gb.build_scene(cfg)
     x0 = states.folded_grid(scene, grid // 2, 1.5 * float(scene.radii.mean()))
     out = {}
-    for side, dev in zip(("card", "cpu"), devices):
+    for side, dev in (("card", "cuda"), ("cpu", "cpu")):
         sim = ClothSim(scene, device=dev, dtype=torch.float64,
                        **drop_free(scene.n))
         p = sim.default_params().expand(B).replace(
             x0=torch.as_tensor(np.stack([x0] * B), dtype=torch.float64,
-                               device=dev),
+                               device=sim.device),
             wind=torch.tensor([[0.5, 0.05, 0.5], [0.2, 0.0, 0.4]],
-                              dtype=torch.float64, device=dev))
+                              dtype=torch.float64, device=sim.device))
         if side == "card":
             zero_counters()
         recs = sim.rollout(p).steps
         target = torch.zeros((steps + 1, scene.n, 3), dtype=torch.float64,
-                             device=dev)
+                             device=sim.device)
         loss_fn = losses.make_loss_fn(LossType.MATCH_TRAJECTORY,
                                       losses.LossInfo(target_x=target))
         L, g = sim.episode_value_and_grad_chunked(loss_fn, 3,

@@ -29,7 +29,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
 
 import torch
 
@@ -262,14 +261,12 @@ ROUTES = (("shared", "shared"), ("global", "shared"), ("shared", "stream"),
           ("global", "stream"))
 
 
-def sweep_operands(geom: KernelGeom, masses, budgets: tuple, n: int,
-                   state: Optional[str] = None) -> SweepOperands:
+def sweep_operands(geom: KernelGeom, masses, budgets: tuple,
+                   n: int) -> SweepOperands:
     """Validate a step's slot geometry and masses once, for every sweep and
     adjoint trip of the step: contiguous int32 / f32 tensors on one device,
     of the shapes `budgets` give, and pick the kernels' route, the first of
-    ROUTES whose blocks fit in shared memory (`state`, "shared" or
-    "global", holds it to that state route, raising when none fits; the
-    tests take the global-state routes at small n).  Pure Python on
+    ROUTES whose blocks fit in shared memory.  Pure Python on
     shapes, dtypes and devices, so CPU tensors are held to it too.  A
     single geometry (no leading dim, masses (TC,)) becomes a batch of one.
     Raises ValueError."""
@@ -299,20 +296,17 @@ def sweep_operands(geom: KernelGeom, masses, budgets: tuple, n: int,
     max_c_pad = max(c_pad for _, c_pad, _ in specs)
     if n < 1:
         raise ValueError(f"sweep operands: n = {n}")
-    if state not in (None, "shared", "global"):
-        raise ValueError(f"sweep operands: state route {state!r}")
     # the backward block is the larger: the state goes to global memory
     # when it does not fit there beside the slot rows, the slot rows when
     # they do not fit at all
     for route, slot_route in ROUTES:
-        if (state in (None, route)
-                and _smem_bytes(n if route == "shared" else 0, TC, max_c_pad,
-                                L, *(BWD_SMEM_ROWS if slot_route == "shared"
-                                     else (0, 0, 0))) <= SMEM_LIMIT):
+        if _smem_bytes(n if route == "shared" else 0, TC, max_c_pad, L,
+                       *(BWD_SMEM_ROWS if slot_route == "shared"
+                         else (0, 0, 0))) <= SMEM_LIMIT:
             break
     else:
         raise ValueError(f"sweep operands: no route of n = {n}, {TC} slots "
-                         f"(state {state}) fits the sweeps' shared memory")
+                         f"fits the sweeps' shared memory")
     ls = _layer_start(tuple(budgets), dev)
     args = _SweepArgs(*(t.data_ptr() for t in (
         geom.idx_row, geom.idx_part, geom.normalT, kred, imr, imp,

@@ -6,8 +6,11 @@ kernels in interpret mode), on the same numpy inputs.
 
 The scene: the flagship stand-in's physics on an 8 x 8 grid started folded
 half over half (self-contact from the first step), f64, B = 2 episodes
-(two winds), 4 steps, the forward converged to 1e-11 and the adjoint to
-1e-8.  Cases:
+(two winds), 3 steps, the forward converged to 1e-11 and the adjoint to
+1e-8.  The JAX side of (a) and (b) is one compiled value-and-grad per
+capacity setting whose auxiliary output is the episode's records (the
+JAX package's compiles of its interpret-mode kernels take most of this
+file's time).  Cases:
   (a) tight budgets (8, 4) over two compact layers, which drop contacts
       every step: the states, the overflow flags, the loss and every
       gradient class equal the JAX package's, so the drops are its drops;
@@ -54,7 +57,7 @@ from torch_cpu import one_intra_op_thread  # noqa: F401
 F64 = torch.float64
 GRID = 8
 N = GRID * GRID
-STEPS = 4
+STEPS = 3
 WINDS = np.array([[0.3, 0.1, 0.6], [0.5, 0.05, 0.4]])
 TIGHT = dict(self_compact_layers=2, self_compact_budgets=(8, 4))
 DROP_FREE = dict(self_compact_layers=16, self_compact_budgets=(N,) * 16)
@@ -81,13 +84,17 @@ def scenes():
     return jscene, tscene, x0
 
 
+def port_sim(scenes, **options):
+    return TorchSim(scenes[1], device="cpu", dtype=F64, **options)
+
+
 def make_pair(scenes, **options):
     """The JAX and the port's sims with the same capacity options, the JAX
     episodes' params (one per wind) and the port's batch of them."""
     jscene, tscene, x0 = scenes
     jsim = JaxSim(jscene, dtype=jnp.float64, self_method="pallas",
                   self_friction_impl="pallas", **options)
-    tsim = TorchSim(tscene, device="cpu", dtype=F64, **options)
+    tsim = port_sim(scenes, **options)
     base = jsim.default_params()._replace(x0=jnp.asarray(x0))
     jps = [base._replace(wind=jnp.asarray(w)) for w in WINDS]
     tps = [sim_params_from_numpy({k: np.asarray(v) for k, v in
@@ -111,10 +118,25 @@ def assert_steps_match(jsteps_list, tsteps):
                                       np.asarray(js.selfcol_overflow))
 
 
-def target_of(jsim, jp):
-    """MATCH_TRAJECTORY target: the JAX rollout at another wind."""
-    return np.array(jsim.rollout(jp._replace(
-        wind=jnp.asarray([0.5, 0.05, 0.5]))).full_x())
+def target_of(tsim, tpb):
+    """MATCH_TRAJECTORY target: the port's rollout at another wind."""
+    p = tpb.sample(0).replace(wind=torch.tensor([0.5, 0.05, 0.5],
+                                                dtype=F64))
+    return tsim.rollout(p).full_x().numpy()
+
+
+def jax_records_value_and_grad(jsim, loss_fn):
+    """jp -> (loss, records, gradient) of the JAX episode, one compile for
+    the records and the value-and-grad."""
+    def value(p, p_inv):
+        recs = jsim.simulate(p, p_inv, jsim.x_fixed_seq(p))
+        return loss_fn(recs), recs.steps
+    vg = jax.jit(jax.value_and_grad(value, has_aux=True))
+
+    def run(jp):
+        (L, steps), g = vg(jp, jsim.p_inv(jp))
+        return L, steps, g
+    return run
 
 
 @pytest.mark.parametrize("capacity", ["tight", "drop_free"])
@@ -124,8 +146,15 @@ def test_capacity_matches_jax(scenes, capacity):
     jsim, tsim, jps, tpb = make_pair(scenes, **options)
     budgets = options["self_compact_budgets"]
     assert tsim.self_cfg.budgets == tuple(min(c, N) for c in budgets)
+    target = target_of(tsim, tpb)
+    lf_j = jl.make_loss_fn(jc.LossType.MATCH_TRAJECTORY,
+                           jl.LossInfo(target_x=jnp.asarray(target)))
+    lf_t = tl.make_loss_fn(tc.LossType.MATCH_TRAJECTORY,
+                           tl.LossInfo(target_x=torch.as_tensor(target)))
+    vg = jax_records_value_and_grad(jsim, lf_j)
+    jax_out = [vg(jp) for jp in jps]
     recs = tsim.rollout(tpb).steps
-    assert_steps_match([jsim.rollout(p).steps for p in jps], recs)
+    assert_steps_match([steps for _, steps, _ in jax_out], recs)
     assert (recs.selfcol_pairs > 0).all(), "a step lacks self-contact"
     overflow = recs.selfcol_overflow
     if capacity == "tight":
@@ -135,16 +164,9 @@ def test_capacity_matches_jax(scenes, capacity):
         # every layer's contacts hold a slot: the slots are the pairs' rows
         assert torch.equal(recs.selfcol_slots.long(),
                            2 * recs.selfcol_pairs)
-    target = target_of(jsim, jps[0])
-    lf_j = jl.make_loss_fn(jc.LossType.MATCH_TRAJECTORY,
-                           jl.LossInfo(target_x=jnp.asarray(target)))
-    lf_t = tl.make_loss_fn(tc.LossType.MATCH_TRAJECTORY,
-                           tl.LossInfo(target_x=torch.as_tensor(target)))
     L_t, g_t = tsim.episode_value_and_grad(lf_t)(tpb)
     g_t = sim_params_to_numpy(g_t)
-    vg = jsim.episode_value_and_grad(lf_j)
-    for b, jp in enumerate(jps):
-        L_j, g_j = vg(jp)
+    for b, (L_j, _, g_j) in enumerate(jax_out):
         np.testing.assert_allclose(float(L_t[b]), float(L_j), rtol=1e-6)
         for name, a in g_t.items():
             ref = np.asarray(getattr(g_j, name))
@@ -157,8 +179,8 @@ def test_capacity_matches_jax(scenes, capacity):
 def test_drop_free_capacity_moves_the_episode(scenes):
     """The tight budgets' drops are real: their episode departs from the
     drop-free one's."""
-    _, tight, _, tpb = make_pair(scenes, **TIGHT)
-    _, free, _, _ = make_pair(scenes, **DROP_FREE)
+    _, _, _, tpb = make_pair(scenes)
+    tight, free = port_sim(scenes, **TIGHT), port_sim(scenes, **DROP_FREE)
     x_tight = tight.rollout(tpb).steps.x
     x_free = free.rollout(tpb).steps.x
     assert float((x_tight - x_free).abs().max()) > 1e-6
@@ -176,7 +198,7 @@ def test_ablations_match_jax(scenes, ablate):
         assert not recs.selfcol_pairs.any() and not recs.selfcol_slots.any()
     # self-friction never acts: the ablations give one trajectory
     other = "detect_only" if ablate == "nofric" else "nofric"
-    _, tsim_o, _, _ = make_pair(scenes, self_ablate=other)
+    tsim_o = port_sim(scenes, self_ablate=other)
     torch.testing.assert_close(tsim_o.rollout(tpb).steps.x, recs.x,
                                rtol=0, atol=0)
 
@@ -185,7 +207,8 @@ def test_ablated_gradient_runs_without_sweeps(scenes):
     """The ablated steps' adjoint runs without self-friction: finite
     gradients, no active slot counted by the adjoint."""
     for ablate in ("nofric", "detect_only"):
-        _, tsim, jps, tpb = make_pair(scenes, self_ablate=ablate)
+        _, _, _, tpb = make_pair(scenes)
+        tsim = port_sim(scenes, self_ablate=ablate)
         target = torch.zeros((STEPS + 1, N, 3), dtype=F64)
         lf = tl.make_loss_fn(tc.LossType.MATCH_TRAJECTORY,
                              tl.LossInfo(target_x=target))
@@ -212,15 +235,13 @@ def slot_geometry(n, B, budgets, pairs=(400, 300, 150, 70), seed=0):
 
 
 ROUTE_CASES = {
-    # n, budgets, forced state route, (state, slots) taken
-    "flagship_default": (1024, (256, 128, 64, 64), None, ("shared",
-                                                          "shared")),
-    "flagship_drop_free": (1024, (1024,) * 16, None, ("shared", "stream")),
-    "flagship_drop_free_global_state": (1024, (1024,) * 16, "global",
-                                        ("global", "stream")),
-    "large_default": (16384, (256, 128, 64, 64), None, ("global", "shared")),
-    "large_raised": (16384, (4096,) * 4, None, ("shared", "stream")),
-    "past_shared_state": (20001, (4096,) * 4, None, ("global", "stream")),
+    # n, budgets, (state, slots) taken
+    "flagship_default": (1024, (256, 128, 64, 64), ("shared", "shared")),
+    "flagship_drop_free": (1024, (1024,) * 16, ("shared", "stream")),
+    "dress_drop_free": (7056, (7056,) * 16, ("shared", "stream")),
+    "large_default": (16384, (256, 128, 64, 64), ("global", "shared")),
+    "large_raised": (16384, (4096,) * 4, ("shared", "stream")),
+    "past_shared_state": (20001, (4096,) * 4, ("global", "stream")),
 }
 
 
@@ -229,9 +250,9 @@ def test_sweep_operands_stream_slots_past_shared_memory(case):
     """(d): the first route whose blocks fit is taken; slot rows past
     shared memory are streamed, not refused; the CPU wrappers still run
     the plain versions on those operands."""
-    n, budgets, state, route = ROUTE_CASES[case]
+    n, budgets, route = ROUTE_CASES[case]
     geom, masses, rng = slot_geometry(n, 1, budgets)
-    ops = fc.sweep_operands(geom, masses, budgets, n, state=state)
+    ops = fc.sweep_operands(geom, masses, budgets, n)
     assert (ops.route, ops.slots) == route
     if route[1] == "stream":
         # the staged slot rows would not fit beside any state
@@ -247,14 +268,30 @@ def test_sweep_operands_stream_slots_past_shared_memory(case):
     assert float((out - f).abs().max()) > 0
 
 
+def empty_geometry(L):
+    """Slot geometry of L one-slot layers with no contact, one sample."""
+    _, TC = fc.layer_specs((1,) * L)
+    geom = fc.KernelGeom(
+        idx_row=torch.full((1, TC), -1, dtype=torch.int32),
+        idx_part=torch.full((1, TC), -1, dtype=torch.int32),
+        normalT=torch.zeros((1, 3, TC)), area_row=torch.zeros((1, TC)),
+        area_part=torch.zeros((1, TC)),
+        counts=torch.zeros((1, L), dtype=torch.int32),
+        overflow=torch.zeros(1, dtype=torch.bool))
+    return geom, fc.slot_masses(geom, torch.full((1,), 0.3)), (1,) * L
+
+
 def test_sweep_operands_refuse_a_route_that_does_not_fit():
-    """A state past shared memory held to the shared-state route raises;
-    so does an unknown state route."""
-    geom, masses, _ = slot_geometry(20001, 1, (4096,) * 4)
+    """Past the last route, (global, stream), only each layer's count and
+    start stay in shared memory: the longest layer chain they fit takes
+    that route at a state past shared memory, one layer more raises."""
+    last = max(L for L in range(20000, 40000)
+               if fc._smem_bytes(0, 128 * L, 128, L, 0, 0, 0)
+               <= fc.SMEM_LIMIT)
+    ops = fc.sweep_operands(*empty_geometry(last), 20001)
+    assert (ops.route, ops.slots) == ("global", "stream")
     with pytest.raises(ValueError):
-        fc.sweep_operands(geom, masses, (4096,) * 4, 20001, state="shared")
-    with pytest.raises(ValueError):
-        fc.sweep_operands(geom, masses, (4096,) * 4, 20001, state="local")
+        fc.sweep_operands(*empty_geometry(last + 1), 20001)
 
 
 def pile_config(n=600, pile=150, seed=3):

@@ -454,22 +454,21 @@ def test_folded_episode_on_card_matches_cpu(dev):
 
 
 STREAM_CASES = {
-    # n, B, budgets, forced state route, route taken (state, slots), every
-    # count zeroed
-    "n1024_B4_dropfree": (1024, 4, (1024,) * 16, None, ("shared", "stream"),
+    # n, B, budgets, route taken (state, slots), every count zeroed
+    "n1024_B4_dropfree": (1024, 4, (1024,) * 16, ("shared", "stream"),
                           False),
-    "n1023_B3_dropfree_unaligned": (1023, 3, (1023,) * 16, None,
+    "n1023_B3_dropfree_unaligned": (1023, 3, (1023,) * 16,
                                     ("shared", "stream"), False),
-    "n1024_B3_dropfree_global_state": (1024, 3, (1024,) * 16, "global",
-                                       ("global", "stream"), False),
-    "n1024_B2_dropfree_no_contact": (1024, 2, (1024,) * 16, None,
+    "n1024_B2_dropfree_no_contact": (1024, 2, (1024,) * 16,
                                      ("shared", "stream"), True),
-    "n16384_B2_raised": (16384, 2, (4096,) * 4, None, ("shared", "stream"),
+    "n16384_B2_raised": (16384, 2, (4096,) * 4, ("shared", "stream"),
                          False),
-    "n16384_B2_raised_global_state": (16384, 2, (4096,) * 4, "global",
-                                      ("global", "stream"), False),
-    "n20001_B1_raised": (20001, 1, (4096,) * 4, None, ("global", "stream"),
+    "n20001_B1_raised": (20001, 1, (4096,) * 4, ("global", "stream"),
                          False),
+    "n20001_B3_raised": (20001, 3, (4096,) * 4, ("global", "stream"),
+                         False),
+    "n19500_B2_dropfree": (19500, 2, (19500,) * 16, ("global", "stream"),
+                           False),
 }
 
 
@@ -480,7 +479,7 @@ def test_friction_kernels_equal_plain_with_streamed_slots(dev, case):
     sweeps equal their plain versions exactly, with contact in four layers;
     each counts its launch on the streamed route (and the global-state
     one where the state is global)."""
-    n, B, bud, state, route, empty = STREAM_CASES[case]
+    n, B, bud, route, empty = STREAM_CASES[case]
     rng = np.random.RandomState(n + B)
     x = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
     tables = matching_tables(n, B, n, pairs=(400, 300, 150, 70))
@@ -496,7 +495,7 @@ def test_friction_kernels_equal_plain_with_streamed_slots(dev, case):
     f = torch.as_tensor(rng.randn(B, n, 3) * 0.1, dtype=torch.float32,
                         device=dev)
     g = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
-    ops = fc.sweep_operands(kg, masses, bud, n, state=state)
+    ops = fc.sweep_operands(kg, masses, bud, n)
     assert (ops.route, ops.slots) == route
     counters = (fc.friction_sweep, fc.friction_sweep_bwd)
     before = [(c.launches, c.stream_launches, c.global_launches)

@@ -22,6 +22,11 @@ before the limit, and the parent kills what is left.  The cases:
     (`torch_parallel_cuda_worker.check_tp_step`, which says why: the
     row-block product rounds otherwise than the dense one, and the loops'
     exits follow the rounding);
+  * the tp step's f32 distance from the plain step, traced (two
+    processes on one card): on the flagship stand-in and on
+    tests/test_torch_parallel.py's folded contact scene the tp objective
+    equals the plain step given the same row-block products in one
+    process bit for bit; the distance per class is printed;
   * the exchange's kernels against NCCL's all-gather on two cards, bit
     for bit, and both timed;
   * the staged probe of the tp all-gather (skips below two cards): NCCL's
@@ -106,6 +111,53 @@ def test_dress_tp2_chunked_captured(card, tmp_path):
     """dp 1 x tp 2 on two cards, the dress stand-in (n = 7056)."""
     res = run_ranks("dress", tmp_path, cards(2), 900)
     check_tp_step(res, 2, "dress tp 2", grad="x0")
+
+
+def gaps(a, scene, route, rows=slice(None)):
+    """{class: max |route - plain| / max |plain|} over the episodes `rows`
+    of `scene` (the `tp_gap` case's arrays), and of their means (`_mean`,
+    as tests/tp_f32_gap.py measures), for the nonzero classes."""
+    out = {}
+    for k in sorted(k[len(f"{scene}_plain_"):] for k in a
+                    if k.startswith(f"{scene}_plain_")):
+        got = a[f"{scene}_{route}_{k}"][rows]
+        ref = a[f"{scene}_plain_{k}"][rows]
+        if not np.abs(ref).max() > 0:
+            continue
+        out[k] = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if k != "losses":
+            out[k + "_mean"] = float(np.abs(got.mean(0) - ref.mean(0)).max()
+                                     / np.abs(ref.mean(0)).max())
+    return out
+
+
+def test_tp_gap_is_the_row_block_rounding(card, tmp_path):
+    """dp 1 x tp 2 as two gloo processes on one card, f32, on the
+    flagship stand-in and on tests/test_torch_parallel.py's folded contact
+    scene: the tp objective equals, bit for bit, the plain step given the
+    same row-block products in one process (`split_solve`), so its
+    distance from the plain step is the row-block product's rounding
+    carried through the episode.  Prints that distance per class, for
+    the flagship's folded and flat episodes apart, beside the distance
+    that another rounding of the same product (`f64_solve`) makes."""
+    res = passed(run_ranks("tp_gap", tmp_path, [0, 0], 600, tp=2,
+                           backend="gloo"))
+    a0, a1 = res["arrays"]
+    for k in a0:
+        np.testing.assert_array_equal(a0[k], a1[k], err_msg=k)
+        assert np.isfinite(a0[k]).all(), k
+    for k in [k for k in a0 if "_tp_" in k]:
+        np.testing.assert_array_equal(a0[k], a0[k.replace("_tp_", "_split_")],
+                                      err_msg=k)
+    report = {f"{route}_{name}": gaps(a0, scene, route, rows)
+              for route in ("tp", "f64")
+              for name, scene, rows in (
+                  ("flagship_folded", "flagship", slice(0, None, 2)),
+                  ("flagship_flat", "flagship", slice(1, None, 2)),
+                  ("contact", "contact", slice(None)))}
+    print("[tp-gap] max |tp - plain| / max |plain|, f32, "
+          + torch.cuda.get_device_name(0) + ": " + json.dumps(report),
+          flush=True)
 
 
 def test_exchange_matches_nccl_two_ranks(card, tmp_path):

@@ -106,29 +106,29 @@ BAD_OPERANDS = {
     "masses_of_another_batch": lambda g, m: (
         g, tuple(t[:2].contiguous() for t in m), BUDGETS, N),
     "budgets_of_another_TC": lambda g, m: (g, m, (128, 64, 64), N),
-    "state_beyond_shared_memory": lambda g, m: _slots_filling_smem(20000)
-    + ("shared",),
+    "state_beyond_shared_memory": lambda g, m: _slots_filling_smem(20000),
 }
 
 
 def _slots_filling_smem(n):
     """A state of n = 20000 alone takes the global-state route
     (test_sweep_operands_take_the_global_route_past_shared_memory), and
-    with slot rows that exceed shared memory too (one layer of 4224 slots:
-    14 staged rows of it take 236 544 bytes) the global state and streamed
-    slots (tests/test_torch_capacity.py); what stays refused is that state
-    held to the shared-state route: 20000 x 12 bytes do not fit shared
-    memory even without slot rows."""
-    budgets = (4224,)
-    TC = 4224
+    slot rows past shared memory are streamed beside it
+    (tests/test_torch_capacity.py); what both routes still stage in shared
+    memory is each layer's count and start, so a state beyond shared
+    memory with a chain of 29 100 layers (4 x 58 201 bytes of them) stays
+    refused."""
+    budgets = (1,) * 29100
+    specs, TC = fc.layer_specs(budgets)
     geom = fc.KernelGeom(
-        idx_row=torch.full((B, TC), -1, dtype=torch.int32),
-        idx_part=torch.full((B, TC), -1, dtype=torch.int32),
-        normalT=torch.zeros((B, 3, TC)), area_row=torch.zeros((B, TC)),
-        area_part=torch.zeros((B, TC)),
-        counts=torch.zeros((B, 1), dtype=torch.int32),
-        overflow=torch.zeros(B, dtype=torch.bool))
-    return geom, fc.slot_masses(geom, torch.full((B,), 0.3)), budgets, n
+        idx_row=torch.full((1, TC), -1, dtype=torch.int32),
+        idx_part=torch.full((1, TC), -1, dtype=torch.int32),
+        normalT=torch.zeros((1, 3, TC)), area_row=torch.zeros((1, TC)),
+        area_part=torch.zeros((1, TC)),
+        counts=torch.zeros((1, len(budgets)), dtype=torch.int32),
+        overflow=torch.zeros(1, dtype=torch.bool))
+    assert fc._smem_bytes(0, TC, 128, len(budgets), 0, 0, 0) > fc.SMEM_LIMIT
+    return geom, fc.slot_masses(geom, torch.full((1,), 0.3)), budgets, n
 
 
 @pytest.mark.parametrize("case", sorted(BAD_OPERANDS))

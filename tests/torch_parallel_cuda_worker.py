@@ -35,7 +35,16 @@ the tp training step, captured against uncaptured:
   tp_step           the flagship stand-in (n = 1024), dp x tp = W / --tp x
                     --tp, make_tp_solve's solve;
   dress             the dress stand-in (n = 7056), dp 1 x tp W,
-                    `batched_value_and_grad` in chunks (`chunk`).
+                    `batched_value_and_grad` in chunks (`chunk`);
+the tp step's f32 distance from the plain step, traced:
+  tp_gap            dp 1 x tp W on the flagship stand-in (`tp_step`'s
+                    episodes) and on tests/test_torch_parallel.py's 8 x 8
+                    folded contact scene (torch_parallel_worker.py, f32):
+                    the tp objective, the plain one-card step, the plain
+                    step given `split_solve` (the tp ranks' row-block
+                    products computed in one process and stacked) and
+                    given `f64_solve` (the product in f64, rounded once),
+                    every episode's losses and gradients.
 --init eager joins with `device_id` and runs one all_reduce on every
 group before anything is captured; lazy leaves NCCL to make each group's
 communicator at its first collective.
@@ -81,9 +90,12 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # per-vertex gradients get 0.25, over three times what the rounding moved
 # them by: on an H100 116 of 6144 entries of dL/dx0 moved by more
 # than 2e-2 of its largest entry, the most by 7.1e-2 (dL/dv0 4.6e-2),
-# with the losses within 7.5e-8 and dL/dwind within 1.8e-7 (the cause not
-# traced); they are held bit for bit between the routes, between the tp
-# ranks and, on one rank, to the plain step.
+# with the losses within 7.5e-8 and dL/dwind within 1.8e-7.  The `tp_gap`
+# case traces it: the tp objective equals the plain step given the same
+# row-block products bit for bit, and another rounding of the product
+# (`f64_solve`) moves the folded episode's dL/dx0 as far, the flat
+# episode's by under 1e-4.  They are held bit for bit between the
+# routes, between the tp ranks and, on one rank, to the plain step.
 F32_RTOL = 1e-4
 GRAD_RTOL = {"k_pertype": 2e-2, "x0": 0.25, "v0": 0.25}
 GRACE_S = 30                # the peers' time to fail after a rank failed
@@ -412,10 +424,12 @@ def nccl_solve(group):
     return solve
 
 
-def flagship_case(mesh, solve_fn, cuda_graphs):
+def flagship_case(mesh, solve_fn, cuda_graphs, sharded=None):
     """(sim, the objective fn(params, p_inv), params, the full P^{-1}): the
     flagship stand-in cut to FLAGSHIP_STEPS steps, EPISODES_PER_DP
-    perturbed winds per dp rank, even episodes starting folded."""
+    perturbed winds per dp rank, even episodes starting folded.  The step
+    gets this rank's row block of P^{-1} when `sharded` (by default when
+    a `solve_fn` is given)."""
     scene = gb.build_scene(dataclasses.replace(TSHIRT_GRID_STANDIN,
                                                step_num=FLAGSHIP_STEPS))
     sim = ClothSim(scene, device="cuda", dtype=torch.float32,
@@ -433,11 +447,70 @@ def flagship_case(mesh, solve_fn, cuda_graphs):
                          device=sim.device)
     loss_fn = losses.make_loss_fn(LossType.MATCH_TRAJECTORY,
                                   losses.LossInfo(target_x=target))
+    if sharded is None:
+        sharded = solve_fn is not None
     fn = pmesh.batched_value_and_grad(
         sim, loss_fn, mesh, reduce_grads=False,
-        p_inv_spec="tp" if solve_fn is not None else None)
+        p_inv_spec="tp" if sharded else None)
     fn.loss_fn = loss_fn
     return sim, fn, params, sim.p_inv(base)
+
+
+def contact_case(mesh, solve_fn, cuda_graphs, sharded=None):
+    """`flagship_case`'s tuple for tests/test_torch_parallel.py's contact
+    scene (torch_parallel_worker.py: 8 x 8 grid folded half over half,
+    B = 4 winds, 3 steps), f32 on this rank's card."""
+    import torch_parallel_worker as cpu_worker
+    sim = cpu_worker.scene_sim("contact", torch.float32, solve_fn,
+                               device="cuda")
+    base, params = cpu_worker.scene_population("contact", sim)
+    if sharded is None:
+        sharded = solve_fn is not None
+    fn = pmesh.batched_value_and_grad(
+        sim, cpu_worker.loss_fn(sim), mesh, reduce_grads=False,
+        p_inv_spec="tp" if sharded else None)
+    return sim, fn, params, sim.p_inv(base)
+
+
+def split_solve(tp):
+    """The tp solve's arithmetic in one process: the row-block products of
+    `tp` blocks of the full P^{-1}, stacked in the layout the tp ranks'
+    gather gives, (B, n, 3) over a row-major (n, B, 3)."""
+    def solve(p_inv, rhs):
+        m = p_inv.shape[0] // tp
+        blocks = [dn.mm(p_inv[i * m:(i + 1) * m], rhs) for i in range(tp)]
+        if rhs.dim() == 2:
+            return torch.cat(blocks)
+        return torch.cat([b.transpose(0, 1) for b in blocks]).transpose(0, 1)
+    return solve
+
+
+def f64_solve(p_inv, rhs):
+    """P^{-1} rhs computed in f64 and rounded once to f32: the product
+    with other last bits than the f32 GEMM's, in the same layout."""
+    return dn.mm(p_inv.double(), rhs.double()).to(rhs.dtype)
+
+
+def tp_gap(mesh):
+    """Every episode's losses and gradients, f32, of the flagship and the
+    contact scene: the tp objective (`tp_`), the plain step given
+    `split_solve` (`split_`) or `f64_solve` (`f64_`) and the plain step
+    (`plain_`), keyed `{scene}_{route}_{name}`."""
+    arrays = {}
+    tp_solve = pmesh.make_tp_solve(mesh.tp_group)
+    for scene, make in (("flagship", flagship_case),
+                        ("contact", contact_case)):
+        for route, solve, sharded in (("tp", tp_solve, True),
+                                      ("split", split_solve(mesh.tp), False),
+                                      ("f64", f64_solve, False),
+                                      ("plain", None, False)):
+            sim, fn, params, p_inv = make(mesh, solve, None, sharded)
+            L, grads = fn(params, p_inv)
+            arrays[f"{scene}_{route}_losses"] = L.cpu().numpy()
+            arrays.update({f"{scene}_{route}_{k}": v.cpu().numpy()
+                           for k, v in grads.items()})
+            mark(f"tp_gap: {scene} {route} done")
+    return arrays
 
 
 def dress_case(mesh, solve_fn, cuda_graphs):
@@ -544,6 +617,8 @@ def main():
             res.update(probe(args.case, mesh))
         elif args.case == "exchange_time":
             res.update(exchange_time(mesh))
+        elif args.case == "tp_gap":
+            arrays = tp_gap(mesh)
         else:
             # cuda_graphs None: warm-up, capture, launch; False: a cold
             # call and a warm one

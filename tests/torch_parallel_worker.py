@@ -84,10 +84,12 @@ def population(sim, batch):
         wind=torch.as_tensor(winds(batch)))
 
 
-def scene_sim(scene: str, dtype: torch.dtype, solve_fn=None):
-    """The port's sim of a scene of this file on the CPU."""
+def scene_sim(scene: str, dtype: torch.dtype, solve_fn=None,
+              device="cpu"):
+    """The port's sim of a scene of this file (on the CPU unless
+    `device` says otherwise)."""
     cfg = tiny_cfg(tc) if scene == "tiny" else contact_cfg(tc)
-    return ClothSim(gb.build_scene(cfg), device="cpu", dtype=dtype,
+    return ClothSim(gb.build_scene(cfg), device=device, dtype=dtype,
                     solve_fn=solve_fn)
 
 
@@ -97,13 +99,15 @@ def scene_population(scene: str, sim):
         base, params = population(sim, B)
         return base, params.replace(wind=params.wind.to(sim.dtype))
     base = sim.default_params().replace(x0=torch.as_tensor(
-        contact_x0(sim.scene_host), dtype=sim.dtype))
+        contact_x0(sim.scene_host), dtype=sim.dtype, device=sim.device))
     return base, base.expand(CONTACT_B).replace(
-        wind=torch.as_tensor(contact_winds(), dtype=sim.dtype))
+        wind=torch.as_tensor(contact_winds(), dtype=sim.dtype,
+                             device=sim.device))
 
 
 def loss_fn(sim):
-    target = torch.zeros((sim.n_steps + 1, sim.n, 3), dtype=sim.dtype)
+    target = torch.zeros((sim.n_steps + 1, sim.n, 3), dtype=sim.dtype,
+                         device=sim.device)
     return tl.make_loss_fn(tc.LossType.MATCH_TRAJECTORY,
                            tl.LossInfo(target_x=target))
 
