@@ -151,7 +151,7 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         `SimulationAPI.step_nn` steps and one `step_backward_nn`, then
         `PySim` over 5 steps with a scalar loss; states and cotangents
         within 1e-6;
-     c. training at the app's defaults: `hat_controller.train` for 3
+     c. training at the app's defaults: `hat_controller.train` for 2
         epochs, B = 8 poses, 4 validation poses, seed 0, all 400 steps in
         chunks of 50; per epoch the losses, gradient norms and
         episode-gradient steps/s; then one `loss_and_grad` with the
@@ -164,7 +164,7 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      d. eval: one 400-step closed-loop episode of the trained controller
         in chunks, rendered to a GIF, its loss;
      g. the chunks against the whole episode: the trained controller's
-        `loss_and_grad` at 400 steps, B = 8, chunked and as one autograd
+        `loss_and_grad` at 200 steps, B = 8, chunked and as one autograd
         graph in the order chunked, whole, whole, chunked (each route's
         runs bit for bit alike): the loss equal bit for bit, the
         gradients and per-sample norms within 1e-5 of their largest
@@ -174,7 +174,7 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         memory; host launches and synchronizing calls per step from a
         fresh profiling process (`--profile-control`, 8 steps, chunk 4);
      e. the GMRES adjoint: the flagship stand-in's batched value-and-grad
-        (B = 4, half folded, 10 steps, GradMask(f_wind=True)) in "gmres"
+        (B = 4, half folded, 6 steps, GradMask(f_wind=True)) in "gmres"
         against "fp", f32 (trips, matvecs, cosine: reported, not bounded);
         "gmres" in f64, card against CPU (2 steps, the adjoint to 1e-12;
         bounded as 12e);
@@ -198,26 +198,26 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
  18. graphs (the compiled step): every earlier phase runs its sims as they
      default, each step's forward and adjoint one launch of a device
      program whose loops end on the device (`core/graphs.py`); here each
-     path runs both ways on two sims of one configuration,
-     `cuda_graphs=None` (captured) and `False` (the same segments
-     uncaptured): the flagship stand-in's forward and value-and-grad
-     (B = 32, 8 steps), the sphere path's (B = 16, 16 steps), the large
-     path's forward (B = 8, 2 steps) and one control `loss_and_grad` (B =
-     4, 20 steps, a seeded controller).  A cold run each way (the graphed
-     one warms up and captures), then graphed, uncaptured, uncaptured,
-     graphed: every output (states, diagnostic counts, losses, gradients),
-     the kernels' counters and the adjoint's counts of all six runs equal
-     bit for bit; each PD and trip body's kernels per run equal to its
-     length, and, in a run without warm-ups, the kernels' own launch
-     counts (each kernel adds one on the device per launch) equal to what
-     the programs predict (launches x straight kernels plus body runs x
-     body kernels) and the trip bodies' runs the adjoint's trips;
-     the rates both ways; then one profiled run each way (device busy as
-     the profiler sees it, device and host launches per PD sweep or step,
-     program launches per step).
+     path runs both ways on two sims of one configuration, built once
+     for all the path's cases, `cuda_graphs=None` (captured) and `False`
+     (the same segments uncaptured): the flagship stand-in's forward and
+     value-and-grad (B = 32, 8 steps), the sphere path's (B = 16, 16
+     steps), the large path's forward (B = 8, 2 steps) and one control
+     `loss_and_grad` (B = 4, 20 steps, a seeded controller).  Per case a
+     cold run each way (the graphed one warms up and captures), then
+     graphed, uncaptured: every output (states, diagnostic counts, losses,
+     gradients), the kernels' counters and the adjoint's counts of all
+     four runs equal bit for bit; each PD and trip body's kernels per run
+     equal to its length, and, in a run without warm-ups, the kernels' own
+     launch counts (each kernel adds one on the device per launch) equal
+     to what the programs predict (launches x straight kernels plus body
+     runs x body kernels) and the trip bodies' runs the adjoint's trips;
+     the rates both ways; then one profiled graphed run on the same sim
+     (device busy as the profiler sees it, device and host launches per PD
+     sweep or step, program launches per step).
 
- 19. chunked (the chunked episode): the flagship stand-in (B = 32, 100
-     steps, chunk 25) and the sphere path (B = 16, 60 steps, chunk 20)
+ 19. chunked (the chunked episode): the flagship stand-in (B = 32, 50
+     steps, chunk 25) and the sphere path (B = 16, 40 steps, chunk 20)
      through `rollout_chunked`, `episode_loss_chunked` and
      `episode_value_and_grad_chunked(batched=True)` against `rollout`,
      `episode_loss` and `episode_value_and_grad` on one sim: the chunked
@@ -225,8 +225,8 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      within 1e-5 of each class's largest entry; the kernels' own launch
      counts against the sweeps the iteration counts imply (the forward
      twice in the chunked value-and-grad) and against what the programs'
-     launches and body runs predict; the rates both ways (chunked, whole,
-     whole, chunked);
+     launches and body runs predict; the rates both ways (chunked, then
+     whole);
      device busy (CUDA events around each step program: the profiler sees
      few or none of the kernels inside the loop bodies); host launches and
      synchronizing runtime calls per step (torch.profiler's runtime
@@ -243,11 +243,13 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      slots a sample: the sweeps stream their slot rows from global
      memory), against the default capacity (256, 128, 64, 64):
      a. kernels at those shapes (B = 32): both sweeps on the streamed-slot
-        route with the state in shared memory (the global-state streamed
-        route is held to its plain versions in
-        tests/test_torch_cuda_kernels.py at n past 19 000), and detection
-        at K = 64 (rows past 64 hits), against their plain versions
-        exactly, timed beside their bounds;
+        route with the state in shared memory, and detection at K = 64
+        (rows past 64 hits), against their plain versions exactly, timed
+        beside their bounds; then the global-state streamed route where
+        `sweep_operands` picks it (n = 19 500, B = 2, budgets (n,) * 16,
+        random matchings in four layers): both sweeps exactly and timed,
+        and its path, `self_friction` and its autograd backward between
+        zeroed and read launch counts, equal to the plain versions;
      b. forward: `rollout_chunked` (100 steps, chunk 25, captured) at the
         default capacity, then at drop-free capacity with K = 8, 16, 32 in
         turn until no step overflows (else the limit that fired is named);
@@ -279,7 +281,9 @@ on the path that runs it: the forward path for detection and the forward
 sweep, the gradient path for the backward sweep, phase 11 for the sweeps'
 global-state route, whose entries carry "state": "global", phase 20 for
 the streamed-slot route, whose entries carry "slots": "stream", phase 12 for
-the dress stand-in's, named with "_dress", phase 17c's loss_and_grad for
+the dress stand-in's, named with "_dress", 20a's `self_friction` path for
+the global-state streamed route, named with "_global_stream", phase 17c's
+loss_and_grad for
 the control path's, named with "_control", and 17f's captured tp step for
 the exchange, which is not a TPU kernel), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Needs one card; imports nothing of JAX.
@@ -381,12 +385,14 @@ SPHERE_PRECISION_STEPS = 20
 # objective's depth
 HAT_BATCH = 8
 HAT_VAL = 4
-HAT_EPOCHS = 3
+HAT_EPOCHS = 2
 HAT_STEPS = None
+# 17g's horizon (of the hat's 400 steps: four chunks of 50)
+CONTROL_CHUNKED_STEPS = 200
 CONTROL_PROFILE_STEPS = 10
 FACADE_STEPS = 20
 BRIDGE_STEPS = 5
-GMRES_STEPS = 10
+GMRES_STEPS = 6
 GMRES_BATCH = 4
 GMRES_REF_STEPS = 2
 PARALLEL_STEPS = 5
@@ -2884,8 +2890,8 @@ def control_case(steps, cuda_graphs=None, seed=0):
 
 
 def phase_control_chunked(card, ctrl):
-    """17g: the trained controller's `loss_and_grad` over the hat's 400
-    steps at B = HAT_BATCH, chunked (the default, 50) against the
+    """17g: the trained controller's `loss_and_grad` over
+    CONTROL_CHUNKED_STEPS of the hat's 400 steps at B = HAT_BATCH, chunked (the default, 50) against the
     whole episode as one autograd graph (chunk=None), after a warm-up of
     both on a 2-step horizon of the same problem: chunked, whole, whole,
     chunked, each route's two runs equal bit for bit; the loss of the two
@@ -2899,7 +2905,7 @@ def phase_control_chunked(card, ctrl):
     import dataclasses
     import torch
     from diffcloth_tpu_torch.apps import hat_controller as hc
-    prob, xs, aas, _ = control_case(HAT_STEPS)
+    prob, xs, aas, _ = control_case(CONTROL_CHUNKED_STEPS)
     units = HAT_BATCH * prob.n_steps
     ways = {"chunked": hc.CHUNK, "whole": None}
     short = dataclasses.replace(prob, n_steps=2)
@@ -3472,10 +3478,10 @@ def _equal_outputs(tag, ref, out):
                                  f"{float(np.abs(a - b).max()):.3e}")
 
 
-def graph_cases():
-    """(name, B, steps, profiled steps, make(graphs, steps) -> (sim, run))
-    per path; run() returns (outputs, counters, adjoint summary or None,
-    PD sweeps or None)."""
+def graph_paths():
+    """(path, B, steps, make(graphs, steps) -> {case: run}) per path; a
+    path builds its sim once per way, and each run of its cases returns
+    (outputs, counters, adjoint summary or None, PD sweeps or None)."""
     import torch
     from diffcloth_tpu_torch.apps import hat_controller as hc
     from diffcloth_tpu_torch.optim.helper import GradMask, OptimizeHelper
@@ -3491,7 +3497,7 @@ def graph_cases():
                 "obstacle_contacts")}
             return (out, read_counters(), None,
                     int(pd_sweeps(st.iters.cpu().numpy(), sim).sum()))
-        return sim, run
+        return run
 
     def gradient(sim, helper, X):
         def run():
@@ -3500,37 +3506,34 @@ def graph_cases():
             L, G = helper.batched_loss_and_grad(X)
             return ({"loss": L, "grad": G}, read_counters(),
                     sim.bwd_stats.summary(), None)
-        return sim, run
+        return run
 
-    def flagship_sim(g, steps):
+    def flagship_path(g, steps):
         sim = flagship(torch.float32, "cuda", steps, cuda_graphs=g)
-        return sim, episode_params(sim, BATCH)
-
-    def flagship_grad(g, steps):
-        sim, params = flagship_sim(g, steps)
+        params = episode_params(sim, BATCH)
         helper = OptimizeHelper(sim, GradMask(f_wind=True),
                                 base_wind_target(sim, params),
                                 param_base=params)
         X = np.stack([helper.params_to_vec(params.sample(i))
                       for i in range(BATCH)])
-        return gradient(sim, helper, X)
+        return sim, {"forward": forward(sim, params),
+                     "value-and-grad": gradient(sim, helper, X)}
 
-    def sphere(g, steps):
+    def sphere_path(g, steps):
         with demo_steps("sphere", steps):
             task = build_task("sphere", device="cuda", cuda_graphs=g)
         helper = OptimizeHelper(task.sim, task.mask, task.loss_fn(),
                                 param_base=task.param_base)
-        return task.sim, helper, sphere_candidates(SPHERE_BATCH)
+        X = sphere_candidates(SPHERE_BATCH)
+        return task.sim, {"forward": forward(task.sim, helper.stack_vecs(X)),
+                          "value-and-grad": gradient(task.sim, helper, X)}
 
-    def sphere_fwd(g, steps):
-        sim, helper, X = sphere(g, steps)
-        return forward(sim, helper.stack_vecs(X))
-
-    def large(g, steps):
+    def large_path(g, steps):
         sim = large_mesh(torch.float32, "cuda", steps, cuda_graphs=g)
-        return forward(sim, episode_params(sim, LARGE_BATCH))
+        return sim, {"forward": forward(sim, episode_params(sim,
+                                                            LARGE_BATCH))}
 
-    def control(g, steps):
+    def control_path(g, steps):
         prob, xs, aas, ctrl = control_case(steps, cuda_graphs=g)
 
         def run():
@@ -3542,111 +3545,98 @@ def graph_cases():
             out.update({f"grad{i}": g for i, g in enumerate(pg.grads)})
             return (out, read_counters(), prob.sim.bwd_stats.summary(),
                     int(pd_sweeps(pg.iters.cpu().numpy(), prob.sim).sum()))
-        return prob.sim, run
+        return prob.sim, {"loss_and_grad": run}
 
-    return (
-        ("flagship forward", BATCH, GRAPHS_FLAGSHIP_STEPS, 4,
-         lambda g, steps: forward(*flagship_sim(g, steps))),
-        ("flagship value-and-grad", BATCH, GRAPHS_FLAGSHIP_STEPS, 4,
-         flagship_grad),
-        ("sphere forward", SPHERE_BATCH, GRAPHS_SPHERE_STEPS, 8, sphere_fwd),
-        ("sphere value-and-grad", SPHERE_BATCH, GRAPHS_SPHERE_STEPS, 8,
-         lambda g, steps: gradient(*sphere(g, steps))),
-        ("large forward", LARGE_BATCH, GRAPHS_LARGE_STEPS, 1, large),
-        ("control loss_and_grad", HAT_BATCH, GRAPHS_CONTROL_STEPS, 10,
-         control))
+    return (("flagship", BATCH, GRAPHS_FLAGSHIP_STEPS, flagship_path),
+            ("sphere", SPHERE_BATCH, GRAPHS_SPHERE_STEPS, sphere_path),
+            ("large", LARGE_BATCH, GRAPHS_LARGE_STEPS, large_path),
+            ("control", HAT_BATCH, GRAPHS_CONTROL_STEPS, control_path))
 
 
 def phase_graphs(card):
-    """18: each path's run with cuda_graphs=None (captured) and False
-    (uncaptured), on two sims of one configuration: a cold run of each
-    (the graphed one warms up and captures its blocks), then graphed,
-    uncaptured, uncaptured, graphed; every output (states, diagnostic
-    counts, losses, gradients) and every kernel counter of every run equal
-    to the first's bit for bit; the graphs' replays and the launches they
-    derive held to the counters and the adjoint's trips; the rates of the
-    four runs; then, on two sims of a few steps (the profiler's cost grows
-    with its events), a warm run and a profiled one each way: device busy,
-    device and host launches per PD sweep (forward) or per step, replays
-    per step."""
+    """18: each path's runs with cuda_graphs=None (captured) and False
+    (uncaptured), on two sims of one configuration, one a way for all the
+    path's cases: per case a cold run each way (the graphed one warms up
+    and captures its blocks), then graphed, uncaptured; every output
+    (states, diagnostic counts, losses, gradients) and every kernel counter
+    of every run equal to the first's bit for bit; the graphs' replays and
+    the launches they derive held to the counters and the adjoint's trips;
+    the rates of the warm runs; then a profiled graphed run on the same
+    sim: device busy, device and host launches per PD sweep (forward) or
+    per step, replays per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for name, B, N, prof_steps, make in graph_cases():
+    for path, B, N, make in graph_paths():
         units = B * N
         sims = {g: make(g, N) for g in (None, False)}
-        ref = None
-        rates = {None: [], False: []}
-        for i, g in enumerate((None, False, None, False, False, None)):
-            sim, run = sims[g]
-            reset_graphs(sim)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out, launches, st, sweeps = run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            if ref is None:
-                ref = (out, launches, st)
-            _equal_outputs(name, ref[0], out)
-            if launches != ref[1] or (st or {}) != (ref[2] or {}):
-                raise AssertionError(f"[graphs] {name}: counters {launches} "
-                                     f"{st}, the first run's {ref[1]} "
-                                     f"{ref[2]}")
-            if g is None:
-                check_graph_counts(name, sim, launches,
-                                   st and st["trips"])
-                if i >= 2 and not graph_launches(sim)[0]:
-                    raise AssertionError(f"[graphs] {name}: no program "
-                                         f"launch")
-            if i >= 2:
-                rates[g].append(units / wall)
-            log(f"[graphs] {name}, run {i} "
-                f"({'graphed' if g is None else 'uncaptured'}"
-                f"{', cold' if i < 2 else ''}) on {card}: {wall:.3f} s, "
-                f"{units / wall:.1f} "
-                f"{'PD' if st is None else 'episode-gradient'} steps/s; "
-                f"launches {launches}"
-                + (f"; {sweeps} PD sweeps" if sweeps else "")
-                + (f"; graphs {graph_line(sim)}" if g is None else ""))
-        log(f"[graphs] {name} on {card}: graphed "
-            f"{', '.join(f'{r:.1f}' for r in rates[None])} against "
-            f"uncaptured {', '.join(f'{r:.1f}' for r in rates[False])} "
-            f"steps/s (runs 2-5: graphed first, then uncaptured first), "
-            f"{np.mean(rates[None]) / np.mean(rates[False]):.2f}x; every "
-            f"output and counter of the six runs equal bit for bit")
-        del sims
-        for g in (None, False):
-            sim, run = make(g, prof_steps)
-            run()
+        for case in sims[None][1]:
+            name = f"{path} {case}"
+            ref = None
+            rates = {}
+            for i, g in enumerate((None, False, None, False)):
+                sim, runs = sims[g]
+                reset_graphs(sim)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, launches, st, sweeps = runs[case]()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if ref is None:
+                    ref = (out, launches, st)
+                _equal_outputs(name, ref[0], out)
+                if launches != ref[1] or (st or {}) != (ref[2] or {}):
+                    raise AssertionError(f"[graphs] {name}: counters "
+                                         f"{launches} {st}, the first "
+                                         f"run's {ref[1]} {ref[2]}")
+                if g is None:
+                    check_graph_counts(name, sim, launches,
+                                       st and st["trips"])
+                    if i >= 2 and not graph_launches(sim)[0]:
+                        raise AssertionError(f"[graphs] {name}: no program "
+                                             f"launch")
+                if i >= 2:
+                    rates[g] = units / wall
+                log(f"[graphs] {name}, run {i} "
+                    f"({'graphed' if g is None else 'uncaptured'}"
+                    f"{', cold' if i < 2 else ''}) on {card}: {wall:.3f} s, "
+                    f"{units / wall:.1f} "
+                    f"{'PD' if st is None else 'episode-gradient'} steps/s; "
+                    f"launches {launches}"
+                    + (f"; {sweeps} PD sweeps" if sweeps else "")
+                    + (f"; graphs {graph_line(sim)}" if g is None else ""))
+            log(f"[graphs] {name} on {card}: graphed {rates[None]:.1f} "
+                f"against uncaptured {rates[False]:.1f} steps/s (runs 2-3), "
+                f"{rates[None] / rates[False]:.2f}x; every output and "
+                f"counter of the four runs equal bit for bit")
+            # the graphed way alone: the profiler takes tens of seconds to
+            # sum an uncaptured run's events
+            sim, runs = sims[None]
             reset_graphs(sim)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                out, launches, st, sweeps = run()
+                out, launches, st, sweeps = runs[case]()
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             ops = profiled_ops(prof)
             busy = sum(ms for _, ms, _ in ops)
             # a forward per PD sweep, a gradient path per step
-            div, per = ((sweeps, "PD sweep") if st is None
-                        else (prof_steps, "step"))
+            div, per = (sweeps, "PD sweep") if st is None else (N, "step")
             hosted = host_launches(prof)
-            replays = graph_launches(sim)[0]
-            log(f"[graphs-profile] {name}, {prof_steps} steps x B={B} "
-                f"({'graphed' if g is None else 'uncaptured'}) on {card}: "
-                f"wall {wall_ms:.1f} ms (inflated by the profiler), device "
-                f"busy (as the profiler sees it) {busy:.1f} ms "
-                f"({100 * busy / wall_ms:.1f} %); per "
-                f"{per} ({div}): "
+            log(f"[graphs-profile] {name}, {N} steps x B={B} (graphed) on "
+                f"{card}: wall {wall_ms:.1f} ms (inflated by the profiler), "
+                f"device busy (as the profiler sees it) {busy:.1f} ms "
+                f"({100 * busy / wall_ms:.1f} %); per {per} ({div}): "
                 f"{sum(c for _, _, c in ops) / div:.1f} device launches, "
                 + (f"{hosted / div:.1f}" if hosted else "(not measured)")
-                + f" host launches; {replays / prof_steps:.2f} program "
+                + f" host launches; {graph_launches(sim)[0] / N:.2f} program "
                 f"launches per step")
-            del sim, run
+        del sims
         torch.cuda.empty_cache()
 
 
-CHUNKED_FLAGSHIP = (BATCH, 100, 25)         # B, steps, chunk
-CHUNKED_SPHERE = (SPHERE_BATCH, 60, 20)
+CHUNKED_FLAGSHIP = (BATCH, 50, 25)          # B, steps, chunk
+CHUNKED_SPHERE = (SPHERE_BATCH, 40, 20)
 CHUNKED_REF_STEPS = 6                        # f64 card vs CPU, chunk 3
 # the profiled runs' depth and chunk (phase 19's profiling process; the
 # profiler's cost grows with its events)
@@ -3780,9 +3770,9 @@ def phase_chunked_path(name, shape, make, card):
         f"gradient against the whole episode's (tolerance 1e-5): "
         + ", ".join(f"{k} {v:.1e}" for k, v in rel.items()))
 
-    # the rates both ways: chunked, whole, whole, chunked
+    # the rates both ways: chunked, then whole
     rates = {"chunked": [], "whole": []}
-    for way in ("chunked", "whole", "whole", "chunked"):
+    for way in ("chunked", "whole"):
         fwd = ((lambda: sim.rollout_chunked(params, chunk)) if way ==
                "chunked" else (lambda: sim.rollout(params)))
         vg = vg_chunk if way == "chunked" else vg_whole
@@ -3984,9 +3974,7 @@ def phase_capacity_kernels(sim, rng):
     past 64 hits), exactly.  Returns the JSON line's entries of the
     streamed route."""
     import torch
-    from diffcloth_tpu_torch.core import friction_cuda as fc
     from diffcloth_tpu_torch.core import selfcol_cuda as scd
-    from diffcloth_tpu_torch.core.selfcol import layer_tables_from_partners
 
     dev, cfg, n, h = sim.device, sim.self_cfg, sim.n, sim.h
     x, v = kernel_states(sim, initial_states(sim, BATCH), rng)
@@ -4026,26 +4014,117 @@ def phase_capacity_kernels(sim, rng):
         f"{det_ms:.4f} (phase 2 times K = 8), plain "
         f"{det_plain_ms:.4f}; bound {det_bound:.5f}")
 
-    K = cfg.k_partners
-    geom = scd.build_geom(f32(x), f32(v), radii, h, n_pad)
-    tab = scd.detect_partners(geom, cfg.allowed, K)
-    tables = layer_tables_from_partners(tab[:, :n, :K], cfg.max_layers)
-    kg = fc.build_kernel_geom(tables, sim.scene_dev.area, n, cfg.budgets,
-                              x=f32(x))
+    kg, masses, f, g = capacity_sweep_inputs(sim, x, v, rng)
     layers = int((kg.counts > 0).sum(-1).max())
     if layers < 3:
         raise AssertionError(f"contact in {layers} layers only")
-    density = torch.full((BATCH,), sim.cfg.fabric.density,
-                         dtype=torch.float32, device=dev)
-    masses = fc.slot_masses(kg, density)
-    f = f32(rng.randn(BATCH, n, 3) * 0.05)
-    g = f32(rng.randn(BATCH, n, 3))
     log(f"[capacity-kernels] slot geometry at budgets (n,) * 16: TC "
         f"{kg.idx_row.shape[1]} a sample, contact in up to {layers} "
         f"layers")
     sweeps, bounds, _ = check_sweeps("capacity-kernels", kg, masses, f, g,
                                      n, cfg, route="shared", slots="stream")
     return sweep_entries(sweeps, bounds, "_stream", "shared", "stream")
+
+
+def capacity_sweep_inputs(sim, x, v, rng):
+    """20a's sweep inputs on the drop-free sim's states x, v (numpy, (B,
+    n, 3)): detection at the sim's K, the layer tables, the slot geometry
+    at its budgets, the slot masses, and random f and g (B, n, 3) f32.
+    Returns (geometry, masses, f, g)."""
+    import torch
+    from diffcloth_tpu_torch.core import friction_cuda as fc
+    from diffcloth_tpu_torch.core import selfcol_cuda as scd
+    from diffcloth_tpu_torch.core.selfcol import layer_tables_from_partners
+
+    dev, cfg, n = sim.device, sim.self_cfg, sim.n
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    B, K = x.shape[0], cfg.k_partners
+    geom = scd.build_geom(f32(x), f32(v), sim.scene_dev.radii, sim.h,
+                          cfg.allowed.shape[0])
+    tab = scd.detect_partners(geom, cfg.allowed, K)
+    tables = layer_tables_from_partners(tab[:, :n, :K], cfg.max_layers)
+    kg = fc.build_kernel_geom(tables, sim.scene_dev.area, n, cfg.budgets,
+                              x=f32(x))
+    density = torch.full((B,), sim.cfg.fabric.density, dtype=torch.float32,
+                         device=dev)
+    masses = fc.slot_masses(kg, density)
+    f = f32(rng.randn(B, n, 3) * 0.05)
+    g = f32(rng.randn(B, n, 3))
+    return kg, masses, f, g
+
+
+# 20a's global-state streamed route: n (a state past shared memory beside
+# the ring), B, and the pairs of random matchings in layers 0-3
+CAPACITY_GLOBAL = (19500, 2, (400, 300, 150, 70))
+
+
+def phase_capacity_global_stream(rng):
+    """20a, the global-state streamed route where sweep_operands picks it:
+    n = 19 500, B = 2, budgets (n,) * 16, random matchings in four layers;
+    both sweeps against their plain versions exactly (with and without
+    contact), timed; then its path: `self_friction` on f and its autograd
+    backward of g, between zeroed and read launch counts, against the
+    plain versions exactly.  Returns the JSON line's entries."""
+    import types
+    import torch
+    from diffcloth_tpu_torch.core import friction_cuda as fc
+    from diffcloth_tpu_torch.core.selfcol import SelfContactTables
+
+    n, B, pairs = CAPACITY_GLOBAL
+    budgets = (n,) * 16
+    partner = np.full((B, 16, n), -1, np.int64)
+    for b in range(B):
+        for lay, count in enumerate(pairs):
+            perm = rng.permutation(n)[:2 * count]
+            partner[b, lay, perm[:count]] = perm[count:]
+            partner[b, lay, perm[count:]] = perm[:count]
+    dev = torch.device("cuda")
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    tables = SelfContactTables(
+        partner=torch.as_tensor(partner, device=dev),
+        n_layers=torch.full((B,), len(pairs), device=dev))
+    kg = fc.build_kernel_geom(tables, f32(rng.rand(n) + 0.2), n, budgets,
+                              x=f32(rng.randn(B, n, 3)))
+    masses = fc.slot_masses(kg, torch.full((B,), 0.3, device=dev))
+    f = f32(rng.randn(B, n, 3) * 0.1)
+    g = f32(rng.randn(B, n, 3))
+    log(f"[capacity-kernels] the global-state streamed route: n = {n}, "
+        f"B = {B}, budgets (n,) * 16 (TC {kg.idx_row.shape[1]} a sample), "
+        f"active slots per layer {kg.counts[0, :4].tolist()}")
+    sweeps, bounds, _ = check_sweeps(
+        "capacity-kernels", kg, masses, f, g, n,
+        types.SimpleNamespace(budgets=budgets), route="global",
+        slots="stream")
+    entries = sweep_entries(sweeps, bounds, "_global_stream", "global",
+                            "stream")
+    ops = fc.sweep_operands(kg, masses, budgets, n)
+    fr = f.clone().requires_grad_(True)
+    r0 = torch.zeros_like(f)
+    torch.cuda.synchronize()
+    zero_counters()
+    r = fc.self_friction(fr, ops, r0)
+    r.backward(g)
+    launches = read_counters()
+    for k in ("fwd", "bwd"):
+        ran = [launches[f"friction_{k}{r}"]
+               for r in ("", "_global", "_stream")]
+        if ran != [1, 1, 1]:
+            raise AssertionError(f"[capacity-kernels] self_friction's "
+                                 f"friction_{k} launches {launches}, not "
+                                 f"one on the global-state streamed route")
+    out_p, vals_p = fc.friction_sweep_plain(f, kg, *masses, budgets)
+    g_p = fc.friction_sweep_bwd_plain(g, kg, *masses, vals_p, budgets)[0]
+    if not (torch.equal(r.detach(), out_p - f)
+            and torch.equal(fr.grad, g_p - g)):
+        raise AssertionError("[capacity-kernels] self_friction on the "
+                             "global-state streamed route != plain")
+    log(f"[capacity-kernels] its path: self_friction and its backward == "
+        f"plain exactly; launches {launches}")
+    entries[0]["launches"] = launches["friction_fwd_global"]
+    entries[1]["launches"] = launches["friction_bwd_global"]
+    return entries
 
 
 def capacity_forward(tag, sim, params, card):
@@ -4183,6 +4262,7 @@ def phase_capacity(card, timed):
     with timed("capacity kernels"):
         entries = phase_capacity_kernels(
             flagship(torch.float32, "cuda", 10, **drop_free(n, 32)), rng)
+        entries += phase_capacity_global_stream(rng)
     with timed("capacity forward"):
         default = flagship(torch.float32, "cuda", N)
         params = episode_params(default, B)

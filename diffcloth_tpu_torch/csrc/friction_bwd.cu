@@ -48,14 +48,19 @@
 // them; bit-equal to the plain version.
 //
 // The streamed-slot routes (friction_bwd_stream, friction_bwd_global_stream),
-// for slot rows too large for shared memory, as the forward's: the slot
-// rows and vals are read from global memory, the three slot cotangents
-// written straight into ck_out, the row and partner adds kept in a global
-// scratch of (max c_pad, 6) per sample between the read and the add
-// passes, with the same __syncthreads() between them; the cotangent in
-// shared memory when it fits alone, else in g_out; inactive slots'
-// cotangents zeroed by kZeroParts blocks per sample, as the forward's;
-// bit-equal to the plain version.
+// for slot rows too large for shared memory, the forward's design
+// (csrc/friction_fwd.cu) in reverse layer order: a wide layer's 14 slot
+// rows (indices, normal, masses and the six vals rows) staged by TMA in
+// the ring ahead of the chain, its row and partner adds, each beside its
+// vertex index, in a force buffer in shared memory (a global scratch only
+// for the slots of a layer wider than the buffer) between the read, row
+// and partner passes and their __syncthreads(); a narrow layer's slot data
+// loaded into warp 0's registers two narrow layers ahead, its adds kept
+// there between __syncwarp(); so every vertex still receives (g + row) +
+// part.  The three slot cotangents go to ck_out from registers (coalesced
+// by slot); the cotangent stays in shared memory when it fits beside the
+// ring, else in g_out; the sample's other blocks zero the inactive slots'
+// cotangents; bit-equal to the plain version.
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
@@ -64,119 +69,73 @@
 
 namespace {
 
+using friction::kStreamThreads;
 using friction::kThreads;
 
 // kGlobalState: the cotangent lives in g_out (global memory) instead of
-// shared memory.  kStream: the slot rows, vals, the slot cotangents and the
-// per-slot adds stay in global memory (scratch: (B, max c_pad, 6) f32).
-template <bool kGlobalState, bool kStream>
+// shared memory.
+template <bool kGlobalState>
 __global__ void __launch_bounds__(kThreads)
 friction_bwd_kernel(const friction::SweepGeom g,
                     const float* __restrict__ g_in,
                     const float* __restrict__ vals_in,
                     float* g_out, float* __restrict__ ck_out,
-                    float* __restrict__ scratch,
                     unsigned long long* launches) {
   extern __shared__ __align__(16) unsigned char smem[];
   count_launch(launches);
-  const int rows = kStream ? 0 : 1;
-  const friction::Smem m = friction::smem_layout(
-      g, kGlobalState ? 0 : g.n, 14 * rows, 3 * rows, 2 * rows);
+  const friction::Smem m =
+      friction::smem_layout(g, kGlobalState ? 0 : g.n, 14, 3, 2);
   const int b = blockIdx.x, TC = g.TC, L = g.L;
-  if constexpr (kStream) {
-    if (blockIdx.y > 0) {
-      // a zeroing block: its part of the sample's inactive slots, then done
-      int* cnt = reinterpret_cast<int*>(smem + m.ints);
-      int* ls = cnt + L;
-      for (int i = threadIdx.x; i <= L; i += kThreads) {
-        ls[i] = g.layer_start[i];
-        if (i < L) cnt[i] = g.counts[b * L + i];
-      }
-      __syncthreads();
-      friction::zero_inactive(ck_out + (size_t)b * TC, 3, cnt, ls, L, TC, (size_t)g.B * TC,
-                              blockIdx.y, gridDim.y);
-      return;
-    }
-  }
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float* gs = kGlobalState ? g_out + (size_t)b * 3 * g.n    // (n, 3)
                            : reinterpret_cast<float*>(smem + m.state);
-  const size_t so = (size_t)b * TC;   // slot offset of this sample
-  const size_t sc = (size_t)g.B * TC;   // ck_out's row stride
-  const float* state_in = g_in + (size_t)b * 3 * g.n;
-  const int* row_of;
-  const int* part_of;
-  const float *nrmT, *kr_s, *mr_s, *mp_s, *vq;
-  float *ck, *ci, *cp;   // the slot cotangents, rows `ck_stride` apart
-  float *add_row, *add_part;   // (c_pad, 3) each
-  size_t ck_stride;
-  if constexpr (kStream) {
-    row_of = g.idx_row + so;
-    part_of = g.idx_part + so;
-    nrmT = g.normalT + 3 * so;
-    kr_s = g.kred + so;
-    mr_s = g.imr + so;
-    mp_s = g.imp + so;
-    vq = vals_in + 6 * so;
-    ck_stride = sc;
-    ck = ck_out + so;
-    add_row = scratch + (size_t)b * 6 * g.max_c_pad;
-    if constexpr (kGlobalState) {
-      friction::copy_state(gs, state_in, g.n);   // seen after the sync below
-    } else {
-      const staging::Piece in[] = {{gs, state_in, 12 * g.n}};
-      staging::load(in, bar);
-    }
-  } else {
-    int* rs = reinterpret_cast<int*>(smem + m.slots);         // staged rows
-    int* ps = rs + TC;
-    float* ns = reinterpret_cast<float*>(ps + TC);             // (3, TC)
-    float* ks = ns + 3 * TC;
-    float* ms = ks + TC;
-    float* pms = ms + TC;
-    float* vs = pms + TC;                                      // (6, TC)
-    const staging::Piece slot_rows[] = {
-        {rs, g.idx_row + so, 4 * TC},
-        {ps, g.idx_part + so, 4 * TC},
-        {ns, g.normalT + 3 * so, 12 * TC},
-        {ks, g.kred + so, 4 * TC},
-        {ms, g.imr + so, 4 * TC},
-        {pms, g.imp + so, 4 * TC},
-        {vs, vals_in + 6 * so, 24 * TC}};
-    if constexpr (kGlobalState) {
-      staging::load(slot_rows, bar);
-      friction::copy_state(gs, state_in, g.n);   // seen after the sync below
-    } else {
-      const staging::Piece in[] = {{gs, state_in, 12 * g.n},
-                                   slot_rows[0], slot_rows[1], slot_rows[2],
-                                   slot_rows[3], slot_rows[4], slot_rows[5],
-                                   slot_rows[6]};
-      staging::load(in, bar);
-    }
-    row_of = rs;
-    part_of = ps;
-    nrmT = ns;
-    kr_s = ks;
-    mr_s = ms;
-    mp_s = pms;
-    vq = vs;
-    ck_stride = TC;
-    ck = reinterpret_cast<float*>(smem + m.outs);              // (3, TC)
-    add_row = reinterpret_cast<float*>(smem + m.bufs);
-  }
-  ci = ck + ck_stride;
-  cp = ci + ck_stride;
-  add_part = add_row + 3 * g.max_c_pad;
+  int* row_of = reinterpret_cast<int*>(smem + m.slots);       // staged rows
+  int* part_of = row_of + TC;
+  float* nrmT = reinterpret_cast<float*>(part_of + TC);       // (3, TC)
+  float* kr_s = nrmT + 3 * TC;
+  float* mr_s = kr_s + TC;
+  float* mp_s = mr_s + TC;
+  float* vq = mp_s + TC;                                      // (6, TC)
+  float* ck = reinterpret_cast<float*>(smem + m.outs);        // (3, TC)
+  float* ci = ck + TC;
+  float* cp = ci + TC;
+  float* add_row = reinterpret_cast<float*>(smem + m.bufs);   // (c_pad, 3)
+  float* add_part = add_row + 3 * g.max_c_pad;                // (c_pad, 3)
   int* cnt = reinterpret_cast<int*>(smem + m.ints);
   int* ls = cnt + L;
+
+  const size_t so = (size_t)b * TC;   // slot offset of this sample
+  const float* state_in = g_in + (size_t)b * 3 * g.n;
+  if constexpr (kGlobalState) {
+    const staging::Piece in[] = {
+        {row_of, g.idx_row + so, 4 * TC},
+        {part_of, g.idx_part + so, 4 * TC},
+        {nrmT, g.normalT + 3 * so, 12 * TC},
+        {kr_s, g.kred + so, 4 * TC},
+        {mr_s, g.imr + so, 4 * TC},
+        {mp_s, g.imp + so, 4 * TC},
+        {vq, vals_in + 6 * so, 24 * TC}};
+    staging::load(in, bar);
+    friction::copy_state(gs, state_in, g.n);   // seen after the sync below
+  } else {
+    const staging::Piece in[] = {
+        {gs, state_in, 12 * g.n},
+        {row_of, g.idx_row + so, 4 * TC},
+        {part_of, g.idx_part + so, 4 * TC},
+        {nrmT, g.normalT + 3 * so, 12 * TC},
+        {kr_s, g.kred + so, 4 * TC},
+        {mr_s, g.imr + so, 4 * TC},
+        {mp_s, g.imp + so, 4 * TC},
+        {vq, vals_in + 6 * so, 24 * TC}};
+    staging::load(in, bar);
+  }
   for (int i = threadIdx.x; i <= L; i += kThreads) {
     ls[i] = g.layer_start[i];
     if (i < L) cnt[i] = g.counts[b * L + i];
   }
   __syncthreads();
-  // while copies land (on the streamed route, part 0 of the zeroing)
-  friction::zero_inactive(ck, 3, cnt, ls, L, TC, ck_stride, 0, gridDim.y);
-  if constexpr (!(kStream && kGlobalState)) staging::wait(bar);
+  friction::zero_inactive(ck, 3, cnt, ls, L, TC);   // while copies land
+  staging::wait(bar);
 
   bool synced = true;   // every thread sees the cotangent as it stands
   for (int l = L - 1; l >= 0; --l) {
@@ -224,17 +183,12 @@ friction_bwd_kernel(const friction::SweepGeom g,
     }
     synced = false;
   }
-  if constexpr (kGlobalState && kStream) {
-    return;   // the cotangent and the slot cotangents are in place
-  } else if constexpr (kGlobalState) {
+  const size_t sc = (size_t)g.B * TC;   // ck_out's row stride
+  if constexpr (kGlobalState) {
     const staging::Piece out[] = {
         {ck_out + so, ck, 4 * TC},
         {ck_out + sc + so, ci, 4 * TC},
         {ck_out + 2 * sc + so, cp, 4 * TC}};
-    staging::store(out);
-  } else if constexpr (kStream) {
-    const staging::Piece out[] = {
-        {g_out + (size_t)b * 3 * g.n, gs, 12 * g.n}};
     staging::store(out);
   } else {
     const staging::Piece out[] = {
@@ -246,27 +200,243 @@ friction_bwd_kernel(const friction::SweepGeom g,
   }
 }
 
-template <bool kGlobalState, bool kStream>
+// the streamed-slot route's staged rows a slot: idx_row, idx_part, the
+// normal's three, kred, imr, imp and the six vals rows; and its force
+// buffer's bytes a slot, the row and the partner add
+constexpr int kRows = 14;
+constexpr int kForceBytes = 32;
+
+// A slot's data: its vertices, normal, masses, and its q and p of the
+// forward sweep.
+struct Slot {
+  int row, part;
+  float nrm[3];
+  float kr, mr, mp;
+  float q[3], p[3];
+};
+
+// Slot t of the sample at slot offset so, from global memory.
+__device__ __forceinline__ void load_slot(Slot& x,
+                                          const friction::SweepGeom& g,
+                                          const float* vals, size_t so,
+                                          int t) {
+  const int TC = g.TC;
+  x.row = g.idx_row[so + t];
+  x.part = g.idx_part[so + t];
+  x.kr = g.kred[so + t];
+  x.mr = g.imr[so + t];
+  x.mp = g.imp[so + t];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    x.nrm[c] = g.normalT[3 * so + c * TC + t];
+    x.q[c] = vals[6 * so + c * TC + t];
+    x.p[c] = vals[6 * so + (3 + c) * TC + t];
+  }
+}
+
+// The streamed-slot route (see the header).  scratch: (B, 2, max_c_pad -
+// buf) float4, the row and partner adds of slots past the force buffer
+// (null when no layer is wider than it).
+template <bool kGlobalState>
+__global__ void __launch_bounds__(kStreamThreads)
+friction_bwd_kernel_stream(const friction::SweepGeom g,
+                           const float* __restrict__ g_in,
+                           const float* __restrict__ vals_in, float* g_out,
+                           float* __restrict__ ck_out,
+                           float4* __restrict__ scratch,
+                           unsigned long long* launches) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  count_launch(launches);
+  const friction::Smem m =
+      friction::stream_layout(g, kGlobalState ? 0 : g.n, kRows, kForceBytes,
+                              g.bwd_piece, g.bwd_stages, g.bwd_buf);
+  const int b = blockIdx.x, TC = g.TC, L = g.L;
+  const size_t so = (size_t)b * TC;     // slot offset of this sample
+  const size_t sc = (size_t)g.B * TC;   // ck_out's row stride
+  float* ck = ck_out + so;              // rows ck, ci, cp, sc apart
+  int* cnt = reinterpret_cast<int*>(smem + m.ints);
+  int* ls = cnt + L;
+  for (int i = threadIdx.x; i <= L; i += blockDim.x) {
+    ls[i] = g.layer_start[i];
+    if (i < L) cnt[i] = g.counts[b * L + i];
+  }
+  if (blockIdx.y > 0) {
+    // a zeroing block: its part of the sample's inactive slot cotangents
+    __syncthreads();
+    friction::zero_inactive_stream(ck, 3, cnt, ls, L, TC, sc, blockIdx.y - 1,
+                                   gridDim.y - 1);
+    return;
+  }
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);   // the cotangent's
+  float* gs = kGlobalState ? g_out + (size_t)b * 3 * g.n    // (n, 3)
+                           : reinterpret_cast<float*>(smem + m.state);
+  const float* state_in = g_in + (size_t)b * 3 * g.n;
+  const int F = g.bwd_buf, W = g.max_c_pad - F;
+  float4* rbuf = reinterpret_cast<float4*>(smem + m.fbuf);   // row adds
+  float4* pbuf = rbuf + F;                                    // partner adds
+  float4* rscr = scratch ? scratch + (size_t)b * 2 * W : nullptr;
+  float4* pscr = scratch ? rscr + W : nullptr;
+  friction::SlotRing<kRows> ring;
+  ring.base = reinterpret_cast<float*>(smem + m.ring);
+  ring.bars = bar + 1;
+  ring.src[0] = reinterpret_cast<const float*>(g.idx_row + so);
+  ring.src[1] = reinterpret_cast<const float*>(g.idx_part + so);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) ring.src[2 + c] = g.normalT + 3 * so + c * TC;
+  ring.src[5] = g.kred + so;
+  ring.src[6] = g.imr + so;
+  ring.src[7] = g.imp + so;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) ring.src[8 + c] = vals_in + 6 * so + c * TC;
+  ring.cnt = cnt;
+  ring.ls = ls;
+  ring.piece = g.bwd_piece;
+  ring.stages = g.bwd_stages;
+  ring.L = L;
+  ring.dir = -1;
+  if constexpr (kGlobalState) {
+    friction::copy_state(gs, state_in, g.n);   // seen after the sync below
+  } else {
+    const staging::Piece in[] = {{gs, state_in, 12 * g.n}};
+    staging::load(in, bar);
+  }
+  ring.init();
+  __syncthreads();   // the barriers are initialised, the counts staged
+  if (ring.producer()) ring.refill(ring.stages);
+  if constexpr (!kGlobalState) staging::wait(bar);
+
+  // slot `slot`'s row and partner adds from its data, beside their
+  // vertices (ar, ap); its three cotangents to ck_out
+  const auto adds = [&](int slot, const Slot& x, float4& ar, float4& ap) {
+    float d[3], w[3], jt[3], r[3], u[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      w[c] = gs[3 * x.row + c];
+      d[c] = x.q[c] * x.mr - x.p[c] * x.mp;
+    }
+    friction::dry_friction_jt(x.nrm, d, w, jt);
+    friction::dry_friction(x.nrm, d, r);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) u[c] = x.kr * jt[c];
+    ar = make_float4(u[0] * x.mr, u[1] * x.mr, u[2] * x.mr,
+                     __int_as_float(x.row));
+    ap = make_float4(-(u[0] * x.mp), -(u[1] * x.mp), -(u[2] * x.mp),
+                     __int_as_float(x.part));
+    ck[slot] = r[0] * w[0] + r[1] * w[1] + r[2] * w[2];
+    ck[sc + slot] = u[0] * x.q[0] + u[1] * x.q[1] + u[2] * x.q[2];
+    ck[2 * sc + slot] = -(u[0] * x.p[0] + u[1] * x.p[1] + u[2] * x.p[2]);
+  };
+  const auto add = [&](const float4& a) {
+    float* y = gs + 3 * __float_as_int(a.w);
+    y[0] += a.x;
+    y[1] += a.y;
+    y[2] += a.z;
+  };
+  const int P = ring.piece;
+  const auto wide = [&](int l) {
+    const int c_l = cnt[l], start = ls[l], np = ring.pieces(c_l);
+    __syncthreads();   // the later layers' adds are visible
+    ring.read(c_l, np, [&](int s, const float* rs, int e) {
+      const int* ri = reinterpret_cast<const int*>(rs);
+      const Slot x = {ri[e], ri[P + e],
+                      {rs[2 * P + e], rs[3 * P + e], rs[4 * P + e]},
+                      rs[5 * P + e], rs[6 * P + e], rs[7 * P + e],
+                      {rs[8 * P + e], rs[9 * P + e], rs[10 * P + e]},
+                      {rs[11 * P + e], rs[12 * P + e], rs[13 * P + e]}};
+      float4 ar, ap;
+      adds(start + s, x, ar, ap);
+      if (s < F) {
+        rbuf[s] = ar;
+        pbuf[s] = ap;
+      } else {
+        rscr[s - F] = ar;
+        pscr[s - F] = ap;
+      }
+    });
+    ring.advance(np);
+    __syncthreads();   // every read of the pre-layer cotangent and pieces
+    if (ring.producer()) ring.refill(ring.head + ring.stages);
+    for (int s = threadIdx.x; s < c_l; s += blockDim.x)
+      add(s < F ? rbuf[s] : rscr[s - F]);
+    __syncthreads();   // row adds land before the partner adds
+    for (int s = threadIdx.x; s < c_l; s += blockDim.x)
+      add(s < F ? pbuf[s] : pscr[s - F]);
+  };
+  // warp 0 on a narrow layer: lane s slot s, its adds in its registers
+  const auto narrow = [&](int l, const Slot& x) {
+    const bool on = threadIdx.x < cnt[l];
+    __syncwarp();   // the later layer's adds are visible
+    float4 ar, ap;
+    if (on) adds(ls[l] + threadIdx.x, x, ar, ap);
+    __syncwarp();   // every read of the pre-layer cotangent
+    if (on) add(ar);
+    __syncwarp();   // row adds land before the partner adds
+    if (on) add(ap);
+  };
+  const auto load = [&](int l, Slot& x) {
+    if (threadIdx.x < cnt[l])
+      load_slot(x, g, vals_in, so, ls[l] + threadIdx.x);
+  };
+  friction::chain<Slot>(cnt, L, -1, wide, narrow, load);
+  if constexpr (!kGlobalState) {
+    const staging::Piece out[] = {
+        {g_out + (size_t)b * 3 * g.n, gs, 12 * g.n}};
+    staging::store(out);
+  }   // else the cotangent is in place
+}
+
+template <bool kGlobalState>
 int init(int max_smem) {
+  return (int)cudaFuncSetAttribute(friction_bwd_kernel<kGlobalState>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   max_smem);
+}
+
+template <bool kGlobalState>
+int init_stream(int max_smem) {
   return (int)cudaFuncSetAttribute(
-      friction_bwd_kernel<kGlobalState, kStream>,
+      friction_bwd_kernel_stream<kGlobalState>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
 }
 
-template <bool kGlobalState, bool kStream>
+bool geom_ok(const friction::SweepGeom* g) {
+  return g->B >= 1 && g->n >= 1 && g->L >= 1 && g->TC >= 1 &&
+         g->max_c_pad >= 1;
+}
+
+template <bool kGlobalState>
 int launch(const friction::SweepGeom* g, const float* g_in, const float* vals,
-           float* g_out, float* ck_out, float* scratch,
-           unsigned long long* launches, void* stream) {
-  if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1 ||
-      g_in == g_out || !launches || (kStream && !scratch))
+           float* g_out, float* ck_out, unsigned long long* launches,
+           void* stream) {
+  if (!geom_ok(g) || g_in == g_out || !launches)
     return (int)cudaErrorInvalidValue;
-  const int rows = kStream ? 0 : 1;
-  const int smem = friction::smem_layout(*g, kGlobalState ? 0 : g->n,
-                                         14 * rows, 3 * rows, 2 * rows).bytes;
-  friction_bwd_kernel<kGlobalState, kStream>
-      <<<dim3(g->B, kStream ? friction::kZeroParts : 1), kThreads, smem,
-         (cudaStream_t)stream>>>(
-          *g, g_in, vals, g_out, ck_out, scratch, launches);
+  const int smem =
+      friction::smem_layout(*g, kGlobalState ? 0 : g->n, 14, 3, 2).bytes;
+  friction_bwd_kernel<kGlobalState>
+      <<<g->B, kThreads, smem, (cudaStream_t)stream>>>(*g, g_in, vals, g_out,
+                                                         ck_out, launches);
+  return (int)cudaGetLastError();
+}
+
+template <bool kGlobalState>
+int launch_stream(const friction::SweepGeom* g, const float* g_in,
+                  const float* vals, float* g_out, float* ck_out,
+                  float* scratch, unsigned long long* launches,
+                  void* stream) {
+  if (!geom_ok(g) || g_in == g_out || !launches ||
+      !friction::ring_ok(g->bwd_piece, g->bwd_stages, g->bwd_buf,
+                         g->max_c_pad, scratch))
+    return (int)cudaErrorInvalidValue;
+  const int smem =
+      friction::stream_layout(*g, kGlobalState ? 0 : g->n, kRows, kForceBytes,
+                              g->bwd_piece, g->bwd_stages, g->bwd_buf)
+          .bytes;
+  friction_bwd_kernel_stream<kGlobalState>
+      <<<dim3(g->B, 1 + (friction::kZeroBlocks + g->B - 1) / g->B),
+         kStreamThreads, smem,
+         (cudaStream_t)stream>>>(*g, g_in, vals, g_out, ck_out,
+                                 reinterpret_cast<float4*>(scratch),
+                                 launches);
   return (int)cudaGetLastError();
 }
 
@@ -274,17 +444,15 @@ int launch(const friction::SweepGeom* g, const float* g_in, const float* vals,
 
 // Called once when the library is loaded: lets a launch use up to
 // max_smem bytes of dynamic shared memory (above the 48 KB default).
-extern "C" int friction_bwd_init(int max_smem) {
-  return init<false, false>(max_smem);
-}
+extern "C" int friction_bwd_init(int max_smem) { return init<false>(max_smem); }
 extern "C" int friction_bwd_global_init(int max_smem) {
-  return init<true, false>(max_smem);
+  return init<true>(max_smem);
 }
 extern "C" int friction_bwd_stream_init(int max_smem) {
-  return init<false, true>(max_smem);
+  return init_stream<false>(max_smem);
 }
 extern "C" int friction_bwd_global_stream_init(int max_smem) {
-  return init<true, true>(max_smem);
+  return init_stream<true>(max_smem);
 }
 
 // g: the step's slot operands; g_in / g_out (B, n, 3) f32, not the same
@@ -297,8 +465,7 @@ extern "C" int friction_bwd_global_stream_init(int max_smem) {
 extern "C" int friction_bwd(const friction::SweepGeom* g, const float* g_in,
                             const float* vals, float* g_out, float* ck_out,
                             unsigned long long* launches, void* stream) {
-  return launch<false, false>(g, g_in, vals, g_out, ck_out, nullptr,
-                              launches, stream);
+  return launch<false>(g, g_in, vals, g_out, ck_out, launches, stream);
 }
 
 // The global-state route, the same arguments; its shared memory,
@@ -307,22 +474,23 @@ extern "C" int friction_bwd_global(const friction::SweepGeom* g,
                                    const float* g_in, const float* vals,
                                    float* g_out, float* ck_out,
                                    unsigned long long* launches, void* stream) {
-  return launch<true, false>(g, g_in, vals, g_out, ck_out, nullptr, launches,
-                             stream);
+  return launch<true>(g, g_in, vals, g_out, ck_out, launches, stream);
 }
 
 // The streamed-slot routes, with the cotangent in shared memory
-// (friction::smem_layout(g, n, 0, 0, 0)) or in g_out
-// (friction::smem_layout(g, 0, 0, 0, 0)); scratch (B, max_c_pad, 6) f32
-// holds the per-slot row and partner adds of a layer.
+// (friction::stream_layout(g, n, 14, 32, bwd_piece, bwd_stages, bwd_buf))
+// or in g_out (the same with n_state 0); vals, ck_out's rows and every
+// pointer of g 16-byte aligned; scratch (B, 2, max_c_pad - bwd_buf, 4) f32
+// the row and partner adds of slots past the force buffer, null when
+// bwd_buf >= max_c_pad.
 extern "C" int friction_bwd_stream(const friction::SweepGeom* g,
                                    const float* g_in, const float* vals,
                                    float* g_out, float* ck_out,
                                    float* scratch,
                                    unsigned long long* launches,
                                    void* stream) {
-  return launch<false, true>(g, g_in, vals, g_out, ck_out, scratch, launches,
-                             stream);
+  return launch_stream<false>(g, g_in, vals, g_out, ck_out, scratch,
+                              launches, stream);
 }
 extern "C" int friction_bwd_global_stream(const friction::SweepGeom* g,
                                           const float* g_in,
@@ -330,6 +498,6 @@ extern "C" int friction_bwd_global_stream(const friction::SweepGeom* g,
                                           float* ck_out, float* scratch,
                                           unsigned long long* launches,
                                           void* stream) {
-  return launch<true, true>(g, g_in, vals, g_out, ck_out, scratch, launches,
-                            stream);
+  return launch_stream<true>(g, g_in, vals, g_out, ck_out, scratch,
+                             launches, stream);
 }

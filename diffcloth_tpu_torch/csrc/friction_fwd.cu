@@ -50,17 +50,31 @@
 // The streamed-slot route (friction_fwd_stream, friction_fwd_global_stream):
 // a step whose slot rows do not fit shared memory (the drop-free budgets
 // (n,) * 16 of a 1024-vertex cloth are 16 384 slots, some 1.1 MB of rows)
-// leaves them in global memory.  Each thread reads its slots' indices,
-// normal and masses there (coalesced by slot), writes q and p straight into
-// vals_out and the slot's force into a global scratch row of (max c_pad, 3)
-// per sample; __syncthreads() ends the layer's read phase before any add,
-// so every slot still reads the pre-layer state, and the add phase reads the
-// forces back.  The state stays in shared memory when it fits alone (n up
-// to about 19 000), else in fr_out as on the global-state route.
-// Inactive slots' vals are zeroed in vals_out by kZeroParts blocks per
-// sample (blockIdx.y; block 0 also runs the layer chain, the others only
-// zero, never touching an active slot).  Bit-equal to the plain version,
-// as the other routes: the same operations in the same order.
+// leaves them in global memory.  Its time is the chain block's dependent
+// steps per non-empty layer, and, beside it, the zeroing of the inactive
+// slots' vals (12.6 MB at B = 32 there: the byte bound).  At those shapes
+// most layers hold a few slots a sample, and a layer's time is its slot's
+// arithmetic, the barriers and the round trips around it; so the sample's
+// chain block (blockIdx.y 0) takes each layer one of two ways
+// (friction::chain).  A wide layer (over 32 slots) runs on every warp: its
+// slot rows are staged by TMA in a shared-memory ring ahead of the chain
+// (friction::SlotRing: one thread keeps the bulk copies of the next wide
+// layers' pieces in flight, up to each count rounded to 4 slots, pieces of
+// P slots, one mbarrier a stage); each slot's force goes, beside its row
+// index, to a force buffer in shared memory (a global scratch holds only
+// the slots of a layer wider than the buffer), __syncthreads(), and the
+// add phase needs only that buffer.  A run of narrow layers runs on warp 0
+// alone, lane s slot s, two __syncwarp() a layer: each lane loads its
+// slot's data into registers two narrow layers ahead, and keeps its force
+// in registers between the read and the add.  Either way a slot writes
+// its q and p to vals_out (coalesced by slot).  The state stays in shared
+// memory when it fits beside the ring (n up to about 18 000), else in
+// fr_out as on the global-state route.  The sample's other blocks
+// (kZeroBlocks / B of them) zero its inactive slots' vals in vals_out with
+// 16-byte stores, never touching an active slot, off the chain's path.
+// Bit-equal to the plain version, as the other routes: the same operations
+// in the same order.  core/friction_cuda.py `_stream_plan` sizes P, the
+// stages and the buffer.
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
@@ -69,107 +83,65 @@
 
 namespace {
 
+using friction::kStreamThreads;
 using friction::kThreads;
 
 // kGlobalState: the state lives in fr_out (global memory) instead of
-// shared memory.  kStream: the slot rows, vals and the per-slot forces stay
-// in global memory (scratch: (B, max c_pad, 3) f32) instead of shared.
-template <bool kGlobalState, bool kStream>
+// shared memory.
+template <bool kGlobalState>
 __global__ void __launch_bounds__(kThreads)
 friction_kernel(const friction::SweepGeom g, const float* __restrict__ fr_in,
                 float* fr_out, float* __restrict__ vals_out,
-                float* __restrict__ scratch, unsigned long long* launches) {
+                unsigned long long* launches) {
   extern __shared__ __align__(16) unsigned char smem[];
   count_launch(launches);
-  const int rows = kStream ? 0 : 1;
-  const friction::Smem m = friction::smem_layout(
-      g, kGlobalState ? 0 : g.n, 8 * rows, 6 * rows, rows);
+  const friction::Smem m =
+      friction::smem_layout(g, kGlobalState ? 0 : g.n, 8, 6, 1);
   const int b = blockIdx.x, TC = g.TC, L = g.L;
-  if constexpr (kStream) {
-    if (blockIdx.y > 0) {
-      // a zeroing block: its part of the sample's inactive slots, then done
-      int* cnt = reinterpret_cast<int*>(smem + m.ints);
-      int* ls = cnt + L;
-      for (int i = threadIdx.x; i <= L; i += kThreads) {
-        ls[i] = g.layer_start[i];
-        if (i < L) cnt[i] = g.counts[b * L + i];
-      }
-      __syncthreads();
-      friction::zero_inactive(vals_out + (size_t)b * 6 * TC, 6, cnt, ls, L, TC, TC,
-                              blockIdx.y, gridDim.y);
-      return;
-    }
-  }
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float* fr = kGlobalState ? fr_out + (size_t)b * 3 * g.n   // (n, 3)
                            : reinterpret_cast<float*>(smem + m.state);
-  const size_t so = (size_t)b * TC;   // slot offset of this sample
-  const int* row_of;
-  const int* part_of;
-  const float *nrmT, *kr_s, *mr_s, *mp_s;
-  float* vals;     // (6, TC)
-  float* r_slot;   // (c_pad, 3)
-  if constexpr (kStream) {
-    row_of = g.idx_row + so;
-    part_of = g.idx_part + so;
-    nrmT = g.normalT + 3 * so;
-    kr_s = g.kred + so;
-    mr_s = g.imr + so;
-    mp_s = g.imp + so;
-    vals = vals_out + 6 * so;
-    r_slot = scratch + (size_t)b * 3 * g.max_c_pad;
-  } else {
-    int* rs = reinterpret_cast<int*>(smem + m.slots);         // staged rows
-    int* ps = rs + TC;
-    float* ns = reinterpret_cast<float*>(ps + TC);             // (3, TC)
-    float* ks = ns + 3 * TC;
-    float* ms = ks + TC;
-    float* pms = ms + TC;
-    const staging::Piece slot_rows[] = {
-        {rs, g.idx_row + so, 4 * TC},
-        {ps, g.idx_part + so, 4 * TC},
-        {ns, g.normalT + 3 * so, 12 * TC},
-        {ks, g.kred + so, 4 * TC},
-        {ms, g.imr + so, 4 * TC},
-        {pms, g.imp + so, 4 * TC}};
-    const float* state_in = fr_in + (size_t)b * 3 * g.n;
-    if constexpr (kGlobalState) {
-      staging::load(slot_rows, bar);
-      friction::copy_state(fr, state_in, g.n);   // seen after the sync below
-    } else {
-      const staging::Piece in[] = {{fr, state_in, 12 * g.n},
-                                   slot_rows[0], slot_rows[1], slot_rows[2],
-                                   slot_rows[3], slot_rows[4], slot_rows[5]};
-      staging::load(in, bar);
-    }
-    row_of = rs;
-    part_of = ps;
-    nrmT = ns;
-    kr_s = ks;
-    mr_s = ms;
-    mp_s = pms;
-    vals = reinterpret_cast<float*>(smem + m.outs);
-    r_slot = reinterpret_cast<float*>(smem + m.bufs);
-  }
-  if constexpr (kStream) {
-    const float* state_in = fr_in + (size_t)b * 3 * g.n;
-    if constexpr (kGlobalState) {
-      friction::copy_state(fr, state_in, g.n);   // seen after the sync below
-    } else {
-      const staging::Piece in[] = {{fr, state_in, 12 * g.n}};
-      staging::load(in, bar);
-    }
-  }
+  int* row_of = reinterpret_cast<int*>(smem + m.slots);       // staged rows
+  int* part_of = row_of + TC;
+  float* nrmT = reinterpret_cast<float*>(part_of + TC);       // (3, TC)
+  float* kr_s = nrmT + 3 * TC;
+  float* mr_s = kr_s + TC;
+  float* mp_s = mr_s + TC;
+  float* vals = reinterpret_cast<float*>(smem + m.outs);      // (6, TC)
+  float* r_slot = reinterpret_cast<float*>(smem + m.bufs);    // (c_pad, 3)
   int* cnt = reinterpret_cast<int*>(smem + m.ints);
   int* ls = cnt + L;
+
+  const size_t so = (size_t)b * TC;   // slot offset of this sample
+  const float* state_in = fr_in + (size_t)b * 3 * g.n;
+  if constexpr (kGlobalState) {
+    const staging::Piece in[] = {
+        {row_of, g.idx_row + so, 4 * TC},
+        {part_of, g.idx_part + so, 4 * TC},
+        {nrmT, g.normalT + 3 * so, 12 * TC},
+        {kr_s, g.kred + so, 4 * TC},
+        {mr_s, g.imr + so, 4 * TC},
+        {mp_s, g.imp + so, 4 * TC}};
+    staging::load(in, bar);
+    friction::copy_state(fr, state_in, g.n);   // seen after the sync below
+  } else {
+    const staging::Piece in[] = {
+        {fr, state_in, 12 * g.n},
+        {row_of, g.idx_row + so, 4 * TC},
+        {part_of, g.idx_part + so, 4 * TC},
+        {nrmT, g.normalT + 3 * so, 12 * TC},
+        {kr_s, g.kred + so, 4 * TC},
+        {mr_s, g.imr + so, 4 * TC},
+        {mp_s, g.imp + so, 4 * TC}};
+    staging::load(in, bar);
+  }
   for (int i = threadIdx.x; i <= L; i += kThreads) {
     ls[i] = g.layer_start[i];
     if (i < L) cnt[i] = g.counts[b * L + i];
   }
   __syncthreads();
-  // while copies land (on the streamed route, part 0 of the zeroing)
-  friction::zero_inactive(vals, 6, cnt, ls, L, TC, TC, 0, gridDim.y);
-  if constexpr (!(kStream && kGlobalState)) staging::wait(bar);
+  friction::zero_inactive(vals, 6, cnt, ls, L, TC);   // while copies land
+  staging::wait(bar);
 
   bool synced = true;   // every thread sees the state as it stands
   for (int l = 0; l < L; ++l) {
@@ -205,15 +177,9 @@ friction_kernel(const friction::SweepGeom g, const float* __restrict__ fr_in,
     }
     synced = false;
   }
-  if constexpr (kGlobalState && kStream) {
-    return;   // the state and vals are in place
-  } else if constexpr (kGlobalState) {
+  if constexpr (kGlobalState) {
     const staging::Piece out[] = {
         {vals_out + (size_t)b * 6 * TC, vals, 24 * TC}};
-    staging::store(out);
-  } else if constexpr (kStream) {
-    const staging::Piece out[] = {
-        {fr_out + (size_t)b * 3 * g.n, fr, 12 * g.n}};
     staging::store(out);
   } else {
     const staging::Piece out[] = {
@@ -223,26 +189,212 @@ friction_kernel(const friction::SweepGeom g, const float* __restrict__ fr_in,
   }
 }
 
-template <bool kGlobalState, bool kStream>
+// the streamed-slot route's staged rows a slot: idx_row, idx_part, the
+// normal's three, kred, imr, imp; and its force buffer's bytes a slot
+constexpr int kRows = 8;
+constexpr int kForceBytes = 16;
+
+// A slot's data: its vertices, normal and masses.
+struct Slot {
+  int row, part;
+  float nrm[3];
+  float kr, mr, mp;
+};
+
+// Slot t of the sample at slot offset so, from global memory.
+__device__ __forceinline__ void load_slot(Slot& x,
+                                          const friction::SweepGeom& g,
+                                          size_t so, int t) {
+  x.row = g.idx_row[so + t];
+  x.part = g.idx_part[so + t];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) x.nrm[c] = g.normalT[3 * so + c * g.TC + t];
+  x.kr = g.kred[so + t];
+  x.mr = g.imr[so + t];
+  x.mp = g.imp[so + t];
+}
+
+// The streamed-slot route (see the header).  scratch: (B, max_c_pad - buf)
+// float4, the forces of slots past the force buffer (null when no layer is
+// wider than it).
+template <bool kGlobalState>
+__global__ void __launch_bounds__(kStreamThreads)
+friction_kernel_stream(const friction::SweepGeom g,
+                       const float* __restrict__ fr_in, float* fr_out,
+                       float* __restrict__ vals_out,
+                       float4* __restrict__ scratch,
+                       unsigned long long* launches) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  count_launch(launches);
+  const friction::Smem m =
+      friction::stream_layout(g, kGlobalState ? 0 : g.n, kRows, kForceBytes,
+                              g.fwd_piece, g.fwd_stages, g.fwd_buf);
+  const int b = blockIdx.x, TC = g.TC, L = g.L;
+  const size_t so = (size_t)b * TC;   // slot offset of this sample
+  float* vals = vals_out + 6 * so;    // (6, TC)
+  int* cnt = reinterpret_cast<int*>(smem + m.ints);
+  int* ls = cnt + L;
+  for (int i = threadIdx.x; i <= L; i += blockDim.x) {
+    ls[i] = g.layer_start[i];
+    if (i < L) cnt[i] = g.counts[b * L + i];
+  }
+  if (blockIdx.y > 0) {
+    // a zeroing block: its part of the sample's inactive vals, then done
+    __syncthreads();
+    friction::zero_inactive_stream(vals, 6, cnt, ls, L, TC, TC,
+                                   blockIdx.y - 1, gridDim.y - 1);
+    return;
+  }
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);   // the state's
+  float* fr = kGlobalState ? fr_out + (size_t)b * 3 * g.n   // (n, 3)
+                           : reinterpret_cast<float*>(smem + m.state);
+  const float* state_in = fr_in + (size_t)b * 3 * g.n;
+  const int F = g.fwd_buf;
+  float4* fbuf = reinterpret_cast<float4*>(smem + m.fbuf);
+  float4* fscr = scratch ? scratch + (size_t)b * (g.max_c_pad - F) : nullptr;
+  friction::SlotRing<kRows> ring;
+  ring.base = reinterpret_cast<float*>(smem + m.ring);
+  ring.bars = bar + 1;
+  ring.src[0] = reinterpret_cast<const float*>(g.idx_row + so);
+  ring.src[1] = reinterpret_cast<const float*>(g.idx_part + so);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) ring.src[2 + c] = g.normalT + 3 * so + c * TC;
+  ring.src[5] = g.kred + so;
+  ring.src[6] = g.imr + so;
+  ring.src[7] = g.imp + so;
+  ring.cnt = cnt;
+  ring.ls = ls;
+  ring.piece = g.fwd_piece;
+  ring.stages = g.fwd_stages;
+  ring.L = L;
+  ring.dir = 1;
+  if constexpr (kGlobalState) {
+    friction::copy_state(fr, state_in, g.n);   // seen after the sync below
+  } else {
+    const staging::Piece in[] = {{fr, state_in, 12 * g.n}};
+    staging::load(in, bar);
+  }
+  ring.init();
+  __syncthreads();   // the barriers are initialised, the counts staged
+  if (ring.producer()) ring.refill(ring.stages);
+  if constexpr (!kGlobalState) staging::wait(bar);
+
+  // slot `slot`'s force from its data, beside its row index; its q and p
+  // to vals
+  const auto force = [&](int slot, const Slot& x) {
+    float q[3], p[3], d[3], r[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      q[c] = fr[3 * x.row + c];
+      p[c] = fr[3 * x.part + c];
+      d[c] = q[c] * x.mr - p[c] * x.mp;
+    }
+    friction::dry_friction(x.nrm, d, r);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      vals[c * TC + slot] = q[c];
+      vals[(3 + c) * TC + slot] = p[c];
+    }
+    return make_float4(x.kr * r[0], x.kr * r[1], x.kr * r[2],
+                       __int_as_float(x.row));
+  };
+  const auto add = [&](const float4& f) {
+    float* y = fr + 3 * __float_as_int(f.w);
+    y[0] += f.x;
+    y[1] += f.y;
+    y[2] += f.z;
+  };
+  const int P = ring.piece;
+  const auto wide = [&](int l) {
+    const int c_l = cnt[l], start = ls[l], np = ring.pieces(c_l);
+    __syncthreads();   // the earlier layers' adds are visible
+    ring.read(c_l, np, [&](int s, const float* rs, int e) {
+      const int* ri = reinterpret_cast<const int*>(rs);
+      const Slot x = {ri[e], ri[P + e],
+                      {rs[2 * P + e], rs[3 * P + e], rs[4 * P + e]},
+                      rs[5 * P + e], rs[6 * P + e], rs[7 * P + e]};
+      const float4 f = force(start + s, x);
+      if (s < F)
+        fbuf[s] = f;
+      else
+        fscr[s - F] = f;
+    });
+    ring.advance(np);
+    __syncthreads();   // every read of the pre-layer state and the pieces
+    if (ring.producer()) ring.refill(ring.head + ring.stages);
+    for (int s = threadIdx.x; s < c_l; s += blockDim.x)
+      add(s < F ? fbuf[s] : fscr[s - F]);
+  };
+  // warp 0 on a narrow layer: lane s slot s, its force in its registers
+  const auto narrow = [&](int l, const Slot& x) {
+    const bool on = threadIdx.x < cnt[l];
+    __syncwarp();   // the previous layer's adds are visible
+    float4 f;
+    if (on) f = force(ls[l] + threadIdx.x, x);
+    __syncwarp();   // every read of the pre-layer state
+    if (on) add(f);
+  };
+  const auto load = [&](int l, Slot& x) {
+    if (threadIdx.x < cnt[l]) load_slot(x, g, so, ls[l] + threadIdx.x);
+  };
+  friction::chain<Slot>(cnt, L, 1, wide, narrow, load);
+  if constexpr (!kGlobalState) {
+    const staging::Piece out[] = {
+        {fr_out + (size_t)b * 3 * g.n, fr, 12 * g.n}};
+    staging::store(out);
+  }   // else the state is in place
+}
+
+template <bool kGlobalState>
 int init(int max_smem) {
-  return (int)cudaFuncSetAttribute(friction_kernel<kGlobalState, kStream>,
+  return (int)cudaFuncSetAttribute(friction_kernel<kGlobalState>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    max_smem);
 }
 
-template <bool kGlobalState, bool kStream>
+template <bool kGlobalState>
+int init_stream(int max_smem) {
+  return (int)cudaFuncSetAttribute(
+      friction_kernel_stream<kGlobalState>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+}
+
+bool geom_ok(const friction::SweepGeom* g) {
+  return g->B >= 1 && g->n >= 1 && g->L >= 1 && g->TC >= 1 &&
+         g->max_c_pad >= 1;
+}
+
+template <bool kGlobalState>
 int launch(const friction::SweepGeom* g, const float* fr_in, float* fr_out,
-           float* vals, float* scratch, unsigned long long* launches,
-           void* stream) {
-  if (g->B < 1 || g->n < 1 || g->L < 1 || g->TC < 1 || g->max_c_pad < 1 ||
-      fr_in == fr_out || !launches || (kStream && !scratch))
+           float* vals, unsigned long long* launches, void* stream) {
+  if (!geom_ok(g) || fr_in == fr_out || !launches)
     return (int)cudaErrorInvalidValue;
-  const int rows = kStream ? 0 : 1;
-  const int smem = friction::smem_layout(*g, kGlobalState ? 0 : g->n,
-                                         8 * rows, 6 * rows, rows).bytes;
-  friction_kernel<kGlobalState, kStream>
-      <<<dim3(g->B, kStream ? friction::kZeroParts : 1), kThreads, smem,
-         (cudaStream_t)stream>>>(*g, fr_in, fr_out, vals, scratch, launches);
+  const int smem =
+      friction::smem_layout(*g, kGlobalState ? 0 : g->n, 8, 6, 1).bytes;
+  friction_kernel<kGlobalState>
+      <<<g->B, kThreads, smem, (cudaStream_t)stream>>>(*g, fr_in, fr_out,
+                                                         vals, launches);
+  return (int)cudaGetLastError();
+}
+
+template <bool kGlobalState>
+int launch_stream(const friction::SweepGeom* g, const float* fr_in,
+                  float* fr_out, float* vals, float* scratch,
+                  unsigned long long* launches, void* stream) {
+  if (!geom_ok(g) || fr_in == fr_out || !launches ||
+      !friction::ring_ok(g->fwd_piece, g->fwd_stages, g->fwd_buf,
+                         g->max_c_pad, scratch))
+    return (int)cudaErrorInvalidValue;
+  const int smem =
+      friction::stream_layout(*g, kGlobalState ? 0 : g->n, kRows, kForceBytes,
+                              g->fwd_piece, g->fwd_stages, g->fwd_buf)
+          .bytes;
+  friction_kernel_stream<kGlobalState>
+      <<<dim3(g->B, 1 + (friction::kZeroBlocks + g->B - 1) / g->B),
+         kStreamThreads, smem,
+         (cudaStream_t)stream>>>(*g, fr_in, fr_out, vals,
+                                 reinterpret_cast<float4*>(scratch),
+                                 launches);
   return (int)cudaGetLastError();
 }
 
@@ -250,17 +402,15 @@ int launch(const friction::SweepGeom* g, const float* fr_in, float* fr_out,
 
 // Called once when the library is loaded: lets a launch use up to
 // max_smem bytes of dynamic shared memory (above the 48 KB default).
-extern "C" int friction_fwd_init(int max_smem) {
-  return init<false, false>(max_smem);
-}
+extern "C" int friction_fwd_init(int max_smem) { return init<false>(max_smem); }
 extern "C" int friction_fwd_global_init(int max_smem) {
-  return init<true, false>(max_smem);
+  return init<true>(max_smem);
 }
 extern "C" int friction_fwd_stream_init(int max_smem) {
-  return init<false, true>(max_smem);
+  return init_stream<false>(max_smem);
 }
 extern "C" int friction_fwd_global_stream_init(int max_smem) {
-  return init<true, true>(max_smem);
+  return init_stream<true>(max_smem);
 }
 
 // g: the step's slot operands; fr_in / fr_out (B, n, 3) f32, not the same
@@ -271,8 +421,7 @@ extern "C" int friction_fwd_global_stream_init(int max_smem) {
 extern "C" int friction_fwd(const friction::SweepGeom* g, const float* fr_in,
                             float* fr_out, float* vals,
                             unsigned long long* launches, void* stream) {
-  return launch<false, false>(g, fr_in, fr_out, vals, nullptr, launches,
-                              stream);
+  return launch<false>(g, fr_in, fr_out, vals, launches, stream);
 }
 
 // The global-state route, the same arguments; its shared memory,
@@ -281,27 +430,27 @@ extern "C" int friction_fwd_global(const friction::SweepGeom* g,
                                    const float* fr_in, float* fr_out,
                                    float* vals, unsigned long long* launches,
                                    void* stream) {
-  return launch<true, false>(g, fr_in, fr_out, vals, nullptr, launches,
-                             stream);
+  return launch<true>(g, fr_in, fr_out, vals, launches, stream);
 }
 
 // The streamed-slot routes, with the state in shared memory
-// (friction::smem_layout(g, n, 0, 0, 0)) or in fr_out
-// (friction::smem_layout(g, 0, 0, 0, 0)); scratch (B, max_c_pad, 3) f32
-// holds the per-slot forces of a layer.
+// (friction::stream_layout(g, n, 8, 16, fwd_piece, fwd_stages, fwd_buf))
+// or in fr_out (the same with n_state 0); vals rows and every pointer of g
+// 16-byte aligned; scratch (B, max_c_pad - fwd_buf, 4) f32 the forces of
+// slots past the force buffer, null when fwd_buf >= max_c_pad.
 extern "C" int friction_fwd_stream(const friction::SweepGeom* g,
                                    const float* fr_in, float* fr_out,
                                    float* vals, float* scratch,
                                    unsigned long long* launches,
                                    void* stream) {
-  return launch<false, true>(g, fr_in, fr_out, vals, scratch, launches,
-                             stream);
+  return launch_stream<false>(g, fr_in, fr_out, vals, scratch, launches,
+                              stream);
 }
 extern "C" int friction_fwd_global_stream(const friction::SweepGeom* g,
                                           const float* fr_in, float* fr_out,
                                           float* vals, float* scratch,
                                           unsigned long long* launches,
                                           void* stream) {
-  return launch<true, true>(g, fr_in, fr_out, vals, scratch, launches,
-                            stream);
+  return launch_stream<true>(g, fr_in, fr_out, vals, scratch, launches,
+                             stream);
 }

@@ -22,8 +22,10 @@ shared memory, n > 15 226) at n = 15 227 (rows not 16-byte aligned),
 16 384 and 20 001, and the last shared-route width; the streamed-slot
 routes (slot rows past shared memory, state shared or global) at the
 flagship's drop-free budgets (n,) * 16 and at n = 16 384 and 20 001 with
-raised budgets, contact in four layers, and detection at K = 40 and 64
-(the kernel's second instantiation) with overflow rows.  The f64 card episode
+raised budgets, contact in four layers: layers wider than a ring piece
+and exactly one piece, counts that are not multiples of 4, empty layers
+between full ones, layers past the force buffer; and detection at K = 40
+and 64 (the kernel's second instantiation) with overflow rows.  The f64 card episode
 is held within
 1e-6 of the CPU one, the f32 friction sweep inside the f64 simulation
 being the only inexact step.
@@ -291,13 +293,14 @@ def test_friction_kernels_equal_plain_at_any_width(dev, case):
         assert float((out_p - f).abs().max()) > 0, "friction never acted"
 
 
-def matching_tables(n, B, seed, pairs=(400, 150, 70, 40)):
+def matching_tables(n, B, seed, pairs=(400, 150, 70, 40), layers=None):
     """Layers of random matchings of `pairs` pairs each (by default four,
-    each over its default slot budget)."""
+    each over its default slot budget), in `layers` (by default the
+    first)."""
     rng = np.random.RandomState(seed)
     partner = np.full((B, 16, n), -1, np.int64)
     for b in range(B):
-        for lay, count in enumerate(pairs):
+        for lay, count in zip(layers or range(len(pairs)), pairs):
             perm = rng.permutation(n)[:2 * count]
             i, j = perm[:count], perm[count:]
             partner[b, lay, i] = j
@@ -453,8 +456,11 @@ def test_folded_episode_on_card_matches_cpu(dev):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
+STREAM_PAIRS = (400, 300, 150, 70)
 STREAM_CASES = {
-    # n, B, budgets, route taken (state, slots), every count zeroed
+    # n, B, budgets, route taken (state, slots), every count zeroed; then
+    # pairs per layer and their layers where they are not STREAM_PAIRS in
+    # layers 0-3
     "n1024_B4_dropfree": (1024, 4, (1024,) * 16, ("shared", "stream"),
                           False),
     "n1023_B3_dropfree_unaligned": (1023, 3, (1023,) * 16,
@@ -469,20 +475,42 @@ STREAM_CASES = {
                          False),
     "n19500_B2_dropfree": (19500, 2, (19500,) * 16, ("global", "stream"),
                            False),
+    # counts 402, 194, 302, 126 (none a multiple of 4 or 128) with empty
+    # layers between them; 402 slots are two of the backward's pieces
+    "n1024_B2_dropfree_gaps_odd_counts": (
+        1024, 2, (1024,) * 16, ("shared", "stream"), False,
+        (201, 97, 151, 63), (0, 3, 7, 15)),
+    # counts of exactly one forward piece (768) and two backward pieces,
+    # one backward piece (384) and one 128-slot chunk
+    "n1024_B3_dropfree_whole_pieces": (
+        1024, 3, (1024,) * 16, ("shared", "stream"), False,
+        (384, 192, 64, 30)),
+    # a layer of 4002 slots past both force buffers (the scratch), read in
+    # groups of two 128-slot pieces
+    "n16384_B2_raised_scratch": (16384, 2, (4096,) * 4,
+                                 ("shared", "stream"), False,
+                                 (2001, 700, 150, 33)),
+    # the global-state route with 7000 slots past the backward's buffer
+    "n19500_B1_dropfree_scratch": (19500, 1, (19500,) * 16,
+                                   ("global", "stream"), False,
+                                   (3500, 301, 40, 7), (0, 5, 6, 15)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(STREAM_CASES))
 def test_friction_kernels_equal_plain_with_streamed_slots(dev, case):
-    """Slot rows past shared memory: sweep_operands streams them (the state
-    in shared memory where it fits alone, else in global memory), and both
-    sweeps equal their plain versions exactly, with contact in four layers;
-    each counts its launch on the streamed route (and the global-state
-    one where the state is global)."""
-    n, B, bud, route, empty = STREAM_CASES[case]
+    """Slot rows past shared memory: sweep_operands streams them through
+    each kernel's ring of staged pieces (the state in shared memory where
+    it fits beside the ring, else in global memory), and both sweeps equal
+    their plain versions exactly, with contact in four layers; each counts
+    its launch on the streamed route (and the global-state one where the
+    state is global)."""
+    n, B, bud, route, empty, *layout = STREAM_CASES[case]
+    pairs, layers = (tuple(layout) + (None,))[:2] if layout else (
+        STREAM_PAIRS, None)
     rng = np.random.RandomState(n + B)
     x = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
-    tables = matching_tables(n, B, n, pairs=(400, 300, 150, 70))
+    tables = matching_tables(n, B, n, pairs=pairs, layers=layers)
     tables = SelfContactTables(partner=tables.partner.to(dev),
                                n_layers=tables.n_layers.to(dev))
     area = torch.as_tensor(rng.rand(n) + 0.2, dtype=torch.float32,
@@ -497,6 +525,12 @@ def test_friction_kernels_equal_plain_with_streamed_slots(dev, case):
     g = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
     ops = fc.sweep_operands(kg, masses, bud, n)
     assert (ops.route, ops.slots) == route
+    widest = 2 * max(pairs)
+    if case.endswith("_scratch"):
+        assert widest > ops.rings["bwd"][2]
+        assert fc.stream_scratch(ops, "bwd") is not None
+    if case.endswith("_whole_pieces"):
+        assert widest == ops.rings["fwd"][0] == 2 * ops.rings["bwd"][0]
     counters = (fc.friction_sweep, fc.friction_sweep_bwd)
     before = [(c.launches, c.stream_launches, c.global_launches)
               for c in counters]
