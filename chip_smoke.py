@@ -4054,8 +4054,8 @@ def capacity_sweep_inputs(sim, x, v, rng):
     return kg, masses, f, g
 
 
-# 20a's global-state streamed route: n (a state past shared memory beside
-# the ring), B, and the pairs of random matchings in layers 0-3
+# 20a's global-state streamed route: n (a state past shared memory), B,
+# and the pairs of random matchings in layers 0-3
 CAPACITY_GLOBAL = (19500, 2, (400, 300, 150, 70))
 
 

@@ -15,11 +15,10 @@ staged in shared memory, or, when that does not fit beside the slot rows
 (n past about 15 000 at the default budgets), kept in global memory (the
 `_global` entry points of the same sources); the slot rows staged in
 shared memory, or, when they do not fit there (past about 3 000 slots,
-as at the drop-free budgets (n,) * 16 of the flagship), streamed from
-global memory through a ring of staged pieces (the `_stream` entry
-points; `_stream_plan` sizes the ring and the force buffer), with the
-state in shared memory when it fits beside the smallest ring (n up to
-about 18 000).
+as at the drop-free budgets (n,) * 16 of the flagship), read from global
+memory (the `_stream` entry points; `_stream_plan` sizes their force
+buffers in shared memory), with the state in shared memory where it fits
+(n up to about 19 000).
 `friction_sweep` / `friction_sweep_bwd` then check only the per-call state
 (and selects) against it, and launch the kernels for CUDA tensors or run
 `friction_sweep_plain` / `friction_sweep_bwd_plain` for CPU tensors.
@@ -210,60 +209,41 @@ class _SweepArgs(ctypes.Structure):
         "idx_row", "idx_part", "normalT", "kred", "imr", "imp", "counts",
         "layer_start")]
         + [(k, ctypes.c_int) for k in (
-            "L", "B", "n", "TC", "max_c_pad", "fwd_piece", "fwd_stages",
-            "fwd_buf", "bwd_piece", "bwd_stages", "bwd_buf")])
+            "L", "B", "n", "TC", "max_c_pad", "fwd_buf", "bwd_buf")])
 
 
 def _smem_bytes(n: int, TC: int, max_c_pad: int, L: int, in_rows: int,
-                out_rows: int, bufs: int, ring: int = 0, fbuf: int = 0,
-                bars: int = 1) -> int:
+                out_rows: int, bufs: int, fbuf: int = 0) -> int:
     """Shared memory of one sweep block, `friction::smem_layout`'s total:
-    `bars` mbarriers, the (n, 3) state (n = 0 on the global-state route),
-    staged and built slot rows of TC, slot buffers of (max c_pad, 3),
-    `ring` bytes of staged slot-row pieces and `fbuf` bytes of per-slot
-    forces (the streamed-slot route's), counts and layer_start."""
+    the mbarrier, the (n, 3) state (n = 0 on the global-state route), staged
+    and built slot rows of TC, slot buffers of (max c_pad, 3), `fbuf` bytes
+    of per-slot forces (the streamed-slot route's), counts and
+    layer_start."""
     def a16(x):
         return (x + 15) & ~15
-    return (a16(8 * bars) + a16(12 * n) + a16(4 * TC * in_rows)
+    return (16 + a16(12 * n) + a16(4 * TC * in_rows)
             + a16(4 * TC * out_rows) + a16(12 * max_c_pad * bufs)
-            + a16(ring) + a16(fbuf) + 4 * (2 * L + 1))
+            + a16(fbuf) + 4 * (2 * L + 1))
 
 
 # the backward block is the larger of the two: 14 staged slot rows
 # (indices, normal, masses, selects), 3 cotangent rows, 2 slot buffers
 BWD_SMEM_ROWS = (14, 3, 2)
 
-# the streamed-slot route: the most stages of its ring (friction::kMaxStages,
-# one mbarrier reserved for each and one for the state), and per kernel the
-# slot rows a piece stages and the force buffer's bytes a slot (the force
-# beside its row index; the backward's row and partner adds)
-MAX_STAGES = 8
-STREAM_ROWS = {"fwd": (8, 16), "bwd": (14, 32)}
+# the streamed-slot route's force buffer, bytes a slot per kernel: the
+# force beside its row index; the backward's row and partner adds
+STREAM_FORCE_BYTES = {"fwd": 16, "bwd": 32}
 
 
-def _stream_plan(n: int, TC: int, max_c_pad: int, L: int, rows: int,
-                 fbytes: int):
-    """The streamed-slot block of a kernel that stages `rows` rows a slot
-    and keeps `fbytes` bytes of forces a slot, with an (n, 3) state in
-    shared memory (n = 0: in global memory): (piece P, stages, force-buffer
-    slots), or None when not even two stages of CHUNK slots fit.  The force
-    buffer takes the widest layer where it fits beside two such stages,
-    else as many CHUNKs as do; the ring takes the rest: MAX_STAGES pieces
-    of the largest P (a multiple of CHUNK, at most the widest layer) that
-    fit, else fewer stages of CHUNK slots.  Total bytes: `_smem_bytes(n,
-    TC, max_c_pad, L, 0, 0, 0, 4 * rows * P * stages, fbytes * buf,
-    1 + MAX_STAGES)`, as `friction::stream_layout`."""
-    slot = 4 * rows                          # a slot's staged bytes
-    left = SMEM_LIMIT - _smem_bytes(n, TC, max_c_pad, L, 0, 0, 0,
-                                    bars=1 + MAX_STAGES)
-    spare = left - 2 * CHUNK * slot
-    if spare < 0:
-        return None
-    buf = min(max_c_pad, spare // fbytes // CHUNK * CHUNK)
-    left -= fbytes * buf
-    piece = min(max_c_pad, left // (MAX_STAGES * slot) // CHUNK * CHUNK)
-    piece = max(piece, CHUNK)
-    return piece, min(MAX_STAGES, left // (piece * slot)), buf
+def _stream_plan(n: int, TC: int, max_c_pad: int, L: int, fbytes: int):
+    """The force buffer, in slots, of a streamed-slot kernel that keeps
+    `fbytes` bytes of forces a slot, with an (n, 3) state in shared memory
+    (n = 0: in global memory) that fits there: the widest layer where it
+    fits beside the state, else as many CHUNKs as do (down to none: the
+    scratch takes the rest).  Total bytes: `_smem_bytes(n, TC, max_c_pad,
+    L, 0, 0, 0, fbytes * buf)`, as `friction::stream_layout`."""
+    left = SMEM_LIMIT - _smem_bytes(n, TC, max_c_pad, L, 0, 0, 0)
+    return min(max_c_pad, left // fbytes // CHUNK * CHUNK)
 
 
 @functools.lru_cache(maxsize=None)
@@ -291,9 +271,9 @@ class SweepOperands:
     route: str            # "shared" or "global": where the state lives
     slots: str = "shared"   # "shared" or "stream": where the slot rows live
     max_c_pad: int = 0    # the widest layer
-    # the streamed-slot route's (piece, stages, force-buffer slots) of each
-    # kernel ("fwd", "bwd"), `_stream_plan`'s; None on the other routes
-    rings: dict = None
+    # the streamed-slot route's force-buffer slots of each kernel ("fwd",
+    # "bwd"), `_stream_plan`'s; None on the other routes
+    bufs: dict = None
 
 
 # the routes (state, slots) in the order they are tried: the first whose
@@ -339,38 +319,30 @@ def sweep_operands(geom: KernelGeom, masses, budgets: tuple,
         raise ValueError(f"sweep operands: n = {n}")
     # the backward block is the larger: the state goes to global memory
     # when it does not fit there beside the slot rows, the slot rows when
-    # they do not fit at all; a streamed ring shrinks its pieces before
-    # the state leaves shared memory
+    # they do not fit at all; a streamed route's force buffer shrinks
+    # before the state leaves shared memory
     for route, slot_route in ROUTES:
         n_state = n if route == "shared" else 0
-        rings = None
-        if slot_route == "shared":
-            if _smem_bytes(n_state, TC, max_c_pad, L,
-                           *BWD_SMEM_ROWS) <= SMEM_LIMIT:
-                break
-            continue
-        rings = {k: _stream_plan(n_state, TC, max_c_pad, L, *v)
-                 for k, v in STREAM_ROWS.items()}
-        if rings["bwd"] is not None:
+        if _smem_bytes(n_state, TC, max_c_pad, L,
+                       *(BWD_SMEM_ROWS if slot_route == "shared"
+                         else (0, 0, 0))) <= SMEM_LIMIT:
             break
     else:
         raise ValueError(f"sweep operands: no route of n = {n}, {TC} slots "
                          f"fits the sweeps' shared memory")
-    tensors = (geom.idx_row, geom.idx_part, geom.normalT, kred, imr, imp,
-               geom.counts)
-    if rings is not None and any(t.data_ptr() % 16 for t in tensors[:6]):
-        # the ring's bulk copies read whole rows from 16-byte boundaries
-        raise ValueError("sweep operands: the streamed-slot route needs "
-                         "16-byte aligned slot rows")
+    bufs = ({k: _stream_plan(n_state, TC, max_c_pad, L, v)
+             for k, v in STREAM_FORCE_BYTES.items()}
+            if slot_route == "stream" else None)
     ls = _layer_start(tuple(budgets), dev)
-    args = _SweepArgs(*(t.data_ptr() for t in tensors + (ls,)), L, B, n, TC,
-                      max_c_pad, *(rings["fwd"] if rings else (0, 0, 0)),
-                      *(rings["bwd"] if rings else (0, 0, 0)))
+    args = _SweepArgs(*(t.data_ptr() for t in (
+        geom.idx_row, geom.idx_part, geom.normalT, kred, imr, imp,
+        geom.counts, ls)), L, B, n, TC, max_c_pad,
+        *((bufs["fwd"], bufs["bwd"]) if bufs else (0, 0)))
     return SweepOperands(geom=geom, masses=(kred, imr, imp),
                          budgets=tuple(budgets), state_shape=(B, n, 3),
                          vals_shape=(B, 6, TC), device=dev,
                          args=ctypes.pointer(args), route=route,
-                         slots=slot_route, max_c_pad=max_c_pad, rings=rings)
+                         slots=slot_route, max_c_pad=max_c_pad, bufs=bufs)
 
 
 def stream_scratch(ops: SweepOperands, kernel: str):
@@ -379,9 +351,9 @@ def stream_scratch(ops: SweepOperands, kernel: str):
     max_c_pad - buffer, 4) f32 (the backward's (B, 2, max_c_pad - buffer,
     4): row and partner adds), or None where the buffer holds the widest
     layer, and on the other routes."""
-    if ops.rings is None:
+    if ops.bufs is None:
         return None
-    wider = ops.max_c_pad - ops.rings[kernel][2]
+    wider = ops.max_c_pad - ops.bufs[kernel]
     if wider <= 0:
         return None
     B = ops.state_shape[0]
@@ -542,9 +514,6 @@ def friction_sweep_bwd(g, vals, ops: SweepOperands):
         return friction_sweep_bwd_plain(g, ops.geom, *ops.masses, vals,
                                         ops.budgets)
     B, _, TC = ops.vals_shape
-    if ops.slots == "stream" and vals.data_ptr() % 16:
-        raise ValueError("friction_sweep_bwd: the streamed-slot route needs "
-                         "16-byte aligned vals")
     out = torch.empty_like(g)
     ck = g.new_empty((3, B, TC))
     symbol = _symbol("friction_bwd", ops)

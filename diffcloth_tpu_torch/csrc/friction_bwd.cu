@@ -49,18 +49,18 @@
 //
 // The streamed-slot routes (friction_bwd_stream, friction_bwd_global_stream),
 // for slot rows too large for shared memory, the forward's design
-// (csrc/friction_fwd.cu) in reverse layer order: a wide layer's 14 slot
-// rows (indices, normal, masses and the six vals rows) staged by TMA in
-// the ring ahead of the chain, its row and partner adds, each beside its
-// vertex index, in a force buffer in shared memory (a global scratch only
-// for the slots of a layer wider than the buffer) between the read, row
-// and partner passes and their __syncthreads(); a narrow layer's slot data
-// loaded into warp 0's registers two narrow layers ahead, its adds kept
-// there between __syncwarp(); so every vertex still receives (g + row) +
-// part.  The three slot cotangents go to ck_out from registers (coalesced
-// by slot); the cotangent stays in shared memory when it fits beside the
-// ring, else in g_out; the sample's other blocks zero the inactive slots'
-// cotangents; bit-equal to the plain version.
+// (csrc/friction_fwd.cu) in reverse layer order: a wide layer's slot data
+// (indices, normal, masses and the six vals rows) read from global memory
+// by every warp, its row and partner adds, each beside its vertex index,
+// in a force buffer in shared memory (a global scratch only for the slots
+// of a layer wider than the buffer) between the read, row and partner
+// passes and their __syncthreads(); a narrow layer's slot data loaded into
+// warp 0's registers two narrow layers ahead, its adds kept there between
+// __syncwarp(); so every vertex still receives (g + row) + part.  The
+// three slot cotangents go to ck_out from registers (coalesced by slot);
+// the cotangent stays in shared memory when it fits, else in g_out; the
+// sample's other blocks zero the inactive slots' cotangents; bit-equal to
+// the plain version.
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
@@ -200,10 +200,8 @@ friction_bwd_kernel(const friction::SweepGeom g,
   }
 }
 
-// the streamed-slot route's staged rows a slot: idx_row, idx_part, the
-// normal's three, kred, imr, imp and the six vals rows; and its force
-// buffer's bytes a slot, the row and the partner add
-constexpr int kRows = 14;
+// the streamed-slot route's force buffer's bytes a slot: the row and the
+// partner add, each beside its vertex index
 constexpr int kForceBytes = 32;
 
 // A slot's data: its vertices, normal, masses, and its q and p of the
@@ -248,8 +246,8 @@ friction_bwd_kernel_stream(const friction::SweepGeom g,
   extern __shared__ __align__(16) unsigned char smem[];
   count_launch(launches);
   const friction::Smem m =
-      friction::stream_layout(g, kGlobalState ? 0 : g.n, kRows, kForceBytes,
-                              g.bwd_piece, g.bwd_stages, g.bwd_buf);
+      friction::stream_layout(g, kGlobalState ? 0 : g.n, kForceBytes,
+                              g.bwd_buf);
   const int b = blockIdx.x, TC = g.TC, L = g.L;
   const size_t so = (size_t)b * TC;     // slot offset of this sample
   const size_t sc = (size_t)g.B * TC;   // ck_out's row stride
@@ -276,33 +274,13 @@ friction_bwd_kernel_stream(const friction::SweepGeom g,
   float4* pbuf = rbuf + F;                                    // partner adds
   float4* rscr = scratch ? scratch + (size_t)b * 2 * W : nullptr;
   float4* pscr = scratch ? rscr + W : nullptr;
-  friction::SlotRing<kRows> ring;
-  ring.base = reinterpret_cast<float*>(smem + m.ring);
-  ring.bars = bar + 1;
-  ring.src[0] = reinterpret_cast<const float*>(g.idx_row + so);
-  ring.src[1] = reinterpret_cast<const float*>(g.idx_part + so);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) ring.src[2 + c] = g.normalT + 3 * so + c * TC;
-  ring.src[5] = g.kred + so;
-  ring.src[6] = g.imr + so;
-  ring.src[7] = g.imp + so;
-#pragma unroll
-  for (int c = 0; c < 6; ++c) ring.src[8 + c] = vals_in + 6 * so + c * TC;
-  ring.cnt = cnt;
-  ring.ls = ls;
-  ring.piece = g.bwd_piece;
-  ring.stages = g.bwd_stages;
-  ring.L = L;
-  ring.dir = -1;
   if constexpr (kGlobalState) {
     friction::copy_state(gs, state_in, g.n);   // seen after the sync below
   } else {
     const staging::Piece in[] = {{gs, state_in, 12 * g.n}};
     staging::load(in, bar);
   }
-  ring.init();
-  __syncthreads();   // the barriers are initialised, the counts staged
-  if (ring.producer()) ring.refill(ring.stages);
+  __syncthreads();   // the counts are staged
   if constexpr (!kGlobalState) staging::wait(bar);
 
   // slot `slot`'s row and partner adds from its data, beside their
@@ -332,17 +310,12 @@ friction_bwd_kernel_stream(const friction::SweepGeom g,
     y[1] += a.y;
     y[2] += a.z;
   };
-  const int P = ring.piece;
   const auto wide = [&](int l) {
-    const int c_l = cnt[l], start = ls[l], np = ring.pieces(c_l);
+    const int c_l = cnt[l], start = ls[l];
     __syncthreads();   // the later layers' adds are visible
-    ring.read(c_l, np, [&](int s, const float* rs, int e) {
-      const int* ri = reinterpret_cast<const int*>(rs);
-      const Slot x = {ri[e], ri[P + e],
-                      {rs[2 * P + e], rs[3 * P + e], rs[4 * P + e]},
-                      rs[5 * P + e], rs[6 * P + e], rs[7 * P + e],
-                      {rs[8 * P + e], rs[9 * P + e], rs[10 * P + e]},
-                      {rs[11 * P + e], rs[12 * P + e], rs[13 * P + e]}};
+    for (int s = threadIdx.x; s < c_l; s += blockDim.x) {
+      Slot x;
+      load_slot(x, g, vals_in, so, start + s);
       float4 ar, ap;
       adds(start + s, x, ar, ap);
       if (s < F) {
@@ -352,10 +325,8 @@ friction_bwd_kernel_stream(const friction::SweepGeom g,
         rscr[s - F] = ar;
         pscr[s - F] = ap;
       }
-    });
-    ring.advance(np);
-    __syncthreads();   // every read of the pre-layer cotangent and pieces
-    if (ring.producer()) ring.refill(ring.head + ring.stages);
+    }
+    __syncthreads();   // every read of the pre-layer cotangent is done
     for (int s = threadIdx.x; s < c_l; s += blockDim.x)
       add(s < F ? rbuf[s] : rscr[s - F]);
     __syncthreads();   // row adds land before the partner adds
@@ -424,13 +395,11 @@ int launch_stream(const friction::SweepGeom* g, const float* g_in,
                   float* scratch, unsigned long long* launches,
                   void* stream) {
   if (!geom_ok(g) || g_in == g_out || !launches ||
-      !friction::ring_ok(g->bwd_piece, g->bwd_stages, g->bwd_buf,
-                         g->max_c_pad, scratch))
+      !friction::buf_ok(g->bwd_buf, g->max_c_pad, scratch))
     return (int)cudaErrorInvalidValue;
-  const int smem =
-      friction::stream_layout(*g, kGlobalState ? 0 : g->n, kRows, kForceBytes,
-                              g->bwd_piece, g->bwd_stages, g->bwd_buf)
-          .bytes;
+  const int smem = friction::stream_layout(*g, kGlobalState ? 0 : g->n,
+                                           kForceBytes, g->bwd_buf)
+                       .bytes;
   friction_bwd_kernel_stream<kGlobalState>
       <<<dim3(g->B, 1 + (friction::kZeroBlocks + g->B - 1) / g->B),
          kStreamThreads, smem,
@@ -478,9 +447,9 @@ extern "C" int friction_bwd_global(const friction::SweepGeom* g,
 }
 
 // The streamed-slot routes, with the cotangent in shared memory
-// (friction::stream_layout(g, n, 14, 32, bwd_piece, bwd_stages, bwd_buf))
-// or in g_out (the same with n_state 0); vals, ck_out's rows and every
-// pointer of g 16-byte aligned; scratch (B, 2, max_c_pad - bwd_buf, 4) f32
+// (friction::stream_layout(g, n, 32, bwd_buf)) or in g_out (the same with
+// n_state 0); ck_out 16-byte aligned, its rows a multiple of 4 floats;
+// scratch (B, 2, max_c_pad - bwd_buf, 4) f32
 // the row and partner adds of slots past the force buffer, null when
 // bwd_buf >= max_c_pad.
 extern "C" int friction_bwd_stream(const friction::SweepGeom* g,

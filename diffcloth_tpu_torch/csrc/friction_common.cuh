@@ -1,8 +1,8 @@
 // What the forward and backward sweeps share (csrc/friction_fwd.cu,
 // csrc/friction_bwd.cu): the per-step slot operands, one sample's
 // shared-memory layout, the copy of a sample's state for the global-state
-// route, the streamed-slot route's ring of staged slot rows and its
-// zeroing pass, and the per-slot dry-friction math, the
+// route, the streamed-slot route's force buffer, layer chain and zeroing
+// pass, and the per-slot dry-friction math, the
 // Signorini-Coulomb take-off / stick / slide split with mu = 0.1
 // (friction_pallas.py `_fric_cases`, `_dff_T`, `_dff_JT`), op for op as the
 // plain PyTorch versions in core/friction_cuda.py compute it: three-term
@@ -22,16 +22,9 @@ constexpr int kThreads = 256;   // one block of kThreads per sample
 // (blockIdx.y 1, 2, ...) share the zeroing of its inactive slots' outputs
 // in global memory (7 a sample at B = 32)
 constexpr int kZeroBlocks = 224;
-// threads of a streamed-slot block (bench_stream_width.py builds the
-// sweeps at other widths with -DFRICTION_STREAM_THREADS to compare them)
-#ifndef FRICTION_STREAM_THREADS
-#define FRICTION_STREAM_THREADS 256
-#endif
-constexpr int kStreamThreads = FRICTION_STREAM_THREADS;
-// the streamed-slot route's ring holds at most kMaxStages pieces
-// (core/friction_cuda.py MAX_STAGES); its block reserves a barrier for each
-// and one for the state
-constexpr int kMaxStages = 8;
+// threads of a streamed-slot block (128 and 256 measured alike, 512 and
+// 1024 slower: PERF.md)
+constexpr int kStreamThreads = 256;
 
 // The slot operands of one step, fixed for all its sweeps and adjoint
 // trips; the wrapper validates them once and passes this struct by pointer
@@ -48,10 +41,9 @@ struct SweepGeom {
   const int* counts;       // (B, L) active slots per layer
   const int* layer_start;  // (L + 1)
   int L, B, n, TC, max_c_pad;
-  // the streamed-slot route's ring of each kernel (0 on the other routes):
-  // pieces of `piece` slots (a multiple of 128) in `stages` stages, and a
-  // force buffer of `buf` slots in shared memory
-  int fwd_piece, fwd_stages, fwd_buf, bwd_piece, bwd_stages, bwd_buf;
+  // the streamed-slot route's force buffer of each kernel, slots in shared
+  // memory (0 on the other routes)
+  int fwd_buf, bwd_buf;
 };
 
 __host__ __device__ inline int align16(int bytes) {
@@ -59,52 +51,43 @@ __host__ __device__ inline int align16(int bytes) {
 }
 
 // One sample's shared memory, byte offsets (core/friction_cuda.py
-// `_smem_bytes` computes the same total): `bars` mbarriers at 0, the
+// `_smem_bytes` computes the same total): the mbarrier at 0, the
 // (n_state, 3) state (n_state = n on the shared-memory route, 0 on the
 // global-state route), `in_rows` staged slot rows of TC, `out_rows` slot
 // rows built for the store, `bufs` (max c_pad, 3) slot buffers (all three
-// 0 on the streamed-slot route), `ring` bytes of staged slot-row pieces and
-// `fbuf` bytes of per-slot forces (both 0 on the other routes), then counts
-// (L) and layer_start (L + 1).
+// 0 on the streamed-slot route), `fbuf` bytes of per-slot forces (0 on the
+// other routes), then counts (L) and layer_start (L + 1).
 struct Smem {
-  int state, slots, outs, bufs, ring, fbuf, ints, bytes;
+  int state, slots, outs, bufs, fbuf, ints, bytes;
 };
 
 __host__ __device__ inline Smem smem_layout(const SweepGeom& g, int n_state,
                                             int in_rows, int out_rows,
-                                            int bufs, int ring = 0,
-                                            int fbuf = 0, int bars = 1) {
+                                            int bufs, int fbuf = 0) {
   Smem m;
-  m.state = align16(8 * bars);
+  m.state = 16;
   m.slots = m.state + align16(12 * n_state);
   m.outs = m.slots + align16(4 * g.TC * in_rows);
   m.bufs = m.outs + align16(4 * g.TC * out_rows);
-  m.ring = m.bufs + align16(12 * g.max_c_pad * bufs);
-  m.fbuf = m.ring + align16(ring);
+  m.fbuf = m.bufs + align16(12 * g.max_c_pad * bufs);
   m.ints = m.fbuf + align16(fbuf);
   m.bytes = m.ints + 4 * (2 * g.L + 1);
   return m;
 }
 
-// A streamed-slot ring the kernels take: pieces of a positive multiple of
-// 128 slots, 2 to kMaxStages stages, a force buffer of a multiple of 4
-// slots, and a scratch wherever the widest layer is wider than the buffer.
-__host__ __device__ inline bool ring_ok(int piece, int stages, int buf,
-                                        int max_c_pad, const void* scratch) {
-  return piece >= 128 && piece % 128 == 0 && stages >= 2 &&
-         stages <= kMaxStages && buf >= 0 && buf % 4 == 0 &&
-         (buf >= max_c_pad || scratch != nullptr);
+// A streamed-slot force buffer the kernels take: a multiple of 4 slots,
+// and a scratch wherever the widest layer is wider than the buffer.
+__host__ __device__ inline bool buf_ok(int buf, int max_c_pad,
+                                       const void* scratch) {
+  return buf >= 0 && buf % 4 == 0 && (buf >= max_c_pad || scratch != nullptr);
 }
 
-// The streamed-slot block of a kernel that stages R rows a slot and keeps
-// `fbytes` bytes of forces a slot: the state (n_state as above), a ring of
-// `stages` pieces of `piece` slots, a force buffer of `buf` slots.
+// The streamed-slot block of a kernel that keeps `fbytes` bytes of forces
+// a slot: the state (n_state as above) and a force buffer of `buf` slots.
 __host__ __device__ inline Smem stream_layout(const SweepGeom& g,
-                                              int n_state, int R, int fbytes,
-                                              int piece, int stages,
+                                              int n_state, int fbytes,
                                               int buf) {
-  return smem_layout(g, n_state, 0, 0, 0, 4 * R * piece * stages,
-                     fbytes * buf, 1 + kMaxStages);
+  return smem_layout(g, n_state, 0, 0, 0, fbytes * buf);
 }
 
 // The global-state route: the block copies its sample's (n, 3) state from
@@ -163,125 +146,8 @@ __device__ __forceinline__ void zero_inactive_stream(
 
 // The streamed-slot route's chain takes a layer of kNarrow slots or fewer
 // (a narrow one) on warp 0 alone, its slot data in the lanes' registers; a
-// wider one on the whole block, its slot rows staged in the ring below.
+// wider one on the whole block, its slot data read from global memory.
 constexpr int kNarrow = 32;
-
-// The streamed-slot route's ring for the wide layers: their slot rows, in
-// chain order (dir +1 from layer 0, -1 from layer L - 1), cut into pieces
-// of `piece` slots, each piece's R slot rows staged by TMA bulk copies into
-// the next stage of the ring, round and round, on that stage's mbarrier.
-// A piece copies its layer's slots up to the count rounded up to 4; a
-// layer start is a multiple of 128 slots, so every row of a piece starts
-// 512-byte aligned.  One thread, lane 0 of the block's last warp, issues
-// the copies (`refill`), and every thread that reads a piece waits for it;
-// a stage is re-armed only after a __syncthreads() that follows every read
-// of its last piece.  Stage numbers and phase parities are counted up, not
-// divided out: an integer division costs the chain about as much as a
-// slot's arithmetic.
-template <int R>
-struct SlotRing {
-  float* base;             // stages x R x piece floats
-  uint64_t* bars;          // one barrier a stage
-  const float* src[R];     // the sample's rows in global memory (4-byte words)
-  const int* cnt;
-  const int* ls;
-  int piece, stages, L, dir;
-  // every thread: the next wide layer's first piece, its number, stage and
-  // phase parity
-  int head, st, ph;
-  // the producer: pieces issued, the next one's stage, layer, first slot
-  int issued, pst, layer, next;
-
-  __device__ float* stage(int s) const {
-    return base + (size_t)s * R * piece;
-  }
-
-  __device__ bool producer() const { return threadIdx.x == blockDim.x - 32; }
-
-  // pieces of a wide layer of c slots
-  __device__ int pieces(int c) const {
-    int np = 0;
-    for (int x = 0; x < c; x += piece) ++np;
-    return np;
-  }
-
-  // every thread, before a __syncthreads(); thread 0 initialises the
-  // stages' barriers
-  __device__ void init() {
-    head = st = ph = issued = pst = next = 0;
-    layer = dir > 0 ? 0 : L - 1;
-    if (threadIdx.x == 0)
-      for (int i = 0; i < stages; ++i) staging::init(&bars[i]);
-  }
-
-  // the producer: start the copies of every piece before number `limit`
-  __device__ void refill(int limit) {
-    for (; issued < limit; ++issued) {
-      while (layer >= 0 && layer < L &&
-             (cnt[layer] <= kNarrow || next >= cnt[layer])) {
-        layer += dir;
-        next = 0;
-      }
-      if (layer < 0 || layer >= L) return;   // no piece is left
-      staging::arm_rows(stage(pst), piece, src, ls[layer] + next,
-                        min(piece, ((cnt[layer] + 3) & ~3) - next),
-                        &bars[pst]);
-      next += piece;
-      if (++pst == stages) pst = 0;
-    }
-  }
-
-  // every thread: the next wide layer starts np pieces on
-  __device__ void advance(int np) {
-    head += np;
-    for (int i = 0; i < np; ++i)
-      if (++st == stages) {
-        st = 0;
-        ph ^= 1;
-      }
-  }
-
-  // The read phase of the next wide layer, c slots in np pieces, on every
-  // thread: f(s, rows, e) for each slot s < c this thread takes (s =
-  // threadIdx.x, threadIdx.x + blockDim.x, ...), its piece's staged rows at
-  // `rows` (row r at rows + r * piece), the slot at element e.  A layer of
-  // more pieces than stages is read `stages` pieces at a time, the block
-  // synchronised and the ring refilled between them.  Then advance(np).
-  template <typename F>
-  __device__ void read(int c, int np, F f) {
-    int gst = st, gph = ph;   // the group's first piece
-    for (int g0 = 0; g0 < np; g0 += stages) {
-      const int g1 = min(np, g0 + stages);
-      const int end = min(c, g1 * piece);
-      int j = 0, lo = g0 * piece, waited = -1;   // slot s in piece g0 + j
-      for (int s = g0 * piece + threadIdx.x; s < end; s += blockDim.x) {
-        while (s >= lo + piece) {
-          lo += piece;
-          ++j;
-        }
-        int k = gst + j, par = gph;
-        if (k >= stages) {
-          k -= stages;
-          par ^= 1;
-        }
-        if (j != waited) {
-          staging::wait(&bars[k], par);
-          waited = j;
-        }
-        f(s, stage(k), s - lo);
-      }
-      gst += g1 - g0;
-      if (gst >= stages) {
-        gst -= stages;
-        gph ^= 1;
-      }
-      if (g1 < np) {
-        __syncthreads();   // every read of these pieces is done
-        if (producer()) refill(head + g1 + stages);
-      }
-    }
-  }
-};
 
 // The streamed-slot route's layer chain: every non-empty layer of the L,
 // in chain order (dir +1 from layer 0, -1 from layer L - 1).  A wide layer

@@ -56,25 +56,22 @@
 // most layers hold a few slots a sample, and a layer's time is its slot's
 // arithmetic, the barriers and the round trips around it; so the sample's
 // chain block (blockIdx.y 0) takes each layer one of two ways
-// (friction::chain).  A wide layer (over 32 slots) runs on every warp: its
-// slot rows are staged by TMA in a shared-memory ring ahead of the chain
-// (friction::SlotRing: one thread keeps the bulk copies of the next wide
-// layers' pieces in flight, up to each count rounded to 4 slots, pieces of
-// P slots, one mbarrier a stage); each slot's force goes, beside its row
-// index, to a force buffer in shared memory (a global scratch holds only
-// the slots of a layer wider than the buffer), __syncthreads(), and the
-// add phase needs only that buffer.  A run of narrow layers runs on warp 0
-// alone, lane s slot s, two __syncwarp() a layer: each lane loads its
-// slot's data into registers two narrow layers ahead, and keeps its force
-// in registers between the read and the add.  Either way a slot writes
-// its q and p to vals_out (coalesced by slot).  The state stays in shared
-// memory when it fits beside the ring (n up to about 18 000), else in
-// fr_out as on the global-state route.  The sample's other blocks
-// (kZeroBlocks / B of them) zero its inactive slots' vals in vals_out with
-// 16-byte stores, never touching an active slot, off the chain's path.
-// Bit-equal to the plain version, as the other routes: the same operations
-// in the same order.  core/friction_cuda.py `_stream_plan` sizes P, the
-// stages and the buffer.
+// (friction::chain).  A wide layer (over 32 slots) runs on every warp,
+// each thread reading its slots' data from global memory (coalesced by
+// slot); each slot's force goes, beside its row index, to a force buffer
+// in shared memory (a global scratch holds only the slots of a layer
+// wider than the buffer), __syncthreads(), and the add phase needs only
+// that buffer.  A run of narrow layers runs on warp 0 alone, lane s slot
+// s, two __syncwarp() a layer: each lane loads its slot's data into
+// registers two narrow layers ahead, and keeps its force in registers
+// between the read and the add.  Either way a slot writes its q and p to
+// vals_out (coalesced by slot).  The state stays in shared memory when it
+// fits (n up to about 19 000), else in fr_out as on the global-state
+// route.  The sample's other blocks (kZeroBlocks / B of them) zero its
+// inactive slots' vals in vals_out with 16-byte stores, never touching an
+// active slot, off the chain's path.  Bit-equal to the plain version, as
+// the other routes: the same operations in the same order.
+// core/friction_cuda.py `_stream_plan` sizes the force buffer.
 #include <cuda_runtime.h>
 
 #include "friction_common.cuh"
@@ -189,9 +186,8 @@ friction_kernel(const friction::SweepGeom g, const float* __restrict__ fr_in,
   }
 }
 
-// the streamed-slot route's staged rows a slot: idx_row, idx_part, the
-// normal's three, kred, imr, imp; and its force buffer's bytes a slot
-constexpr int kRows = 8;
+// the streamed-slot route's force buffer's bytes a slot: the force beside
+// its row index
 constexpr int kForceBytes = 16;
 
 // A slot's data: its vertices, normal and masses.
@@ -226,9 +222,8 @@ friction_kernel_stream(const friction::SweepGeom g,
                        unsigned long long* launches) {
   extern __shared__ __align__(16) unsigned char smem[];
   count_launch(launches);
-  const friction::Smem m =
-      friction::stream_layout(g, kGlobalState ? 0 : g.n, kRows, kForceBytes,
-                              g.fwd_piece, g.fwd_stages, g.fwd_buf);
+  const friction::Smem m = friction::stream_layout(
+      g, kGlobalState ? 0 : g.n, kForceBytes, g.fwd_buf);
   const int b = blockIdx.x, TC = g.TC, L = g.L;
   const size_t so = (size_t)b * TC;   // slot offset of this sample
   float* vals = vals_out + 6 * so;    // (6, TC)
@@ -252,31 +247,13 @@ friction_kernel_stream(const friction::SweepGeom g,
   const int F = g.fwd_buf;
   float4* fbuf = reinterpret_cast<float4*>(smem + m.fbuf);
   float4* fscr = scratch ? scratch + (size_t)b * (g.max_c_pad - F) : nullptr;
-  friction::SlotRing<kRows> ring;
-  ring.base = reinterpret_cast<float*>(smem + m.ring);
-  ring.bars = bar + 1;
-  ring.src[0] = reinterpret_cast<const float*>(g.idx_row + so);
-  ring.src[1] = reinterpret_cast<const float*>(g.idx_part + so);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) ring.src[2 + c] = g.normalT + 3 * so + c * TC;
-  ring.src[5] = g.kred + so;
-  ring.src[6] = g.imr + so;
-  ring.src[7] = g.imp + so;
-  ring.cnt = cnt;
-  ring.ls = ls;
-  ring.piece = g.fwd_piece;
-  ring.stages = g.fwd_stages;
-  ring.L = L;
-  ring.dir = 1;
   if constexpr (kGlobalState) {
     friction::copy_state(fr, state_in, g.n);   // seen after the sync below
   } else {
     const staging::Piece in[] = {{fr, state_in, 12 * g.n}};
     staging::load(in, bar);
   }
-  ring.init();
-  __syncthreads();   // the barriers are initialised, the counts staged
-  if (ring.producer()) ring.refill(ring.stages);
+  __syncthreads();   // the counts are staged
   if constexpr (!kGlobalState) staging::wait(bar);
 
   // slot `slot`'s force from its data, beside its row index; its q and p
@@ -304,24 +281,19 @@ friction_kernel_stream(const friction::SweepGeom g,
     y[1] += f.y;
     y[2] += f.z;
   };
-  const int P = ring.piece;
   const auto wide = [&](int l) {
-    const int c_l = cnt[l], start = ls[l], np = ring.pieces(c_l);
+    const int c_l = cnt[l], start = ls[l];
     __syncthreads();   // the earlier layers' adds are visible
-    ring.read(c_l, np, [&](int s, const float* rs, int e) {
-      const int* ri = reinterpret_cast<const int*>(rs);
-      const Slot x = {ri[e], ri[P + e],
-                      {rs[2 * P + e], rs[3 * P + e], rs[4 * P + e]},
-                      rs[5 * P + e], rs[6 * P + e], rs[7 * P + e]};
+    for (int s = threadIdx.x; s < c_l; s += blockDim.x) {
+      Slot x;
+      load_slot(x, g, so, start + s);
       const float4 f = force(start + s, x);
       if (s < F)
         fbuf[s] = f;
       else
         fscr[s - F] = f;
-    });
-    ring.advance(np);
-    __syncthreads();   // every read of the pre-layer state and the pieces
-    if (ring.producer()) ring.refill(ring.head + ring.stages);
+    }
+    __syncthreads();   // every read of the pre-layer state is done
     for (int s = threadIdx.x; s < c_l; s += blockDim.x)
       add(s < F ? fbuf[s] : fscr[s - F]);
   };
@@ -382,13 +354,11 @@ int launch_stream(const friction::SweepGeom* g, const float* fr_in,
                   float* fr_out, float* vals, float* scratch,
                   unsigned long long* launches, void* stream) {
   if (!geom_ok(g) || fr_in == fr_out || !launches ||
-      !friction::ring_ok(g->fwd_piece, g->fwd_stages, g->fwd_buf,
-                         g->max_c_pad, scratch))
+      !friction::buf_ok(g->fwd_buf, g->max_c_pad, scratch))
     return (int)cudaErrorInvalidValue;
-  const int smem =
-      friction::stream_layout(*g, kGlobalState ? 0 : g->n, kRows, kForceBytes,
-                              g->fwd_piece, g->fwd_stages, g->fwd_buf)
-          .bytes;
+  const int smem = friction::stream_layout(*g, kGlobalState ? 0 : g->n,
+                                           kForceBytes, g->fwd_buf)
+                       .bytes;
   friction_kernel_stream<kGlobalState>
       <<<dim3(g->B, 1 + (friction::kZeroBlocks + g->B - 1) / g->B),
          kStreamThreads, smem,
@@ -434,9 +404,8 @@ extern "C" int friction_fwd_global(const friction::SweepGeom* g,
 }
 
 // The streamed-slot routes, with the state in shared memory
-// (friction::stream_layout(g, n, 8, 16, fwd_piece, fwd_stages, fwd_buf))
-// or in fr_out (the same with n_state 0); vals rows and every pointer of g
-// 16-byte aligned; scratch (B, max_c_pad - fwd_buf, 4) f32 the forces of
+// (friction::stream_layout(g, n, 16, fwd_buf)) or in fr_out (the same with
+// n_state 0); vals 16-byte aligned, its rows a multiple of 4 floats; scratch (B, max_c_pad - fwd_buf, 4) f32 the forces of
 // slots past the force buffer, null when fwd_buf >= max_c_pad.
 extern "C" int friction_fwd_stream(const friction::SweepGeom* g,
                                    const float* fr_in, float* fr_out,

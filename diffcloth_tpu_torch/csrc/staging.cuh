@@ -2,8 +2,7 @@
 // held whole in shared memory (csrc/friction_fwd.cu, csrc/friction_bwd.cu).
 // csrc/selfcol_detect.cu uses the pieces of the load on their own: init()
 // once per barrier, arm() per staged segment, wait() with the phase's
-// parity; so does the sweeps' streamed-slot ring (friction_common.cuh
-// SlotRing), arm_rows() per staged piece of slot rows.
+// parity.
 //
 // Load: thread 0 initialises an mbarrier and issues one TMA bulk copy
 // (cp.async.bulk ... mbarrier::complete_tx::bytes) for every piece whose
@@ -74,20 +73,6 @@ __device__ __forceinline__ void arm(const Piece (&p)[N], uint64_t* bar) {
           ::"r"(smem_u32(p[i].dst)),
           "l"(reinterpret_cast<uint64_t>(p[i].src)), "r"(p[i].bytes), "r"(b)
           : "memory");
-}
-
-// One thread: arm() for N rows of `words` 4-byte words each, row r from
-// src[r] + first to dst + r * stride (a stage of row pieces).
-template <int N>
-__device__ __forceinline__ void arm_rows(float* dst, int stride,
-                                         const float* const (&src)[N],
-                                         int first, int words,
-                                         uint64_t* bar) {
-  Piece p[N];
-#pragma unroll
-  for (int r = 0; r < N; ++r)
-    p[r] = {dst + r * stride, src[r] + first, 4 * words};
-  arm(p, bar);
 }
 
 // Global -> shared, once per barrier.  Every thread calls it; then

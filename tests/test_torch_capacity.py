@@ -21,8 +21,7 @@ file's time).  Cases:
   (d) `friction_cuda.sweep_operands` picks the streamed-slot route for
       slot rows past shared memory instead of raising (pure Python on
       shapes; the CPU wrappers run the plain versions on those operands),
-      and sizes its ring of staged pieces and its force buffer to fit
-      shared memory;
+      and sizes its force buffers to fit shared memory;
   (e) detection at K = 64 through the wrapper's plain version against the
       JAX kernel in interpret mode, overflow rows included;
 and the options' validation.
@@ -272,47 +271,40 @@ def test_sweep_operands_stream_slots_past_shared_memory(case):
 
 @pytest.mark.parametrize("case", sorted(ROUTE_CASES))
 def test_streamed_ring_fits_shared_memory(case):
-    """(d): on the streamed-slot route each kernel's ring has pieces of a
-    multiple of 128 slots, two to MAX_STAGES stages and a force buffer of
-    whole 128-slot chunks, its block (`friction::stream_layout`) fits
-    SMEM_LIMIT, and the kernels' argument struct carries the three; the
-    other routes have no ring."""
+    """(d): on the streamed-slot route each kernel's force buffer is whole
+    128-slot chunks, no wider than the widest layer, its block
+    (`friction::stream_layout`: the state where it is shared, the buffer)
+    fits SMEM_LIMIT, and the kernels' argument struct carries it; the
+    other routes have no force buffer."""
     n, budgets, route = ROUTE_CASES[case]
     geom, masses, _ = slot_geometry(n, 1, budgets)
     ops = fc.sweep_operands(geom, masses, budgets, n)
     assert (ops.route, ops.slots) == route
     args = ops.args.contents
     if route[1] == "shared":
-        assert ops.rings is None
-        assert all(getattr(args, f"{k}_{f}") == 0 for k in ("fwd", "bwd")
-                   for f in ("piece", "stages", "buf"))
+        assert ops.bufs is None
+        assert (args.fwd_buf, args.bwd_buf) == (0, 0)
         return
     _, TC = fc.layer_specs(budgets)
     n_state = n if route[0] == "shared" else 0
-    for k, (rows, fbytes) in fc.STREAM_ROWS.items():
-        piece, stages, buf = ops.rings[k]
-        assert piece >= fc.CHUNK and piece % fc.CHUNK == 0
-        assert piece <= ops.max_c_pad
-        assert 2 <= stages <= fc.MAX_STAGES
+    for k, fbytes in fc.STREAM_FORCE_BYTES.items():
+        buf = ops.bufs[k]
         assert 0 <= buf <= ops.max_c_pad and buf % fc.CHUNK == 0
         assert fc._smem_bytes(n_state, TC, ops.max_c_pad, len(budgets), 0,
-                              0, 0, 4 * rows * piece * stages, fbytes * buf,
-                              1 + fc.MAX_STAGES) <= fc.SMEM_LIMIT
-        assert (getattr(args, k + "_piece"), getattr(args, k + "_stages"),
-                getattr(args, k + "_buf")) == (piece, stages, buf)
+                              0, 0, fbytes * buf) <= fc.SMEM_LIMIT
+        assert getattr(args, k + "_buf") == buf
 
 
 def test_flagship_force_buffer_holds_the_widest_layer():
     """(d): at the flagship's drop-free budgets (c_pad 1024) both kernels
-    keep every layer's forces in shared memory: no scratch is allocated,
-    and the ring still has all its stages."""
+    keep every layer's forces in shared memory: no scratch is
+    allocated."""
     n, budgets, _ = ROUTE_CASES["flagship_drop_free"]
     geom, masses, _ = slot_geometry(n, 1, budgets)
     ops = fc.sweep_operands(geom, masses, budgets, n)
     assert ops.max_c_pad == 1024
     for k in ("fwd", "bwd"):
-        piece, stages, buf = ops.rings[k]
-        assert buf >= 1024 and stages == fc.MAX_STAGES
+        assert ops.bufs[k] >= 1024
         assert fc.stream_scratch(ops, k) is None
 
 
@@ -320,12 +312,12 @@ def test_scratch_holds_only_slots_past_the_force_buffer():
     """(d): beside a state of n = 16 384 in shared memory the force buffers
     are narrower than the raised budgets' 4096-slot layers: each kernel's
     scratch holds just the slots past its buffer (the backward's row and
-    partner adds apart), and the pieces shrink to 128 slots first."""
+    partner adds apart)."""
     n, budgets, _ = ROUTE_CASES["large_raised"]
     geom, masses, _ = slot_geometry(n, 2, budgets)
     ops = fc.sweep_operands(geom, masses, budgets, n)
-    (fp, _, fbuf), (bp, _, bbuf) = ops.rings["fwd"], ops.rings["bwd"]
-    assert fp == bp == fc.CHUNK and 0 < bbuf < fbuf < 4096
+    fbuf, bbuf = ops.bufs["fwd"], ops.bufs["bwd"]
+    assert 0 < bbuf < fbuf < 4096
     assert fc.stream_scratch(ops, "fwd") == (2, 4096 - fbuf, 4)
     assert fc.stream_scratch(ops, "bwd") == (2, 2, 4096 - bbuf, 4)
 
@@ -344,15 +336,12 @@ def empty_geometry(L):
 
 
 def test_sweep_operands_refuse_a_route_that_does_not_fit():
-    """Past the last route, (global, stream), each layer's count and start
-    stay in shared memory beside the smallest ring (two stages of 128
-    slots of the backward's 14 rows, the barriers of MAX_STAGES): the
-    longest layer chain they fit takes that route at a state past shared
-    memory, one layer more raises."""
-    ring = 2 * fc.CHUNK * 4 * fc.STREAM_ROWS["bwd"][0]
+    """Past the last route, (global, stream), only each layer's count and
+    start stay in shared memory (the force buffers shrink to none, the
+    scratch taking every slot): the longest layer chain they fit takes
+    that route at a state past shared memory, one layer more raises."""
     last = max(L for L in range(20000, 40000)
-               if fc._smem_bytes(0, 128 * L, 128, L, 0, 0, 0, ring,
-                                 bars=1 + fc.MAX_STAGES)
+               if fc._smem_bytes(0, 128 * L, 128, L, 0, 0, 0)
                <= fc.SMEM_LIMIT)
     ops = fc.sweep_operands(*empty_geometry(last), 20001)
     assert (ops.route, ops.slots) == ("global", "stream")

@@ -22,9 +22,9 @@ shared memory, n > 15 226) at n = 15 227 (rows not 16-byte aligned),
 16 384 and 20 001, and the last shared-route width; the streamed-slot
 routes (slot rows past shared memory, state shared or global) at the
 flagship's drop-free budgets (n,) * 16 and at n = 16 384 and 20 001 with
-raised budgets, contact in four layers: layers wider than a ring piece
-and exactly one piece, counts that are not multiples of 4, empty layers
-between full ones, layers past the force buffer; and detection at K = 40
+raised budgets, contact in four layers: narrow and wide layers, counts
+of whole 128-slot chunks and counts that are not multiples of 4, empty
+layers between full ones, layers past the force buffer; and detection at K = 40
 and 64 (the kernel's second instantiation) with overflow rows.  The f64 card episode
 is held within
 1e-6 of the CPU one, the f32 friction sweep inside the f64 simulation
@@ -476,32 +476,30 @@ STREAM_CASES = {
     "n19500_B2_dropfree": (19500, 2, (19500,) * 16, ("global", "stream"),
                            False),
     # counts 402, 194, 302, 126 (none a multiple of 4 or 128) with empty
-    # layers between them; 402 slots are two of the backward's pieces
+    # layers between them
     "n1024_B2_dropfree_gaps_odd_counts": (
         1024, 2, (1024,) * 16, ("shared", "stream"), False,
         (201, 97, 151, 63), (0, 3, 7, 15)),
-    # counts of exactly one forward piece (768) and two backward pieces,
-    # one backward piece (384) and one 128-slot chunk
+    # counts of whole 128-slot chunks (768, 384, 128) and a narrow layer
     "n1024_B3_dropfree_whole_pieces": (
         1024, 3, (1024,) * 16, ("shared", "stream"), False,
         (384, 192, 64, 30)),
-    # a layer of 4002 slots past both force buffers (the scratch), read in
-    # groups of two 128-slot pieces
+    # a layer of 4002 slots past both force buffers (the scratch)
     "n16384_B2_raised_scratch": (16384, 2, (4096,) * 4,
                                  ("shared", "stream"), False,
                                  (2001, 700, 150, 33)),
-    # the global-state route with 7000 slots past the backward's buffer
+    # the global-state route with 7400 slots past the backward's buffer
     "n19500_B1_dropfree_scratch": (19500, 1, (19500,) * 16,
                                    ("global", "stream"), False,
-                                   (3500, 301, 40, 7), (0, 5, 6, 15)),
+                                   (3700, 301, 40, 7), (0, 5, 6, 15)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(STREAM_CASES))
 def test_friction_kernels_equal_plain_with_streamed_slots(dev, case):
-    """Slot rows past shared memory: sweep_operands streams them through
-    each kernel's ring of staged pieces (the state in shared memory where
-    it fits beside the ring, else in global memory), and both sweeps equal
+    """Slot rows past shared memory: sweep_operands streams them, each
+    kernel's forces in a shared-memory buffer (the state in shared memory
+    where it fits, else in global memory), and both sweeps equal
     their plain versions exactly, with contact in four layers; each counts
     its launch on the streamed route (and the global-state one where the
     state is global)."""
@@ -527,10 +525,10 @@ def test_friction_kernels_equal_plain_with_streamed_slots(dev, case):
     assert (ops.route, ops.slots) == route
     widest = 2 * max(pairs)
     if case.endswith("_scratch"):
-        assert widest > ops.rings["bwd"][2]
+        assert widest > ops.bufs["bwd"]
         assert fc.stream_scratch(ops, "bwd") is not None
     if case.endswith("_whole_pieces"):
-        assert widest == ops.rings["fwd"][0] == 2 * ops.rings["bwd"][0]
+        assert widest % fc.CHUNK == 0 and widest <= ops.bufs["bwd"]
     counters = (fc.friction_sweep, fc.friction_sweep_bwd)
     before = [(c.launches, c.stream_launches, c.global_launches)
               for c in counters]

@@ -48,12 +48,12 @@ def test_sweep_operands_cache_the_kernels_arguments(step):
     assert [a.idx_row, a.idx_part, a.normalT, a.kred, a.imr, a.imp,
             a.counts] == [t.data_ptr() for t in ptrs]
     # friction::SweepGeom: eight pointers, then five ints and the
-    # streamed-slot rings' six (0 on the shared route), padded to 8 bytes
+    # streamed-slot force buffers' two (0 on the shared route), padded to
+    # 8 bytes
     assert fc._SweepArgs.L.offset == 64
-    assert fc._SweepArgs.fwd_piece.offset == 84
-    assert ctypes.sizeof(fc._SweepArgs) == 112
-    assert (a.fwd_piece, a.fwd_stages, a.fwd_buf, a.bwd_piece, a.bwd_stages,
-            a.bwd_buf) == (0,) * 6
+    assert fc._SweepArgs.fwd_buf.offset == 84
+    assert ctypes.sizeof(fc._SweepArgs) == 96
+    assert (a.fwd_buf, a.bwd_buf) == (0, 0)
 
 
 def test_wrappers_on_cpu_run_the_plain_versions(step):
