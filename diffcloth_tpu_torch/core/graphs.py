@@ -34,11 +34,13 @@ segments write what they make into static buffers (`store`).
 The kernels count their own launches on the device (`launch_count`), so a
 replayed graph counts what it ran.  A capture runs nothing: the kernels a
 segment or a loop's block holds are the wrapper calls its capture makes
-(`launch_count.tally`).  The loops' bodies count their runs on the device
-too.  `summary()` reports, per program, its warm-up, launches, kernels per
-launch and, per loop, its body runs and kernels per run: what the
-launches x kernels per launch plus the runs x kernels per run predict, a
-cross-check of the kernels' own counts.
+(`launch_count.tally`).  The loops count their body runs on the device
+too, and the device time inside them (`%globaltimer`, read by the kernels
+that decide whether a loop goes on).  `summary()` reports, per program, its
+warm-up, launches, kernels per launch and, per loop, its body runs, device
+seconds and kernels per run: what the launches x kernels per launch plus
+the runs x kernels per run predict, a cross-check of the kernels' own
+counts.
 
 What stays uncaptured: a step given a `solve_fn` other than the
 tensor-parallel solve (the caller's solve may hold collectives or host
@@ -152,8 +154,9 @@ class _Program:
         self.captured = []                     # PyTorch graphs, kept alive
         self.straight = [0] * len(lc.SLOTS)    # kernels per launch
         self.bodies = []      # per loop body: (name, every, kernels)
-        self.runs = None      # (loops, 2) int64 on the card: body runs,
-        #                       loop entries, over every launch
+        self.runs = None      # (loops, 4) int64 on the card: body runs,
+        #                       loop entries, ns inside the loop, over every
+        #                       launch; the last entry's stamp
         self.iters = None     # (loops,) int32: runs in the current launch
         self.base = None      # runs at the last reset (host)
 
@@ -167,7 +170,8 @@ class _Program:
 
 # when a list, every program launch appends its (start, end) CUDA events:
 # the device time of the programs, which the profiler cannot see whole (it
-# sees few or none of the kernels inside the loop bodies)
+# sees few or none of the kernels inside the loop bodies); also the switch
+# of the tracer (`utils/timing.py`), which names each launch
 TIMING = None
 
 
@@ -274,14 +278,15 @@ class BlockGraphs:
             self._build(p, segments, st)
         events = None
         if TIMING is not None:
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-            events[0].record()
+            # the tracer reads TIMING, so it imports this module
+            from diffcloth_tpu_torch.utils import timing
+            events = timing.launch(key, p.runs, p.bodies)
         _check(_lib().gp_launch(p.exec, torch.cuda.current_stream()
                                 .cuda_stream), "launch")
         if events is not None:
             events[1].record()
             TIMING.append(events)
+            timing.launched(p.runs)
         p.launches += 1
 
     def _capture(self, p: _Program, fn) -> tuple:
@@ -318,10 +323,10 @@ class BlockGraphs:
                 bodies += [(seg, k, cap) for k, cap in (
                     (seg.every, nfull), (rem, 1)) if k and cap]
         dev = torch.cuda.current_device()
-        p.runs = torch.zeros((len(bodies), 2), dtype=torch.int64, device=dev)
+        p.runs = torch.zeros((len(bodies), 4), dtype=torch.int64, device=dev)
         p.iters = torch.zeros(max(len(bodies), 1), dtype=torch.int32,
                               device=dev)
-        p.base = np.zeros((len(bodies), 2), np.int64)
+        p.base = np.zeros((len(bodies), 4), np.int64)
         graph = ctypes.c_void_p()
         _check(lib.gp_create(ctypes.byref(graph)), "create")
         p.graph = graph
@@ -358,8 +363,8 @@ class BlockGraphs:
         p.exec = exe
 
     def _runs(self) -> dict:
-        """{key: (loops, 2) body runs and entries, host} of the built
-        programs (one device read)."""
+        """{key: (loops, 4) counters (body runs, entries, ns, stamp), host}
+        of the built programs (one device read)."""
         progs = {k: p for k, p in self._programs.items()
                  if p.runs is not None and len(p.bodies)}
         if not progs:
@@ -383,9 +388,10 @@ class BlockGraphs:
         """{key: {"eager": warm-up runs, "launches": graph launches,
         "kernels": {counter: straight kernels per launch}, "loops":
         [{"name": the loop's, "every": block length, "runs": body runs,
-        "entries": loop entries, "kernels": {counter: kernels per body
-        run}}]}} for every program run since the last `reset()` (one device
-        read)."""
+        "entries": loop entries, "device_s": device seconds inside the loop
+        (its body runs and predicate reads), "kernels": {counter: kernels
+        per body run}}]}} for every program run since the last `reset()`
+        (one device read)."""
         runs = self._runs()
 
         def named(ks):
@@ -402,6 +408,7 @@ class BlockGraphs:
                 loops.append({"name": name, "every": every,
                               "runs": int(now[0] - base[0]),
                               "entries": int(now[1] - base[1]),
+                              "device_s": float(now[2] - base[2]) / 1e9,
                               "kernels": named(kernels)})
             out[key] = {"eager": p.eager, "launches": p.launches,
                         "kernels": named(p.straight), "loops": loops}

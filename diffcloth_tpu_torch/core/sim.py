@@ -58,6 +58,7 @@ from diffcloth_tpu_torch.core.types import (EpisodeRecords, SceneDev,
                                             SimParams, StageDev, StepRecord,
                                             make_sim_params)
 from diffcloth_tpu_torch.geometry import builder as gb
+from diffcloth_tpu_torch.utils import timing as tm
 
 # self-collision capacities, the JAX ClothSim's defaults: partner slots per
 # row (detection on its kernel route), layering rounds, and layers given a
@@ -590,16 +591,19 @@ class ClothSim:
         gradient: (the stacked (B, N, ...) records but f / r, each chunk's
         start (x, v, frozen)).  Inside a chunk the host waits on nothing:
         on the card each step is one launch of its captured programs, whose
-        loops end on the device."""
+        loops end on the device.  Each chunk is a `chunk` span of the
+        tracer."""
         x, v = pb.x0, pb.v0
         frozen = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
         starts, parts = [], []
         with torch.no_grad():
             for lo in range(1, self.n_steps + 1, chunk):
                 starts.append((x, v, frozen))
-                x, v, frozen, cols = self._run_steps(
-                    x, v, frozen, pb, (p_inv,), xfs[:, lo - 1:lo - 1 + chunk],
-                    lo, lo + chunk, record_forces=False)
+                with tm.span("chunk"):
+                    x, v, frozen, cols = self._run_steps(
+                        x, v, frozen, pb, (p_inv,),
+                        xfs[:, lo - 1:lo - 1 + chunk], lo, lo + chunk,
+                        record_forces=False)
                 parts.append(cols)
         return ({k: torch.cat([c[k] for c in parts], dim=1)
                  for k in parts[0]}, starts)
@@ -710,7 +714,10 @@ class ClothSim:
         `episode_value_and_grad`.  `.split` holds the forward (with the
         loss) and backward wall seconds of the last call.  `p_inv` given:
         that in place of `p_inv(params)` (a tensor-parallel rank's row block
-        of it)."""
+        of it).  The tracer's spans (`utils/timing.py`): `p_inv` (the host
+        prefactorization), `forward` (its `chunk`s), `loss`, `backward`
+        (per chunk in reverse, `recompute` then `vjp`) and
+        `spline_grads`."""
         if self.n_stages > 1:
             return self.episode_value_and_grad(loss_fn)
         chunk = self._chunk_size(chunk)
@@ -718,7 +725,8 @@ class ClothSim:
         def value_and_grad(params: SimParams, p_inv=None):
             _check_batched(params, batched)
             if p_inv is None:
-                p_inv = self.p_inv(params)
+                with tm.span("p_inv"):
+                    p_inv = self.p_inv(params)
             leaves = {k: v.detach().clone().requires_grad_(True)
                       for k, v in params.items()}
             p = SimParams(**leaves)
@@ -728,16 +736,17 @@ class ClothSim:
                 xfs_b = xfs if batched else xfs[None]
                 pb = p.as_batched()
             pb_const = SimParams(**{k: v.detach() for k, v in pb.items()})
-            cols, starts = self._chunk_forward(pb_const, p_inv,
-                                               xfs_b.detach(), chunk)
-            with torch.enable_grad():
+            with tm.span("forward"):
+                cols, starts = self._chunk_forward(pb_const, p_inv,
+                                                   xfs_b.detach(), chunk)
+            with tm.span("loss"), torch.enable_grad():
                 X = cols["x"].requires_grad_(True)
                 V = cols["v"].requires_grad_(True)
                 recs = self._records(p, xfs_b.detach(), dict(cols, x=X, v=V))
                 loss = loss_fn(recs)
                 g = torch.autograd.grad(loss.sum(), [X, V] + list(
                     leaves.values()), allow_unused=True)
-            _sync(self.device)
+                _sync(self.device)
             t1 = time.perf_counter()
             # a loss of the positions alone gives the velocities no
             # cotangent (and the reverse)
@@ -747,36 +756,43 @@ class ClothSim:
             cot_x = torch.zeros_like(starts[-1][0])
             cot_v = torch.zeros_like(cot_x)
             g_xfs = torch.zeros_like(xfs_b)
-            for c in reversed(range(len(starts))):
-                x_in, v_in, frozen_in = starts[c]
-                sl = slice(c * chunk, (c + 1) * chunk)
-                with torch.enable_grad():
-                    xi = x_in.detach().requires_grad_(True)
-                    vi = v_in.detach().requires_grad_(True)
-                    xf_c = xfs_b[:, sl].detach().requires_grad_(True)
-                    xN, vN, _, cc = self._run_steps(
-                        xi, vi, frozen_in, pb, (p_inv,), xf_c,
-                        c * chunk + 1, (c + 1) * chunk + 1,
-                        record_forces=False)
-                    gc = torch.autograd.grad(
-                        [xN, vN, cc["x"], cc["v"]],
-                        [xi, vi, xf_c] + list(leaves.values()),
-                        [cot_x, cot_v, dX[:, sl], dV[:, sl]],
-                        allow_unused=True)
-                cot_x, cot_v = gc[0], gc[1]
-                if gc[2] is not None:
-                    g_xfs[:, sl] += gc[2]
-                for k, gk in zip(leaves, gc[3:]):
-                    if gk is not None:
-                        grads[k] = gk if grads[k] is None else grads[k] + gk
-            if xfs.requires_grad:     # the clips follow the splines
-                with torch.enable_grad():
-                    gx = torch.autograd.grad(
-                        xfs, list(leaves.values()),
-                        g_xfs if batched else g_xfs[0], allow_unused=True)
-                for k, gk in zip(leaves, gx):
-                    if gk is not None:
-                        grads[k] = gk if grads[k] is None else grads[k] + gk
+            with tm.span("backward"):
+                for c in reversed(range(len(starts))):
+                    x_in, v_in, frozen_in = starts[c]
+                    sl = slice(c * chunk, (c + 1) * chunk)
+                    with torch.enable_grad():
+                        xi = x_in.detach().requires_grad_(True)
+                        vi = v_in.detach().requires_grad_(True)
+                        xf_c = xfs_b[:, sl].detach().requires_grad_(True)
+                        with tm.span("recompute"):
+                            xN, vN, _, cc = self._run_steps(
+                                xi, vi, frozen_in, pb, (p_inv,), xf_c,
+                                c * chunk + 1, (c + 1) * chunk + 1,
+                                record_forces=False)
+                        with tm.span("vjp"):
+                            gc = torch.autograd.grad(
+                                [xN, vN, cc["x"], cc["v"]],
+                                [xi, vi, xf_c] + list(leaves.values()),
+                                [cot_x, cot_v, dX[:, sl], dV[:, sl]],
+                                allow_unused=True)
+                    cot_x, cot_v = gc[0], gc[1]
+                    if gc[2] is not None:
+                        g_xfs[:, sl] += gc[2]
+                    for k, gk in zip(leaves, gc[3:]):
+                        if gk is not None:
+                            grads[k] = (gk if grads[k] is None
+                                        else grads[k] + gk)
+            with tm.span("spline_grads"):
+                if xfs.requires_grad:     # the clips follow the splines
+                    with torch.enable_grad():
+                        gx = torch.autograd.grad(
+                            xfs, list(leaves.values()),
+                            g_xfs if batched else g_xfs[0],
+                            allow_unused=True)
+                    for k, gk in zip(leaves, gx):
+                        if gk is not None:
+                            grads[k] = (gk if grads[k] is None
+                                        else grads[k] + gk)
             for k, cot in (("x0", cot_x), ("v0", cot_v)):
                 cot = cot if batched else cot[0]
                 grads[k] = cot if grads[k] is None else grads[k] + cot

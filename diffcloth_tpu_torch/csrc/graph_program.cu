@@ -10,8 +10,10 @@
 // node that reads the predicate again.  The predicate is "any episode still
 // active": `go`, a (n,) byte array the captured code keeps up to date, read
 // on the device, so the loop ends without the host.  `cap` bounds the body's
-// runs per launch; `runs` counts them (runs[0]) and the loop's entries
-// (runs[1]) over every launch, for the host to read when it chooses.
+// runs per launch; `runs` counts them (runs[0]), the loop's entries
+// (runs[1]) and the nanoseconds spent inside the loop (runs[2]: from its
+// entry to the end of its last body run, on %globaltimer) over every launch,
+// for the host to read when it chooses; runs[3] holds the entry's stamp.
 //
 // Plain C interface for ctypes; every function returns a cudaError_t.
 #include <cuda_runtime.h>
@@ -22,32 +24,42 @@ namespace {
 
 constexpr int kThreads = 128;
 
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
 __device__ unsigned any_active(const uint8_t* go, int n) {
   int any = 0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) any |= go[i] != 0;
   return (unsigned)__syncthreads_or(any);
 }
 
-// before the loop: zero the launch's run count, enter when any is active
+// before the loop: zero the launch's run count, stamp the entry, enter when
+// any is active
 __global__ void loop_enter(cudaGraphConditionalHandle h, const uint8_t* go,
                            int n, int cap, int* iter, long long* runs) {
   const unsigned any = any_active(go, n);
   if (threadIdx.x == 0) {
     iter[0] = 0;
     runs[1] += 1;
+    runs[3] = global_ns();
     cudaGraphSetConditional(h, any && cap > 0);
   }
 }
 
 // after each run of the body: count it, go on while any is active and the
-// cap is not reached
+// cap is not reached; the run that ends the loop adds its time since entry
 __global__ void loop_next(cudaGraphConditionalHandle h, const uint8_t* go,
                           int n, int cap, int* iter, long long* runs) {
   const unsigned any = any_active(go, n);
   if (threadIdx.x == 0) {
     const int it = ++iter[0];
+    const bool more = any && it < cap;
     runs[0] += 1;
-    cudaGraphSetConditional(h, any && it < cap);
+    if (!more) runs[2] += global_ns() - runs[3];
+    cudaGraphSetConditional(h, more);
   }
 }
 
@@ -92,7 +104,7 @@ int gp_add_child(void* graph, void* dep, void* child, void** node) {
 
 // Appends a while loop after `dep`: enter when any of go[0..n) is set, run
 // `body` (a captured graph, copied), repeat while any is set and fewer than
-// `cap` runs were made in this launch.  iter (1 int) and runs (2 long long)
+// `cap` runs were made in this launch.  iter (1 int) and runs (4 long long)
 // are device memory that outlives the program.
 int gp_add_loop(void* graph, void* dep, void* body, const uint8_t* go, int n,
                 int cap, int* iter, long long* runs, void** node) {

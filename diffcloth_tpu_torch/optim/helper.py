@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from diffcloth_tpu_torch.core.types import SimParams
+from diffcloth_tpu_torch.utils import timing as tm
 
 # per-type stiffness bounds [spring, attach, stretch, bend]
 # (OptimizeHelper.cpp:81-84)
@@ -270,16 +271,24 @@ class OptimizeHelper:
                               ) -> Tuple[np.ndarray, np.ndarray]:
         """(P, D) -> ((P,), (P, D)): one batched chunked episode
         value-and-grad over the whole population (the lockstep multi-start
-        L-BFGS inner loop, optim.lbfgsb.minimize_lbfgsb_population)."""
+        L-BFGS inner loop, optim.lbfgsb.minimize_lbfgsb_population).  An
+        `evaluate` span of the tracer (`utils/timing.py`), with `pack`,
+        `value_and_grad` and `unpack` inside."""
         if not self.can_batch:
             raise ValueError("population evaluation shares one "
                              "prefactorization: stiffness/density cannot "
                              "vary across candidates")
-        L, grads = self._batched_vg(self.stack_vecs(X))
-        self._last_vg = self._batched_vg
-        L = _host(L)
-        P = L.shape[0]
-        G = np.stack([self.grads_to_vec(grads.sample(i)) for i in range(P)])
+        with tm.span("evaluate"):
+            with tm.span("pack"):
+                params = self.stack_vecs(X)
+            with tm.span("value_and_grad"):
+                L, grads = self._batched_vg(params)
+            self._last_vg = self._batched_vg
+            with tm.span("unpack"):
+                L = _host(L)
+                P = L.shape[0]
+                G = np.stack([self.grads_to_vec(grads.sample(i))
+                              for i in range(P)])
         self.eval_count += P
         self.history.extend((float(l), np.array(x)) for l, x in zip(L, X))
         return L, G

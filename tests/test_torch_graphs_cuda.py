@@ -34,6 +34,9 @@ from diffcloth_tpu_torch.core import step as tstep
 from diffcloth_tpu_torch.core.sim import ClothSim
 from diffcloth_tpu_torch.geometry import builder as gb
 from diffcloth_tpu_torch.geometry import states
+from diffcloth_tpu_torch.optim.helper import GradMask, OptimizeHelper
+from diffcloth_tpu_torch.tasks.setup import _prim_struct
+from diffcloth_tpu_torch.utils import timing as tm
 
 pytestmark = pytest.mark.cuda
 GRID = 8
@@ -156,6 +159,67 @@ def test_route_repeats_bit_for_bit(card, graphs):
     for i in range(1, 4):
         assert_same_episode(first, episode(scene, card, graphs, 2),
                             f"run {i} against run 0")
+
+
+def test_traced_window_times_the_loops(card):
+    """The tracer over two captured population evaluations of a cloth
+    falling onto a sphere (chunks of 2): every loop that ran has device
+    time, at most its program kind's event seconds; the trip loops'
+    iterations are BackwardStats' trips exactly; the idle seconds by host
+    span are the window less the launches; the launches carry their
+    spans."""
+    scene = gb.build_scene(tc.SceneConfig(
+        fabric=tc.FabricConfig(cloth_dim_x=2.0, cloth_dim_y=2.0,
+                               k_stiff_stretching=250.0,
+                               k_stiff_bending=0.05, grid_num_x=GRID,
+                               grid_num_y=GRID, density=0.3),
+        attachment_points=tc.AttachmentConfig.NO_ATTACHMENTS,
+        trajectory=tc.TrajectoryConfig.NO_TRAJECTORY,
+        primitive_config=tc.PrimitiveConfig.PLANE_AND_SPHERE,
+        wind_config=tc.WindConfig.NO_WIND, time_step=1.0 / 90.0,
+        step_num=8, name="trace_sphere"))
+    sphere = dict(kind=0, center=(0.0, -1.6, 0.0), radius=1.0, mu=0.5)
+    sim = ClothSim(scene, prims=_prim_struct([sphere], torch.float32, card),
+                   device=card, dtype=torch.float32)
+    target = torch.zeros((sim.n_steps + 1, sim.n, 3), device=card)
+    lf = tl.make_loss_fn(tc.LossType.MATCH_TRAJECTORY,
+                         tl.LossInfo(target_x=target))
+    helper = OptimizeHelper(sim, GradMask(mu_primitives=(0,)), lf, chunk=2)
+    X = np.array([[0.5], [0.1]])
+    for _ in range(2):      # the warm-ups, then the captures
+        helper.batched_loss_and_grad(X)
+    torch.cuda.synchronize()
+    sim.bwd_stats.reset()
+    for g in sim.graphs:
+        g.reset()
+    gr.TIMING = timing = []
+    try:
+        for _ in range(2):
+            helper.batched_loss_and_grad(X)
+        torch.cuda.synchronize()
+    finally:
+        gr.TIMING = None
+    r = tm.last_report()
+    assert r["evaluations"] == 2 and len(timing) == sum(
+        r["launches"].values()) == 2 * 3 * sim.n_steps
+    assert set(r["launch_s"]["pd"]) == {"chunk", "recompute"}
+    assert set(r["launch_s"]["adj"]) == {"vjp"}
+    assert r["busy_s"] == pytest.approx(sum(
+        a.elapsed_time(b) for a, b in timing) / 1e3, rel=1e-9)
+    assert sum(r["idle_s"].values()) == pytest.approx(
+        r["wall_s"] - r["busy_s"], abs=1e-3 * r["wall_s"])
+    assert r["loops"]["adj"]["trips"]["iters"] == \
+        sim.bwd_stats.summary()["trips"] > 0
+    for kind, loops in r["loops"].items():
+        for name, lp in loops.items():
+            if lp["runs"]:
+                assert 0 < lp["device_s"] <= r["kind_s"][kind], (kind, name)
+            else:
+                assert lp["device_s"] == 0, (kind, name)
+    # the programs' own summaries read the same counters
+    for key, b in sim.graphs[0].summary().items():
+        for lp in b["loops"]:
+            assert (lp["device_s"] > 0) == (lp["runs"] > 0), (key, lp)
 
 
 def cg_problem(card):
