@@ -36,9 +36,9 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
      backward friction kernel launches once per adjoint trip, GMRES matvec
      and residual VJP; the forward one once per PD sweep of the forward
      (as in phase 3) twice (the population's value-and-grad is chunked:
-     its backward recomputes each chunk's forward, detection too) and once
-     more per adjoint trip, GMRES matvec and residual VJP (each recomputes
-     K's forward beside its backward, so that a trip is one graph body).
+     its backward recomputes each chunk's forward, detection too) and
+     twice more per adjoint program (its start linearizes K at one
+     forward sweep, its residual VJP makes the other).
      Prints episode-gradient steps/s, the forward and backward shares,
      adjoint trips per step, fallback steps and active slots per backward
      launch.  Then the GMRES least squares kernel against its plain
@@ -69,6 +69,13 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         against the demo's ground truth (mu = 0.3); finite, the loss
         smallest at the candidate nearest 0.3, the backward sweep once per
         adjoint trip, GMRES matvec and residual VJP;
+     b'. adjoint kernels: the four kernels of the adjoint's linearized K
+        map (`csrc/adjoint_linear.cu`) on the entries of a real adjoint
+        program (a step's backward, uncaptured, from the batch's state after
+        300 steps: the cloth on the sphere and folded on itself), against
+        their plain versions exactly (max error 0), each timed beside its
+        plain version on the card and its bound (the JSON line's `ms`,
+        `plain_ms`, `bound_ms`; launches: b's), on the dense operators;
      c. profile: phases 4 and 7 on 10 steps of the batch, and the
         obstacle detection and obstacle friction's device launches per
         call;
@@ -93,9 +100,13 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         beside their bounds;
      b. gradient: the batched value-and-grad of GradMask(f_wind=True)
         against the base wind's rollout, of 11a's episodes; finite, the
-        forward sweep once per PD sweep of 11a plus once per adjoint trip,
-        GMRES matvec and residual VJP, the backward sweep once per each of
-        those, on the global-state route;
+        forward sweep once per PD sweep of 11a plus twice per adjoint
+        program (the linearization, the residual VJP), the backward sweep
+        once per adjoint trip, GMRES matvec and residual VJP, on the
+        global-state route;
+     b'. adjoint kernels: 10b' at this path's shapes, on the sparse
+        operators' interleaved rows and the global-state sweeps, from one
+        step of 11a's folded starts (names ending "_large");
      c. profile: phase 4 on 1 step of the batch;
      d. reference, f64, card against CPU within 1e-6: an episode of a
         48 x 48 grid (sparse operators, dense P^{-1}, detection kernel),
@@ -157,9 +168,9 @@ Phases (any failure raises and exits non-zero), each printing its wall time:
         episode-gradient steps/s; then one `loss_and_grad` with the
         counters zeroed just before and read just after (detection once
         per step and the forward sweep once per PD sweep, both twice: the
-        chunks' backward recomputes their forward; the forward sweep once
-        more per trip, GMRES matvec and residual VJP, the backward sweep
-        once per each of those); every gradient finite; and its profile
+        chunks' backward recomputes their forward; the forward sweep twice
+        more per adjoint program, the backward sweep once per trip, GMRES
+        matvec and residual VJP); every gradient finite; and its profile
         over 10 steps;
      d. eval: one 400-step closed-loop episode of the trained controller
         in chunks, rendered to a GIF, its loss;
@@ -281,7 +292,9 @@ on the path that runs it: the forward path for detection and the forward
 sweep, the gradient path for the backward sweep, phase 11 for the sweeps'
 global-state route, whose entries carry "state": "global", phase 20 for
 the streamed-slot route, whose entries carry "slots": "stream", phase 12 for
-the dress stand-in's, named with "_dress", 20a's `self_friction` path for
+the dress stand-in's, named with "_dress", phase 10b' for the adjoint's
+kernels and 11b' for theirs on the sparse route, named with "_large",
+20a's `self_friction` path for
 the global-state streamed route, named with "_global_stream", phase 17c's
 loss_and_grad for
 the control path's, named with "_control", and 17f's captured tp step for
@@ -344,6 +357,9 @@ SPHERE_REF_STEPS = 60
 # of the sphere demo's in its fit (of its 350)
 TRAINER_STEPS = 30
 SPHERE_FIT_STEPS = 200
+# the adjoint kernels' state: the batch after this many steps, on the
+# sphere and folded on itself
+SPHERE_ADJ_STEPS = 300
 # the large-mesh scene (phase 11): a LARGE_GRID x LARGE_GRID cloth of the
 # flagship's physics, B = LARGE_BATCH; the depth of its forward episode and
 # value-and-grad, and of its profiled window (a PD sweep there launches
@@ -1101,9 +1117,10 @@ def phase_gradient(sim, B, card, fwd_sweeps):
     if not ((L > 0).all() and (np.abs(G).max(axis=1) > 0).all()):
         raise AssertionError("a zero loss or gradient")
     # the population's value-and-grad is chunked: its backward recomputes
-    # the forward (phase 3's sweeps twice); every (dK/dv)^T product (a
-    # trip or a GMRES matvec) and every residual VJP recomputes its
-    # forward sweep beside the backward one
+    # the forward (phase 3's sweeps twice); every adjoint program sweeps
+    # forward twice (the linearization, the residual VJP), and every
+    # (dK/dv)^T product (a trip or a GMRES matvec) and residual VJP sweeps
+    # backward once
     check_launches("gradient", launches, N, fwd_sweeps, st, passes=2)
     split = helper.last_split
     log(f"[gradient] {N} steps x B={B} on {card}: {wall:.2f} s, "
@@ -1401,6 +1418,178 @@ def phase_sphere_gradient(task, helper, X, fwd_sweeps, card):
         f"{st['residual_vjps']:.0f} residual VJPs; launches {launches}; "
         f"{split['backward_s'] * 1e3 / st['launches']:.3f} ms backward wall "
         f"per friction_bwd launch")
+    return launches
+
+
+def adjoint_entries(sim, x, v, params, x_fixed, p_inv, t, step_idx):
+    """One step from (x, v) and its backward at a fixed cotangent, on a sim
+    whose programs run uncaptured: the dict its adjoint program read and
+    wrote (its inputs, its start's entries, the linearization of K)."""
+    import torch
+    x = x.detach().clone().requires_grad_(True)
+    x1, v1, aux = sim.step(x, v.detach(), params, x_fixed, p_inv, t,
+                           step_idx)
+    gen = torch.Generator().manual_seed(0)
+    cot = [torch.randn(a.shape, generator=gen, dtype=a.dtype).to(a.device)
+           for a in (x1, v1)]
+    torch.autograd.grad([x1, v1], x, cot)
+    return sim.step.graphs.bind(("adj", x.shape[0], x.dtype, ()), {}), aux
+
+
+def phase_adjoint_kernels(tag, sim, params, x, v, k, suffix=""):
+    """The adjoint's kernels (`csrc/adjoint_linear.cu`) on the entries of
+    the adjoint program of step k + 1 from (x, v) (`sim` uncaptured), each
+    against its plain version exactly and timed beside it (the plain
+    version on the card's tensors) and beside its bound, the larger of
+    its bytes at HBM speed and its operations at the f32 peak.  Returns
+    the JSON line's entries (launches 0: the caller's path counts them)."""
+    import torch
+    from diffcloth_tpu_torch.core import adjoint_linear as al
+    from diffcloth_tpu_torch.core import friction_cuda as fc
+
+    dev = x.device
+    B, n = x.shape[0], sim.n
+    t = torch.tensor((k + 1) * sim.h, dtype=x.dtype, device=dev)
+    xf, p_inv = sim.x_fixed_seq(params)[:, k], sim.p_inv(params)
+    st, aux = adjoint_entries(sim, x, v, params, xf, p_inv, t, k + 1)
+    lin = sim.step.lin
+    counts, split, consts = lin.counts, lin.split, lin.consts
+    T, Bn, F, S = counts
+    R = 2 * T + Bn + F + S
+    y = lin.rows_at(st["x_n"] + sim.h * st["v_new"])
+    obs = None
+    if "kdv_jobs" in st:
+        obs = (aux.f.detach(), st["m"], st["c_normal"], st["c_v_out"],
+               st["c_mask"], st["c_prim"], st["mu"])
+    rng = np.random.RandomState(4)
+    u = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32, device=dev)
+    s = (fc.friction_sweep_bwd(u, st["kdv_vals"], st["ops"])[0]
+         if "kdv_vals" in st else None)
+    jobs = st.get("kdv_jobs")
+    H = 2 if (s is not None or jobs is not None) else 1
+    rows = torch.as_tensor(rng.randn(R, H, B, 3), dtype=torch.float32,
+                           device=dev).permute(1, 2, 0, 3)
+    h2 = sim.h * sim.h
+    lam = torch.as_tensor(rng.randn(B, n, 3), dtype=torch.float32,
+                          device=dev)
+    # deltas far from eps either way: 1e-3 or 1e-7 a coordinate, by turns
+    size = np.where(np.arange(B) % 2 == 0, 1e-3, 1e-7)[:, None, None]
+    nxt = lam + torch.as_tensor(size * rng.randn(B, n, 3),
+                                dtype=torch.float32, device=dev)
+    w_norm = torch.ones(B, device=dev)
+    flags = (torch.ones(B, dtype=torch.int32, device=dev),
+             torch.zeros(B, dtype=torch.bool, device=dev),
+             torch.zeros(B, dtype=torch.bool, device=dev),
+             torch.zeros(B, dtype=torch.bool, device=dev))
+    nh = n / 180.0
+    cpu = (lambda a: None if a is None else a.detach().cpu())
+
+    def err(got, want):
+        got, want = cpu(got), cpu(want)
+        if got.shape != want.shape:
+            raise AssertionError(f"{got.shape} against {want.shape}")
+        return float((got.double() - want.double()).abs().max()
+                     .nan_to_num(float("inf")))
+
+    errs = {}
+    # the row Jacobians as the adjoint stored them, and the kernel's and
+    # the plain version's at its rows; J_obs at the step's last PD sweep's
+    # f (the adjoint's own f is not stored)
+    jac, jo = al.linearize(y, *consts, counts, split, obs)
+    want_jac, want_jo = al.linearize_plain(y, *consts, counts, split, obs)
+    errs["kdv_linearize"] = max(err(jac, want_jac), err(st["kdv_jac"],
+                                                        want_jac))
+    if obs is not None:
+        errs["kdv_linearize"] = max(errs["kdv_linearize"], err(jo, want_jo))
+    zg = al.kdv_pre(u, s, jobs, H, split)
+    want = torch.empty((H, B, n, 3))
+    al.kdv_pre_plain(cpu(u), cpu(s), cpu(jobs), want)
+    errs["kdv_pre"] = err(zg, want)
+    q = al.kdv_rows(rows, st["kdv_jac"], st["k_pertype"], h2, counts, split,
+                    split)
+    want = torch.empty((B, R, 3))
+    al.kdv_rows_plain(cpu(rows), cpu(st["kdv_jac"]), cpu(st["k_pertype"]),
+                      h2, want, counts, split)
+    errs["kdv_rows"] = err(q, want)
+    got = [lam.clone(), nxt, w_norm] + [f.clone() for f in flags]
+    want = [cpu(a).clone() for a in got]
+    al.trip_update(*got, 1e-5, nh)
+    al.trip_update_plain(*want, 1e-5, nh)
+    errs["trip_update"] = max(err(a, b) for a, b in zip(got, want))
+    if not bool(cpu(got[4]).any()) or bool(cpu(got[4]).all()):
+        raise AssertionError(f"[{tag}] trip_update: every episode or none "
+                             f"converged, {cpu(got[4]).tolist()}")
+    bad = {k_: e for k_, e in errs.items() if e != 0.0}
+    if bad:
+        raise AssertionError(f"[{tag}] kernel != plain: {bad}")
+
+    W = al.jac_width(T, Bn, S)
+    on = B * n if obs is not None else 0
+    # bytes each call moves and operations it makes (f32; the stretch
+    # Jacobian's forward mode about 600 a triangle)
+    work = {
+        "kdv_linearize": (4 * (B * R * 3 + T + Bn + S + B * W)
+                          + on * (4 * 19 + 1 + 8),
+                          B * (600 * T + 20 * (Bn + S)) + on * 60),
+        "kdv_pre": (4 * B * n * (3 + 3 * (s is not None)
+                                 + 9 * (jobs is not None) + 3 * H),
+                    B * n * 30),
+        "kdv_rows": (4 * (H * B * R * 3 + B * W + 4 * B + B * R * 3),
+                     B * (90 * T + 25 * (Bn + S) + 3 * F)),
+        "trip_update": (4 * 3 * B * n * 3, 8 * B * n * 3),
+    }
+    calls = {
+        "kdv_linearize": (lambda: al.linearize(y, *consts, counts, split,
+                                               obs),
+                          lambda: al.linearize_plain(y, *consts, counts,
+                                                     split, obs),
+                          "linearize_kernel"),
+        "kdv_pre": (lambda: al.kdv_pre(u, s, jobs, H, split),
+                    lambda: al.kdv_pre_plain(
+                        u, s, jobs, torch.empty((H, B, n, 3), device=dev)),
+                    "pre_kernel"),
+        "kdv_rows": (lambda: al.kdv_rows(rows, st["kdv_jac"],
+                                         st["k_pertype"], h2, counts, split,
+                                         split),
+                     lambda: al.kdv_rows_plain(
+                         rows, st["kdv_jac"], st["k_pertype"], h2,
+                         torch.empty((B, R, 3), device=dev), counts, split),
+                     "rows_kernel"),
+        "trip_update": (lambda: al.trip_update(
+            lam.clone(), nxt, w_norm, *[f.clone() for f in flags], 1e-5,
+            nh),
+            lambda: al.trip_update_plain(
+                lam.clone(), nxt, w_norm, *[f.clone() for f in flags],
+                1e-5, nh),
+            "update_kernel"),
+    }
+    entries = []
+    for name, (fn, plain, sym) in calls.items():
+        ms = device_ms(fn, kernel=sym)
+        plain_ms = device_ms(plain, reps=5)
+        nbytes, ops = work[name]
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+        by = ("bytes" if nbytes / HBM_BYTES_PER_S > ops / F32_FLOPS
+              else "operations")
+        if ms < bound:
+            raise AssertionError(f"[{tag}] {name}: {ms} ms of device time "
+                                 f"per call, below its bound {bound} ms")
+        log(f"[{tag}] {name}: kernel == plain exactly; device ms per call "
+            f"kernel {ms:.5f}, plain {plain_ms:.5f} (profiler); bound "
+            f"{bound:.5f} ({by}: {nbytes / 1e6:.3f} MB, "
+            f"{ops / 1e6:.3f} Mop)")
+        entries.append(dict(
+            name=name + suffix, route="cuda",
+            source="diffcloth_tpu_torch/csrc/adjoint_linear.cu",
+            replaces=None, launches=0, max_abs_err=errs[name], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None))
+    log(f"[{tag}] (B={B}, n={n}, rows {counts}, "
+        f"{'dense split' if split else 'sparse interleaved'}; "
+        f"{int(st['c_mask'].sum()) if 'c_mask' in st else 0} obstacle "
+        f"contacts, {int(st['counts'].sum()) if 'counts' in st else 0} "
+        f"friction slots)")
+    return entries
 
 
 def phase_sphere_profile(B, steps, card, top=8, device=None):
@@ -1555,14 +1744,31 @@ def run_sphere(card, timed):
                       initial_states(task.sim, SPHERE_BATCH),
                       np.random.RandomState(1), mu=X)
     with timed("sphere gradient"):
-        phase_sphere_gradient(task, helper, X, sweeps, card)
+        launches = phase_sphere_gradient(task, helper, X, sweeps, card)
     del task, helper
+    with timed("sphere adjoint kernels"):
+        import torch
+        from diffcloth_tpu_torch.tasks.setup import build_task
+        with demo_steps("sphere", SPHERE_ADJ_STEPS + 1):
+            adj = build_task("sphere", device="cuda", cuda_graphs=False)
+        p = adj.param_base.expand(SPHERE_BATCH)
+        mu = p.mu.clone()
+        mu[:, 0] = torch.as_tensor(X[:, 0], dtype=mu.dtype, device="cuda")
+        p = p.replace(mu=mu)
+        recs = adj.sim.rollout_chunked(p, 50).steps
+        entries = phase_adjoint_kernels(
+            "sphere-adjoint", adj.sim, p, recs.x[:, -2], recs.v[:, -2],
+            SPHERE_ADJ_STEPS)
+        for e in entries:
+            e["launches"] = launches[e["name"]]
+        del adj, recs
     with timed("sphere profile"):
         phase_sphere_profile(SPHERE_BATCH, 10, card)
     with timed("sphere reference"):
         phase_sphere_reference()
     with timed("sphere fit"):
         phase_sphere_fit(card, SPHERE_FIT_STEPS)
+    return entries
 
 
 def large_mesh(dtype, device, steps, grid=LARGE_GRID, **sim_kw):
@@ -1718,11 +1924,12 @@ def phase_large_gradient(sim, B, card, fwd_sweeps):
     if not ((L > 0).all() and (np.abs(G).max(axis=1) > 0).all()):
         raise AssertionError("a zero loss or gradient")
     # chunked: the backward recomputes the forward's sweeps
-    if launches["friction_fwd"] != 2 * fwd_sweeps + st["launches"]:
+    if launches["friction_fwd"] != 2 * fwd_sweeps + 2 * st["residual_vjps"]:
         raise AssertionError(
             f"friction_fwd launched {launches['friction_fwd']} times, not "
-            f"the forward's {fwd_sweeps} twice plus one per adjoint trip, "
-            f"GMRES matvec and residual VJP ({st['launches']:.0f})")
+            f"the forward's {fwd_sweeps} twice plus two per adjoint program "
+            f"(the linearization and the residual VJP, "
+            f"{st['residual_vjps']:.0f} programs)")
     if not (launches["friction_bwd"] == launches["friction_bwd_global"]
             == st["launches"]):
         raise AssertionError(
@@ -1874,6 +2081,16 @@ def run_large_mesh(card, timed):
         bwd = phase_large_gradient(sim, LARGE_BATCH, card,
                                    fwd["friction_fwd"])
     del sim
+    with timed("large adjoint kernels"):
+        sim = large_mesh(torch.float32, "cuda", 1, cuda_graphs=False)
+        p = episode_params(sim, LARGE_BATCH)
+        x0 = torch.as_tensor(initial_states(sim, LARGE_BATCH),
+                             dtype=torch.float32, device="cuda")
+        adj = phase_adjoint_kernels("large-adjoint", sim, p, x0,
+                                    torch.zeros_like(x0), 0, "_large")
+        for e in adj:
+            e["launches"] = bwd[e["name"][:-len("_large")]]
+    del sim
     with timed("large profile"):
         sim = large_mesh(torch.float32, "cuda", LARGE_PROFILE_STEPS)
         phase_profile("large-profile", sim, episode_params(sim, LARGE_BATCH),
@@ -1885,7 +2102,7 @@ def run_large_mesh(card, timed):
         phase_large_parts()
     entries[0]["launches"] = fwd["friction_fwd_global"]
     entries[1]["launches"] = bwd["friction_bwd_global"]
-    return entries
+    return entries + adj
 
 
 def dress_task(steps=None, dtype=None, device=None, **changes):
@@ -1906,10 +2123,13 @@ def dress_task(steps=None, dtype=None, device=None, **changes):
 def check_launches(tag, launches, n_steps, fwd_sweeps, bwd=None, passes=1):
     """Detection once per step, the forward sweep once per PD sweep of the
     forward (`fwd_sweeps`) plus, on a gradient path (bwd: its
-    BackwardStats summary), once per adjoint trip, GMRES matvec and
-    residual VJP, as the backward sweep is; passes=2 for a chunked
-    value-and-grad, whose backward recomputes the forward."""
-    want_fwd = passes * fwd_sweeps + (bwd["launches"] if bwd else 0)
+    BackwardStats summary), twice per adjoint program (the linearization
+    at its start and the residual VJP, one each per residual VJP), and
+    the backward sweep once per adjoint trip, GMRES matvec and residual
+    VJP; passes=2 for a chunked value-and-grad, whose backward recomputes
+    the forward."""
+    want_fwd = passes * fwd_sweeps + (2 * bwd["residual_vjps"] if bwd
+                                      else 0)
     n_steps = passes * n_steps
     if launches["selfcol_detect"] != n_steps:
         raise AssertionError(f"[{tag}] detection launched {launches}, not "
@@ -1917,8 +2137,8 @@ def check_launches(tag, launches, n_steps, fwd_sweeps, bwd=None, passes=1):
     if launches["friction_fwd"] != want_fwd:
         raise AssertionError(f"[{tag}] friction_fwd launched {launches}, not "
                              f"{want_fwd} (the forward's PD sweeps"
-                             + (" plus one per adjoint trip, GMRES matvec "
-                                "and residual VJP)" if bwd else ")"))
+                             + (" plus two per adjoint program)" if bwd
+                                else ")"))
     if bwd and launches["friction_bwd"] != bwd["launches"]:
         raise AssertionError(f"[{tag}] friction_bwd launched {launches}, not "
                              f"once per adjoint trip, GMRES matvec and "
@@ -2748,10 +2968,11 @@ def phase_control_train(card):
     controller's `loss_and_grad` once more with the counters zeroed just
     before and read just after: detection once per step and the forward
     sweep once per PD sweep, both twice (the chunks' backward recomputes
-    each chunk's forward), the forward sweep once more per adjoint trip,
-    GMRES matvec and residual VJP, the backward sweep once per each of
-    those.  Returns (launches, the controller, the temporary directory
-    holding controller.pkl)."""
+    each chunk's forward), the forward sweep twice more per adjoint
+    program (the linearization and the residual VJP), the backward sweep
+    once per adjoint trip, GMRES matvec and residual VJP.  Returns
+    (launches, the controller, the temporary directory holding
+    controller.pkl)."""
     import tempfile
     import torch
     from diffcloth_tpu_torch.apps import hat_controller as hc
@@ -3421,8 +3642,9 @@ def reset_graphs(sim):
 def check_graph_counts(tag, sim, launches, adjoint=None, tp=False,
                        sweeps=True):
     """The programs' bookkeeping against the counters: each PD body holds
-    one forward sweep per PD sweep and each trip body one forward and one
-    backward sweep per trip (kernels per body run equal to its length);
+    one forward sweep per PD sweep and each trip body one backward sweep
+    and the linearized product's kernels per trip (kernels per body run
+    equal to its length);
     in a run without warm-ups, the launches' straight kernels plus the
     bodies' device-counted runs x their kernels are the counters, and the
     trip bodies' runs x length the adjoint's trips (adjoint: its trips);
@@ -3432,9 +3654,11 @@ def check_graph_counts(tag, sim, launches, adjoint=None, tp=False,
     rows = graph_blocks(sim)
     for (name, k), (runs, _, kern) in rows.items():
         want = {"pd": {"friction_fwd": k},
-                "trips": {"friction_fwd": k, "friction_bwd": k}}.get(name)
+                "trips": {"friction_bwd": k, "kdv_pre": k, "kdv_rows": k,
+                          "trip_update": k}}.get(name)
         if want is not None and not sweeps:
-            want = {}
+            want = ({"kdv_pre": k, "kdv_rows": k, "trip_update": k}
+                    if name == "trips" else {})
         if want is not None and tp:
             want = dict(want, peer_exchange=k)
         got = {n: c for n, c in kern.items()
@@ -4476,7 +4700,7 @@ def run_paths(only, args, card):
     if "capacity" in only:
         kernels += phase_capacity(card, timed)
     if "sphere" in only:
-        run_sphere(card, timed)
+        kernels += run_sphere(card, timed)
     if "large" in only:
         kernels += run_large_mesh(card, timed)
     if "dress" in only:

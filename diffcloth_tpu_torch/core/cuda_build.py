@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
 # every kernel source of the port
 KERNELS = ("selfcol_detect", "friction_fwd", "friction_bwd", "hessenberg_lstsq",
-           "graph_program", "peer_exchange")
+           "graph_program", "peer_exchange", "adjoint_linear")
 
 # --fmad=false: no multiply-add contraction, so a kernel's f32 arithmetic
 # rounds op for op like its plain PyTorch version (detection hits at the

@@ -24,7 +24,8 @@ import torch
 SWEEP_ROUTES = ("", "_global", "_stream", "_global_stream")
 SLOTS = (tuple("friction_fwd" + r for r in SWEEP_ROUTES)
          + tuple("friction_bwd" + r for r in SWEEP_ROUTES)
-         + ("selfcol_detect", "hessenberg_lstsq", "peer_exchange"))
+         + ("selfcol_detect", "hessenberg_lstsq", "peer_exchange",
+            "kdv_linearize", "kdv_pre", "kdv_rows", "trip_update"))
 _INDEX = {k: i for i, k in enumerate(SLOTS)}
 _counts = {}      # device index -> (len(SLOTS),) int64 tensor
 _zero = [0] * len(SLOTS)   # the device values at the last zero()

@@ -59,10 +59,14 @@ fixed point lambda <- P^{-1}(w + (dK/dv)^T lambda) with K(v) =
 b~(x_n + h v) + r(f(v)), capped at max_backward_iters, with a GMRES(16)
 fallback of up to 3 cycles; in mode "gmres" by restarted GMRES(m) on the
 preconditioned system, each cycle judged by its true residual.  One VJP of
-R then gives every gradient.  Each (dK/dv)^T product recomputes K at v_new
-and takes one `torch.autograd.grad` of it, its friction part the forward
-and the backward sweep kernel (`friction_cuda.FrictionSweep`).  `StepFn`
-(a `torch.autograd.Function`) is the counterpart of the step's
+R then gives every gradient.  K is linearized once per adjoint program, at
+its start, at the step's v_new (`adjoint_linear.py`): the per-row Jacobians
+of the projections, the obstacle friction's per-particle 3 x 3 and the
+`vals` of one forward friction sweep.  Each (dK/dv)^T product then applies
+that linearization's transpose: the backward sweep kernel, a kernel that
+folds the friction into [z | g], a GEMM by the constraint operators, a
+per-row kernel, and the transposed GEMM (`kdv`).  `StepFn` (a
+`torch.autograd.Function`) is the counterpart of the step's
 `jax.custom_vjp`.
 
 Everything is batched over a leading dim B: where the JAX package vmaps a
@@ -93,6 +97,7 @@ import torch
 
 from diffcloth_tpu_torch.config import (GRAVITY, SimFlags, WindConfig,
                                         pd_total_iters)
+from diffcloth_tpu_torch.core import adjoint_linear as al
 from diffcloth_tpu_torch.core import contact as ct
 from diffcloth_tpu_torch.core import dense_ops as dn
 from diffcloth_tpu_torch.core import friction_cuda as fc
@@ -200,10 +205,13 @@ STAT_FIELDS = (
     "lane_steps",       # (episode, step) pairs with a nonzero cotangent
     "lane_trips",       # their fixed-point trips (GMRES cycles)
     "fallback_lanes",   # of them that fell to the GMRES fallback
-    "slot_launches",    # active friction slots over all launches
+    "slot_launches",    # active friction slots over the backward sweep's
+#                         launches (one per product and per residual VJP)
     "cg_solves",        # CG solves over the batch (solve_mode "cg")
-    "cg_iters")         # their iterations, summed over the episodes (a
+    "cg_iters",         # their iterations, summed over the episodes (a
 #                         trip's only where the episode is active)
+    "linear_products")  # (dK/dv)^T products taken through the step's
+#                         linearization (trips and GMRES matvecs)
 _STAT = {k: i for i, k in enumerate(STAT_FIELDS)}
 
 
@@ -211,11 +219,12 @@ class BackwardStats:
     """Counters of the adjoint (STAT_FIELDS), summed over `step_bwd` calls
     since the last `reset()`.  They are counted on the device, by the
     adjoint's own segments, so that a captured adjoint counts what it ran
-    (a loop's iterations are known only there).  Every (dK/dv)^T product
-    (a fixed-point trip or a GMRES matvec) and every residual VJP launches
-    the forward and the backward friction sweep once each for the whole
-    batch when self-collision is on.  `trips` counts the trips the blocks
-    ran, masked ones included."""
+    (a loop's iterations are known only there).  With self-friction on,
+    every (dK/dv)^T product (a fixed-point trip or a GMRES matvec) launches
+    the backward friction sweep once for the whole batch, at the `vals`
+    of the one forward sweep the adjoint's start makes to linearize K; the
+    residual VJP launches both sweeps once.  `trips` counts the trips the
+    blocks ran, masked ones included."""
 
     def __init__(self):
         self.vec = None     # (len(STAT_FIELDS),) f64 on the sim's device
@@ -381,7 +390,6 @@ class StepFn(torch.autograd.Function):
 # the loops' carries, written back in place by their blocks
 PD_CARRY = ("x_now", "v_now", "best_x", "best_v", "min_xd", "it", "cg_it",
             "done", "strict", "since", "f", "r")
-TRIP_CARRY = ("lam", "it", "done", "bad", "cg_sum", "n_kdv")
 # the SimParams fields a step reads (x0, v0 and the splines it does not)
 STEP_PARAMS = ("k_pertype", "density", "mu", "wind", "wind_freq",
                "wind_phase", "wind_perstep", "force_field")
@@ -818,13 +826,118 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                                  st.get("ops"), st["mu"], m)
 
     def vjp_k(st, u):
-        """(dK/dv)^T u at the step's v_new.  K's forward is recomputed for
-        each product (one forward friction sweep beside the backward one),
-        so that a captured segment holds both: autograd cannot replay
-        inside a graph the backward of a forward recorded outside it."""
+        """(dK/dv)^T u at the step's v_new by autograd: K recomputed (its
+        dense products, projections and a forward friction sweep) and
+        `torch.autograd.grad` taken of it.  Not on the adjoint's path, which
+        applies the linearization (`kdv`): the plain product the tests hold
+        `kdv` to (`step.vjp_k` and `step.kdv` on an uncaptured adjoint's
+        entries)."""
         with torch.enable_grad():
             vn = st["v_new"].detach().requires_grad_(True)
             return torch.autograd.grad(k_map(vn, st), vn, u)[0]
+
+    # -- the linearized K map (adjoint_linear.py) ----------------------------
+
+    # K's friction part: obstacle friction or self-friction (with neither,
+    # K = b~ and a product reads z = u alone)
+    lin_fric = use_obstacles or self_fric
+    if dense is not None:
+        # the four row blocks stacked (stretch rows split), so that one GEMM
+        # applies A, and one its transpose, to a product's [z | g]: a copy
+        # of the operators (10 MB on the sphere), where one GEMM per block
+        # costs two launches more a trip (on an H100, 77 against 66 us a
+        # trip of the sphere)
+        A_all = torch.cat([dense.A_s, dense.A_b, dense.A_a, dense.A_sp])
+        lin_counts = (dense.A_s.shape[0] // 2, dense.A_b.shape[0],
+                      dense.A_a.shape[0], dense.A_sp.shape[0])
+        lin_consts = (dense.tri_sw, dense.b_scale, dense.sp_l0)
+    else:
+        # the sparse route's projections are those of its own rows (y = A x
+        # is sqrt(area) F for stretch, sqrt(3 / area) e for bending, the
+        # polar factor and the normalization invariant to either scale);
+        # stretch rows interleaved
+        A_all = None
+        two_t, n_b, n_f, n_s = sparse.n_rows
+        lin_counts = (two_t // 2, n_b, n_f, n_s)
+        lin_consts = (torch.sqrt(scene.tri_area),
+                      torch.where(scene.b_n_rest <= 1e-6, 0.0,
+                                  scene.b_n_rest * scene.b_sw),
+                      scene.sp_l0)
+    lin_rows = 2 * lin_counts[0] + sum(lin_counts[1:])
+
+    def rows_at(x):
+        """A x for every row block: the logical (..., R, 3) rows."""
+        if A_all is None:
+            return torch.cat(spo.apply_A(sparse, x), dim=-2)
+        B = x.shape[0]
+        y = A_all @ x.transpose(0, 1).reshape(n, 3 * B)
+        return y.view(lin_rows, B, 3).transpose(0, 1)
+
+    def linearize(st) -> None:
+        """K's transposed linearization at v_new, once per adjoint program,
+        into the adjoint's own entries: "kdv_jac" the per-row Jacobians of
+        the projections at x_n + h v_new, "kdv_jobs" the obstacle
+        friction's per-particle 3 x 3 at the step's frozen contacts, and
+        "kdv_vals" the selects of the one forward friction sweep, at f =
+        b~ - C v_new plus the obstacle friction (what K's own sweep reads)."""
+        kp, m, v_new = st["k_pertype"], st["m"], st["v_new"]
+        x_eval = st["x_n"] + h * v_new
+        out, obstacles = {}, None
+        if lin_fric:
+            f = (btilde_of(kp, m, st["f_ext"], st["v_n"], x_eval,
+                           st["x_fixed"], y_of(st)) - apply_C(kp, v_new))
+            if use_obstacles:
+                obstacles = (f, m, st["c_normal"], st["c_v_out"],
+                             st["c_mask"], st["c_prim"], st["mu"])
+            if self_fric:
+                r0 = (ct.obstacle_friction(f, contact_of(st), m, st["mu"])
+                      if use_obstacles else torch.zeros_like(f))
+                out["kdv_vals"] = fc.friction_sweep(
+                    (f + r0).to(torch.float32).contiguous(), st["ops"])[1]
+        jac, jobs = al.linearize(rows_at(x_eval), *lin_consts, lin_counts,
+                                 A_all is not None, obstacles)
+        out["kdv_jac"] = jac
+        if jobs is not None:
+            out["kdv_jobs"] = jobs
+        graphs.store(st, out)
+
+    def kdv(st, u, add=None):
+        """(dK/dv)^T u at v_new through the linearization (`linearize`):
+        with g = J_r^T u the friction's transposed Jacobian (the backward
+        sweep at "kdv_vals", then J_obs) and z = u + g,
+
+            (dK/dv)^T u = h^2 sum_t k_t A_t^T (J_t^T A_t z - A_t g),
+
+        `kdv_pre`, one GEMM by the stacked rows, `kdv_rows` and the
+        transposed GEMM (the sparse route: its gathers).  u (B, n, 3);
+        `add` (n, 3 B) node-major, added in the last GEMM.  Returns the
+        logical (B, n, 3) (node-major in memory on the dense route)."""
+        B = u.shape[0]
+        s = None
+        if self_fric:
+            s = fc.friction_sweep_bwd(u.to(torch.float32).contiguous(),
+                                      st["kdv_vals"], st["ops"])[0]
+        H = 2 if lin_fric else 1
+        zg = al.kdv_pre(u, s, st.get("kdv_jobs"), H, A_all is not None)
+        if A_all is None:
+            q = al.kdv_rows(torch.cat(spo.apply_A(sparse, zg), dim=-2),
+                            st["kdv_jac"], st["k_pertype"], h2, lin_counts,
+                            False, False)
+            out = sum(op.At(part) for op, part in zip(
+                (sparse.s, sparse.b, sparse.a, sparse.sp),
+                torch.split(q, list(sparse.n_rows), dim=1)))
+            if add is not None:
+                out = out + add.view(n, B, 3).transpose(0, 1)
+            return out
+        # zg is node-major: (n, H B 3) for the GEMM without a copy
+        y = A_all @ zg.permute(2, 0, 1, 3).reshape(n, H * B * 3)
+        q = al.kdv_rows(y.view(lin_rows, H, B, 3).permute(1, 2, 0, 3),
+                        st["kdv_jac"], st["k_pertype"], h2, lin_counts, True,
+                        True)
+        q = q.transpose(0, 1).reshape(lin_rows, 3 * B)
+        out = (A_all.t() @ q if add is None
+               else torch.addmm(add, A_all.t(), q))
+        return out.view(n, B, 3).transpose(0, 1)
 
     # -- the implicit adjoint ------------------------------------------------
 
@@ -844,13 +957,14 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
             """(dR/dv)^T u = P u - (dK/dv)^T u."""
             made.append(1)
             return (st["m"][..., None] * u + apply_C(st["k_pertype"], u)
-                    - vjp_k(st, u))
+                    - kdv(st, u))
 
         return P_inv, vjp_v, (lambda u: P_inv(vjp_v(u))), made
 
     def count_matvecs(st, made) -> None:
         if made:
             _count(st, "gmres_matvecs", len(made))
+            _count(st, "linear_products", len(made))
             st["n_kdv"] += len(made)
 
     def adj_start(st) -> None:
@@ -877,6 +991,7 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
         graphs.store(st, dict(start_entries(st, params), w=w,
                               w_norm=w_norm, live=live))
         bind_ops(st)
+        linearize(st)
         P_inv, vjp_v, op_pre, made = adjoint_ops(st)
         b_pre = P_inv(w)
         out = dict(b_pre=b_pre, n_kdv=torch.zeros((), dtype=torch.int64,
@@ -890,7 +1005,10 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
                        cycles=torch.zeros(B, dtype=torch.int32,
                                           device=w.device))
         else:
-            out.update(lam=b_pre.clone(),
+            # lam contiguous (the trips update it in place), w node-major
+            # (the trips add it in their last GEMM)
+            out.update(lam=b_pre.clone(memory_format=torch.contiguous_format),
+                       kdv_w=w.transpose(0, 1).reshape(n, 3 * B),
                        it=torch.ones(B, dtype=torch.int32, device=w.device),
                        done=~live, bad=torch.zeros_like(live),
                        go=live.clone(),
@@ -901,27 +1019,21 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
 
     def trip_block(st, k: int) -> None:
         """k masked fixed-point trips (the body of step.py:774's
-        while_loop, per episode) on the adjoint's carry in st, written back
-        in place."""
-        lam, it, done, bad, cg_sum, n_kdv = (st[name] for name in TRIP_CARRY)
+        while_loop, per episode) on the adjoint's carry in st, in place:
+        each the linearized product with w added (`kdv`), the solve, and
+        the masked convergence update (`adjoint_linear.trip_update`)."""
+        lam, it, done, bad, go = (st[name] for name in
+                                  ("lam", "it", "done", "bad", "go"))
         for _ in range(k):
-            act = ~(done | bad)
-            lam_next, cg_k = solve(st, st["w"] + vjp_k(st, lam),
+            lam_next, cg_k = solve(st, kdv(st, lam, st["kdv_w"]),
                                    block_checks)
-            delta = _frob(lam_next - lam) / nh
-            bad_k = ~torch.isfinite(delta) | (
-                _frob(lam_next) > 1e8 * (st["w_norm"] + 1e-30))
-            lam = torch.where(act[:, None, None], lam_next, lam)
-            it = it + act.to(torch.int32)
-            done = torch.where(act, delta < eps_backward, done)
-            bad = torch.where(act, bad_k, bad)
             if cg_k is not None:
-                cg_sum = cg_sum + torch.where(act, cg_k, 0)
-        for name, val in zip(TRIP_CARRY, (lam, it, done, bad, cg_sum,
-                                          n_kdv + k)):
-            st[name].copy_(val)
-        st["go"].copy_(~(done | bad))
+                st["cg_sum"].add_(torch.where(done | bad, 0, cg_k))
+            al.trip_update(lam, lam_next, st["w_norm"], it, done, bad, go,
+                           eps_backward, nh)
+        st["n_kdv"].add_(k)
         _count(st, "trips", k)
+        _count(st, "linear_products", k)
         if uses_cg:
             _count(st, "cg_solves", k)
 
@@ -1074,4 +1186,10 @@ def make_step(scene: SceneDev, dense: Optional[dn.DenseOps],
 
     step.bwd_stats = stats
     step.graphs = graphs
+    # the product the trips take, the autograd one the tests hold it to, and
+    # the operands of its linearization, for checks of its kernels
+    step.kdv, step.vjp_k = kdv, vjp_k
+    step.lin = types.SimpleNamespace(rows_at=rows_at, counts=lin_counts,
+                                     split=A_all is not None,
+                                     consts=lin_consts)
     return step, residual

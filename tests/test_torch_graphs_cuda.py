@@ -136,12 +136,13 @@ def test_graphed_equals_uncaptured(card, path):
     assert sb.graphs[0].summary() == {}
     assert sum(b["launches"] for b in summary.values()) > 0
     # every PD body holds one forward sweep per sweep, every trip body one
-    # forward and one backward sweep per trip
+    # backward sweep and the linearized product's kernels per trip
     for key, b in summary.items():
         for loop in b["loops"]:
             k = loop["every"]
             want = {"pd": {"friction_fwd": k},
-                    "trips": {"friction_fwd": k, "friction_bwd": k}}
+                    "trips": {"friction_bwd": k, "kdv_pre": k,
+                              "kdv_rows": k, "trip_update": k}}
             if loop["name"] in want:
                 assert {n: c for n, c in loop["kernels"].items()
                         if not n.endswith("_global")} == want[
